@@ -7,8 +7,11 @@ main pipeline:
   core     — event repositories, Algorithm 1 DFG, dicing, views, streaming
              (out-of-core) mining, discovery
   data     — the synthetic BPI-like log generator
-  kernels  — hand-written CUDA kernels (dfg_count)
-  query    — the declarative DFG query engine, ``Q.log(...).dfg()``
+  graph    — the event-knowledge graph store (CSR), its snapshots and
+             topology sinks
+  kernels  — hand-written CUDA kernels (dfg_count, segment_count)
+  query    — the declarative query engine, ``Q.log(...).dfg()``,
+             ``.histogram()``, ``.process_map()``, ``.neighborhood()``
   obs      — per-query traces and metrics
   launch   — the mining CLI (``python -m repro_torch.launch.mine``)
 

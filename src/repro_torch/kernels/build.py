@@ -7,8 +7,8 @@ a build takes seconds.  The library name carries a digest of the source and
 the flags, so an edited source is never served from a stale build.
 
 Nothing here runs at import time: the first kernel launch (or an explicit
-:func:`build`) compiles.  There is one source today; when a second arrives,
-its ``nvcc`` should start together with the first rather than after it.
+:func:`build_all`) compiles.  :func:`build_all` starts one ``nvcc`` per
+source, all together, and waits for them all.
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["SOURCES", "BuildRecord", "build", "load", "find_nvcc"]
+__all__ = ["SOURCES", "BuildRecord", "build", "build_all", "load", "find_nvcc"]
 
 _PKG = Path(__file__).resolve().parent
 #: repo root for a source checkout (``src/repro_torch/kernels`` → root)
@@ -33,6 +33,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 #: kernel library name → CUDA source
 SOURCES: Dict[str, Path] = {
     "dfg_count": _PKG / "dfg_count" / "csrc" / "dfg_count.cu",
+    "segment_count": _PKG / "segment_count" / "csrc" / "segment_count.cu",
 }
 
 NVCC_FLAGS = [
@@ -72,36 +73,47 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> BuildRecord:
-    """Compile library ``name`` unless it is on disk already.  Raises with
-    the compiler's output when ``nvcc`` fails."""
+def build_all(names: Optional[Sequence[str]] = None) -> List[BuildRecord]:
+    """Compile the libraries ``names`` (default: every source) that are not
+    on disk yet, one ``nvcc`` each, all started together.  Raises with the
+    compiler's output when an ``nvcc`` fails."""
+    names = list(SOURCES if names is None else names)
     with _lock:
-        rec = _records.get(name)
-        if rec is not None:
-            return rec
-        out = _target(name)
-        if out.exists():
-            rec = BuildRecord(name, out, 0.0, "(already built)")
-        else:
+        started = {}
+        for name in names:
+            if name in _records or name in started:
+                continue
+            out = _target(name)
+            if out.exists():
+                _records[name] = BuildRecord(name, out, 0.0, "(already built)")
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )
+            started[name] = (proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in started.items():
+            log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}"
-                )
+                failed.append(f"nvcc failed for {name} (exit "
+                              f"{proc.returncode}):\n{log}")
+                continue
             os.replace(tmp, out)
-            rec = BuildRecord(
-                name, out, time.perf_counter() - t0, proc.stdout.strip()
+            _records[name] = BuildRecord(
+                name, out, time.perf_counter() - t0, log.strip()
             )
-        _records[name] = rec
-        return rec
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [_records[name] for name in names]
+
+
+def build(name: str) -> BuildRecord:
+    """Compile library ``name`` unless it is on disk already."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

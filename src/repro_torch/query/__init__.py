@@ -10,6 +10,14 @@ One entry point::
     result.names        # its activity (or group) labels
     result.from_cache   # True when served from the plan/result cache
 
+    Q.log(repo).using(engine).histogram()          # events per activity
+    Q.log(repo).using(engine).process_map(top=0.2) # significance-filtered map
+    Q.log(repo).using(engine).neighborhood("a", k=2, direction="both")
+
+Topology sinks route to the event-knowledge graph store
+(:mod:`repro_torch.graph`) once a source has been queried often enough, or
+when pinned with ``backend="graph"``.
+
 The chain compiles to a logical plan (:mod:`repro_torch.query.ast`), is
 rewritten by count-preserving rules (:mod:`repro_torch.query.optimize`),
 mapped to a physical backend by a small cost model
@@ -23,13 +31,24 @@ from .ast import (
     Activities,
     ApplyView,
     DFGSink,
+    HistogramSink,
     LogicalPlan,
+    NeighborhoodSink,
+    ProcessMapSink,
     Q,
     Query,
     QueryPlanError,
+    TOPOLOGY_SINKS,
     Window,
 )
-from .cache import QueryCache, fingerprint, fingerprint_memmap, fingerprint_repository
+from .cache import (
+    MemmapFingerprint,
+    QueryCache,
+    fingerprint,
+    fingerprint_memmap,
+    fingerprint_repository,
+    parse_memmap_fingerprint,
+)
 from .execute import (
     EngineStats,
     QueryEngine,
@@ -39,16 +58,25 @@ from .execute import (
     set_default_engine,
 )
 from .optimize import canonicalize
-from .planner import PhysicalPlan, SourceInfo, plan_physical, source_info
+from .planner import (
+    GRAPH_REPEAT_CROSSOVER,
+    PhysicalPlan,
+    SourceInfo,
+    device_memory_budget,
+    plan_physical,
+    source_info,
+)
 
 __all__ = [
     "Q", "Query", "QueryPlanError",
     "Window", "EMPTY_WINDOW", "Activities", "ApplyView", "DFGSink",
+    "HistogramSink", "ProcessMapSink", "NeighborhoodSink", "TOPOLOGY_SINKS",
     "LogicalPlan",
     "QueryCache", "fingerprint", "fingerprint_memmap",
-    "fingerprint_repository",
+    "fingerprint_repository", "MemmapFingerprint", "parse_memmap_fingerprint",
     "QueryEngine", "QueryResult", "EngineStats",
     "default_engine", "set_default_engine", "repository_from_memmap",
     "canonicalize",
     "plan_physical", "PhysicalPlan", "SourceInfo", "source_info",
+    "device_memory_budget", "GRAPH_REPEAT_CROSSOVER",
 ]

@@ -20,7 +20,10 @@ Grammar (this slice of the port)::
             | Activities(keep)          -- keep only these activities (a
                                            pair predicate, paper semantics)
             | ApplyView(mapping)        -- access-control projection (§2.2)
-    sink   := DFGSink(backend)
+    sink   := DFGSink(backend)          -- Ψ (Algorithm 1)
+            | HistogramSink(backend)    -- per-activity event counts
+            | ProcessMapSink(top, edge_top, backend)
+            | NeighborhoodSink(activity, k, direction, backend)
 
 The reference package's other operators, sinks and sources raise
 :class:`QueryPlanError` naming the ROADMAP item that ports them.
@@ -43,6 +46,10 @@ __all__ = [
     "Activities",
     "ApplyView",
     "DFGSink",
+    "HistogramSink",
+    "ProcessMapSink",
+    "NeighborhoodSink",
+    "TOPOLOGY_SINKS",
     "LogicalPlan",
     "Query",
     "Q",
@@ -147,7 +154,48 @@ class DFGSink:
     backend: str = "auto"
 
 
-Sink = DFGSink
+@dataclasses.dataclass(frozen=True)
+class HistogramSink:
+    """Per-activity event counts (the aggregate-only histogram endpoint).
+    ``backend`` pins the physical operator like :class:`DFGSink`:
+    ``"graph"`` serves the counts from the stored ``:OF_TYPE`` in-degrees
+    (windowed: from the graph's time index) instead of rescanning."""
+
+    backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMapSink:
+    """ProFIT-style significance-filtered process map: the top ``top``
+    fraction of Activity nodes by event frequency, then the top
+    ``edge_top`` (default ``top``) fraction of ``:DF`` edges among them —
+    the sink the graph tier makes a store lookup.  ``backend`` pins the
+    physical operator like :class:`DFGSink` (``"graph"`` forces the CSR
+    store)."""
+
+    top: float = 0.2
+    edge_top: Optional[float] = None
+    backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborhoodSink:
+    """k-hop ``:DF`` neighborhood of one activity (``direction`` ∈
+    out | in | both): reached activities with hop distances plus the
+    induced edge subgraph.  Under a view, ``activity`` names a visible
+    group label."""
+
+    activity: str
+    k: int = 1
+    direction: str = "out"
+    backend: str = "auto"
+
+
+Sink = Union[DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink]
+
+#: sinks answered from the aggregated :DF topology — the graph backend's
+#: domain (and the planner's amortization candidates)
+TOPOLOGY_SINKS = (DFGSink, ProcessMapSink, NeighborhoodSink)
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +240,8 @@ class LogicalPlan:
 
 class Query:
     """Immutable fluent chain.  Non-terminal methods return a new Query;
-    the terminal :meth:`dfg` hands the plan to a
+    terminal methods (:meth:`dfg`, :meth:`histogram`, :meth:`process_map`,
+    :meth:`neighborhood`) hand the plan to a
     :class:`repro_torch.query.execute.QueryEngine`."""
 
     def __init__(self, source, ops: Tuple[Op, ...] = (), engine=None):
@@ -235,16 +284,42 @@ class Query:
         return self._run(DFGSink(backend=backend))
 
     def histogram(self, backend: str = "auto"):
-        raise not_ported("the histogram sink", 4)
+        return self._run(HistogramSink(backend=backend))
 
     def variants(self, k: Optional[int] = None):
         raise not_ported("the variants sink", 4)
 
-    def process_map(self, *args, **kwargs):
-        raise not_ported("the process_map sink", 7)
+    def process_map(
+        self,
+        top: float = 0.2,
+        edge_top: Optional[float] = None,
+        backend: str = "auto",
+    ):
+        """Significance-filtered process map (top-fraction nodes/edges) —
+        served from the CSR graph store once one is built."""
+        return self._run(ProcessMapSink(
+            top=float(top),
+            edge_top=float(edge_top) if edge_top is not None else None,
+            backend=backend,
+        ))
 
-    def neighborhood(self, *args, **kwargs):
-        raise not_ported("the neighborhood sink", 7)
+    def neighborhood(
+        self,
+        activity: str,
+        k: int = 1,
+        direction: str = "out",
+        backend: str = "auto",
+    ):
+        """k-hop ``:DF`` successor/predecessor neighborhood of
+        ``activity``."""
+        if direction not in ("out", "in", "both"):
+            raise QueryPlanError(
+                f"direction must be out|in|both, got {direction!r}"
+            )
+        return self._run(NeighborhoodSink(
+            activity=str(activity), k=int(k), direction=direction,
+            backend=backend,
+        ))
 
     def fitness(self, model=None, backend: str = "auto"):
         raise not_ported("the fitness sink", 9)

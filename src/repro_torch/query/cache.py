@@ -39,6 +39,8 @@ __all__ = [
     "fingerprint_repository",
     "fingerprint_memmap",
     "prefix_digest",
+    "MemmapFingerprint",
+    "parse_memmap_fingerprint",
     "QueryCache",
     "CacheStats",
 ]
@@ -105,7 +107,7 @@ def prefix_digest(
     The sample positions depend only on ``n`` (head, tail-of-prefix, and a
     stride over ``[0, n)``), so the digest is recomputable on any log that
     still contains those rows — the basis of the append-only proof the
-    delta path will use."""
+    graph store's extension uses (and the delta path will use)."""
     n = log.num_events if n is None else int(n)
     if not 0 <= n <= log.num_events:
         raise ValueError(f"prefix of {n} rows on a {log.num_events}-row log")
@@ -119,6 +121,15 @@ def prefix_digest(
         if stride > 1:
             h.update(np.ascontiguousarray(col[:n:stride]).tobytes())
     return h.hexdigest()[:32]
+
+
+@dataclasses.dataclass(frozen=True)
+class MemmapFingerprint:
+    """Structured form of a memmap fingerprint string."""
+
+    prefix: str
+    num_events: int
+    num_activities: int
 
 
 #: stat-validated fingerprint memo — every query fingerprints its source,
@@ -171,6 +182,18 @@ def fingerprint_memmap(log: MemmapLog, sample_rows: int = 4096) -> str:
             while len(_fp_memo) > _FP_MEMO_MAX:
                 _fp_memo.popitem(last=False)
     return fp
+
+
+def parse_memmap_fingerprint(fp: str) -> Optional[MemmapFingerprint]:
+    """``memmap:<prefix_digest>:<rows>:<A>`` → its parts (None for any other
+    string) — what the graph store's append-only proof compares against."""
+    if not fp.startswith("memmap:"):
+        return None
+    try:
+        _, prefix, n, a = fp.split(":")
+        return MemmapFingerprint(prefix, int(n), int(a))
+    except ValueError:
+        return None
 
 
 def fingerprint(source) -> str:

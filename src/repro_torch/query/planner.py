@@ -6,6 +6,9 @@ picks the strategy, not the analyst):
 ========================  =====================================================
 situation                 physical operator
 ========================  =====================================================
+graph built / amortized   ``graph`` — un-windowed topology sinks (DFG,
+                          process map, neighborhood) answered from the CSR
+                          event-knowledge graph store (repro_torch.graph)
 memmap log > budget       ``streaming`` scan (O(A²+chunk) memory), window
                           pushed to a **row range** via the chunk time index
 memmap log ≤ budget       materialize once, then the device path below
@@ -17,9 +20,15 @@ engine on a CUDA card     ``kernel`` — the hand-written CUDA count; a time
                           (``dfg_count_diced``)
 ========================  =====================================================
 
-The thresholds are the static constants below.  The reference package's
-calibration records were measured on other hardware, so the port reads none
-of them; a port benchmark will measure its own crossovers.
+Histograms count on the host: ``numpy`` over a repository, a chunked
+``streaming`` bincount over a memmap log, or the graph store's ``:OF_TYPE``
+degrees when pinned to ``graph``.
+
+The thresholds are the static constants below, except the memory budget,
+which a CUDA engine takes from the card and the host
+(:func:`device_memory_budget`).  The reference package's calibration
+records were measured on other hardware, so the port reads none of them; a
+port benchmark will measure its own crossovers.
 
 Pushdown decisions recorded on the :class:`PhysicalPlan`:
 
@@ -42,12 +51,16 @@ from typing import Optional, Tuple
 
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog
+from repro_torch.kernels.dfg_count.ops import MAX_ACTIVITIES, MAX_PAIRS
 
 from .ast import (
     Activities,
     ApplyView,
     DFGSink,
+    HistogramSink,
     LogicalPlan,
+    NeighborhoodSink,
+    ProcessMapSink,
     QueryPlanError,
     Window,
     not_ported,
@@ -60,16 +73,65 @@ __all__ = [
     "plan_physical",
     "TINY_PAIRS",
     "MEMORY_BUDGET_EVENTS",
+    "GRAPH_REPEAT_CROSSOVER",
+    "device_memory_budget",
 ]
 
 #: below this many pairs, numpy on the host beats a device round trip
 TINY_PAIRS = 2048
-#: above this many events a memmap log is mined out-of-core
+#: above this many events a memmap log is mined out-of-core (a CPU engine's
+#: budget, and the least a CUDA engine's measured budget can be)
 MEMORY_BUDGET_EVENTS = 1 << 22
+#: repeated topology-query misses on one source after which building the
+#: event-knowledge graph amortizes (the reference's static default)
+GRAPH_REPEAT_CROSSOVER = 3
 
-_DFG_BACKENDS = {"auto", "numpy", "scatter", "onehot", "kernel", "streaming"}
+#: device bytes per event that ``QueryEngine._count`` uploads: the int32
+#: activity column (4 B), the bool valid column (1 B) and, for a fused
+#: dice, the f64 time column (8 B)
+DEVICE_BYTES_PER_EVENT = 13
+#: device bytes held apart for the int64 Ψ output, 8·A², at the widest
+#: vocabulary the count kernel takes
+DEVICE_RESERVED_BYTES = 8 * MAX_ACTIVITIES * MAX_ACTIVITIES
+#: host bytes per event an in-budget memmap log holds at the peak of its
+#: columnar queries and graph build, counted from the code:
+#:  * resident once built, 76 B: the engine's materialized repository
+#:    (int32 activity + int32 trace + f64 time, 16 B); the graph's own
+#:    ``_event_tables`` (its copy of those columns, 16 B, + the int64
+#:    ``act_events``, 8 B); the graph's ``WindowIndex`` (f64 etimes,
+#:    pt_src, pt_dst + int32 eacts, psrc, pdst: 36 B);
+#:  * transient, the largest step, 68 B: ``build_window_index`` (two int64
+#:    sort orders, 16 B, and their sort scratch, 16 B; the int64 pair index
+#:    and its shift, 16 B; the f64 t_src / t_dst gathers, 16 B; int32
+#:    gathers, 4 B).  ``repository_from_memmap`` peaks higher (72 B: chunk
+#:    copies 16, concatenated and permuted columns 32, int64 arange and
+#:    lexsort order 16, sort scratch 8) but runs before the index exists;
+#: 76 + 68 = 144 B, rounded up to 160 B for the bool masks beside them
+HOST_BYTES_PER_EVENT = 160
+
+
+def device_memory_budget(device_free_bytes: int, host_free_bytes: int) -> int:
+    """The memory budget (events) of a CUDA engine: the largest event count
+    whose device columns (:data:`DEVICE_BYTES_PER_EVENT`, plus
+    :data:`DEVICE_RESERVED_BYTES`) fit half the card's free bytes, whose host
+    materialization (:data:`HOST_BYTES_PER_EVENT`) fits half the host's
+    free bytes, and whose pairs the count kernel takes in one launch —
+    never less than :data:`MEMORY_BUDGET_EVENTS`."""
+    device = (
+        (int(device_free_bytes) // 2 - DEVICE_RESERVED_BYTES)
+        // DEVICE_BYTES_PER_EVENT
+    )
+    host = (int(host_free_bytes) // 2) // HOST_BYTES_PER_EVENT
+    return max(MEMORY_BUDGET_EVENTS, min(device, host, MAX_PAIRS + 1))
+
+
+_DFG_BACKENDS = {
+    "auto", "numpy", "scatter", "onehot", "kernel", "streaming", "graph",
+}
 #: reference backends that later slices port (ROADMAP Queue A item)
-_LATER_BACKENDS = {"distributed": 6, "graph": 7, "sharded-graph": 8}
+_LATER_BACKENDS = {"distributed": 6, "sharded-graph": 8}
+#: sinks the planner maps (the reference's other sinks are later items)
+_SINKS = (DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +165,7 @@ def source_info(source) -> SourceInfo:
 
 @dataclasses.dataclass(frozen=True)
 class PhysicalPlan:
-    backend: str  # numpy | scatter | onehot | kernel | streaming
+    backend: str  # numpy | scatter | onehot | kernel | streaming | graph
     materialize: bool = False  # memmap source loaded into memory first
     row_range_window: Optional[Tuple[float, float]] = None
     fused_dicing: bool = False
@@ -153,11 +215,18 @@ def plan_physical(
     device_type: str = "cuda",
     tiny_pairs: int = TINY_PAIRS,
     memory_budget_events: int = MEMORY_BUDGET_EVENTS,
+    graph_available: bool = False,
 ) -> PhysicalPlan:
     """Map a canonical logical plan to a physical one.  ``plan`` must be the
     output of :func:`repro_torch.query.optimize.canonicalize`;
-    ``device_type`` is the engine's device (``"cuda"`` or ``"cpu"``)."""
-    if not isinstance(plan.sink, DFGSink):
+    ``device_type`` is the engine's device (``"cuda"`` or ``"cpu"``).
+
+    ``graph_available`` is the engine's amortization signal: True when the
+    event-knowledge graph of this source is already built (or provably
+    extendable / past the repeat-query crossover, so building it now pays).
+    With it, un-windowed topology sinks route to the ``graph`` backend —
+    CSR lookups instead of an O(E) recount."""
+    if not isinstance(plan.sink, _SINKS):
         raise QueryPlanError(f"unknown sink {plan.sink!r}")
     requested = plan.sink.backend
     if requested in _LATER_BACKENDS:
@@ -166,24 +235,68 @@ def plan_physical(
         hint = " (the port calls it 'kernel')" if requested == "pallas" else ""
         raise QueryPlanError(f"unknown DFG backend {requested!r}{hint}")
     window, acts, view = _plan_features(plan)
+    windowed = window is not None and not window.empty
+    out_of_core = (
+        info.kind == "memmap" and info.num_events > memory_budget_events
+    )
     notes = []
     if window is not None and window.empty:
         # the engine short-circuits to zeros before touching the backend
         notes.append("empty_window=zeros")
 
+    if isinstance(plan.sink, HistogramSink):
+        # graph histograms: the stored :OF_TYPE in-degrees answer the
+        # un-windowed counts as a lookup; a window reads the graph's time
+        # index (event tables required, so out-of-core logs whose graphs
+        # are topology-only can't serve windowed counts)
+        if requested == "graph":
+            if windowed and out_of_core:
+                raise QueryPlanError(
+                    "graph histograms cannot evaluate windows over "
+                    "out-of-core logs (topology-only graph) — use "
+                    "streaming/auto"
+                )
+            return PhysicalPlan(
+                backend="graph",
+                activities_as_output_mask=acts is not None,
+                notes=("graph=of_type_counts",) + tuple(notes),
+            )
+        if info.kind == "memmap":  # chunked bincount, window → row range
+            return PhysicalPlan(
+                backend="streaming",
+                row_range_window=(window.t0, window.t1) if window else None,
+            )
+        return PhysicalPlan(backend="numpy")
+
+    # -- topology sinks (DFG / process map / neighborhood) -------------------
+    # graph backend: the aggregated :DF CSR answers un-windowed topology
+    # queries as lookups.  A window needs the event-level tables
+    # (out-of-core graphs are topology-only).
+    if requested == "graph" or (
+        requested == "auto" and graph_available and not windowed
+    ):
+        if windowed and out_of_core:
+            raise QueryPlanError(
+                "windowed graph queries need event tables; this out-of-core "
+                "log builds a topology-only graph — use streaming/auto"
+            )
+        notes.append(
+            "graph=event_tables_window" if windowed else "graph=csr_lookup"
+        )
+        return PhysicalPlan(
+            backend="graph",
+            activities_as_output_mask=acts is not None,
+            notes=tuple(notes),
+        )
+
     if info.kind == "memmap":
-        if (
-            info.num_events > memory_budget_events
-            and requested not in ("auto", "streaming")
-        ):
+        if out_of_core and requested not in ("auto", "streaming"):
             raise QueryPlanError(
                 f"backend {requested!r} would materialize an out-of-core "
                 "log into memory; use streaming/auto or raise "
                 "memory_budget_events"
             )
-        if requested == "streaming" or (
-            requested == "auto" and info.num_events > memory_budget_events
-        ):
+        if requested == "streaming" or (requested == "auto" and out_of_core):
             return PhysicalPlan(
                 backend="streaming",
                 row_range_window=(window.t0, window.t1) if window else None,

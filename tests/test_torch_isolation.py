@@ -1,6 +1,6 @@
 """The port stands alone and never falls back: no file of ``repro_torch`` (or
 ``chip_smoke.py``) imports JAX or the reference package, it imports and
-answers a CPU query with both blocked, and its entry points refuse to run
+answers CPU queries (a DFG, a graph-store process map) with both blocked, and its entry points refuse to run
 on a card that is not there."""
 
 import ast
@@ -57,11 +57,14 @@ from repro_torch.core.repository import paper_example_repo
 from repro_torch.data import generate_repository
 from repro_torch.query import Q, QueryEngine
 import repro_torch.launch.mine, repro_torch.configs
+import repro_torch.graph
 
 engine = QueryEngine(device="cpu", tiny_pairs=8)
 repo = generate_repository(60, seed=1)
 res = Q.log(repo).using(engine).window(0, 40 * 86400.0).dfg(backend="kernel")
 assert res.physical.fused_dicing, res.physical
+pm = Q.log(repo).using(engine).process_map(top=0.5, backend="graph")
+assert pm.physical.backend == "graph" and pm.value.edges, pm.physical
 print(int(res.value.sum()), sorted(m for m in sys.modules if m.startswith("jax")))
 """
 

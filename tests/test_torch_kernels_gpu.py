@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.dfg_count import ops
+from repro_torch.kernels.segment_count import ops as seg_ops
 
 
 @pytest.mark.gpu
@@ -55,4 +56,41 @@ def test_dfg_count_kernels_match_plain_versions_on_the_card():
         want = ops.dfg_count_plain(src, dst, valid, num_activities=a)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (a, "int64 ids beyond 2**31")
+    assert branches == {"shared", "global"}
+
+
+@pytest.mark.gpu
+def test_segment_count_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    branches = set()
+    # S up to 58,112 fits a block's shared memory; 100,000 takes the
+    # global branch
+    for s in (1, 3, 600, 4096, 58_000, 100_000):
+        for n in (0, 1, 7, 1000, 100_000):
+            ids = torch.randint(-2, s + 2, (n,), generator=gen, device=dev)
+            valid = torch.rand(n, generator=gen, device=dev) < 0.7
+            for v in (valid, None, valid.to(torch.int32), valid.float()):
+                before = seg_ops.launch_counts["segment_count"]
+                got = seg_ops.segment_count(ids, v, num_segments=s)
+                want = seg_ops.segment_count_plain(ids, v, num_segments=s)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (s, n, v is None)
+                if n:
+                    branches.add(seg_ops.last_launch["branch"])
+                    assert seg_ops.launch_counts["segment_count"] == before + 1
+        # int16 ids, and int64 ids beyond int32's range (dropped, never
+        # wrapped into [0, S))
+        ids = torch.randint(0, s, (10_000,), generator=gen, device=dev)
+        wide = ids.clone()
+        wide[::7] += 1 << 32
+        wide[::11] = (1 << 31) + 3
+        for x in (wide, ids.to(torch.int16) if s < (1 << 15) else ids):
+            got = seg_ops.segment_count(x, num_segments=s)
+            want = seg_ops.segment_count_plain(x, num_segments=s)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (s, x.dtype)
     assert branches == {"shared", "global"}
