@@ -11,8 +11,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    each kernel library's build time (one ``nvcc`` per source, all started
    together) and ``-Xptxas -v`` report;
 2. every CUDA kernel against its plain PyTorch version on the card, bit for
-   bit, over a sweep of activity / segment counts, pair / id counts, dtypes
-   and windows that reaches both branches of each kernel;
+   bit, over a sweep of activity / segment / state counts, pair / id /
+   variant counts, dtypes and windows that reaches both branches of each
+   kernel;
 3. the main path at the paper's evaluation width (PAPER_EVAL: 7.2 M events,
    600 activities, 120 days) on a default ``QueryEngine()`` (its memory
    budget taken from the card): ``Q.log(log).using(engine).dfg()`` plus
@@ -24,13 +25,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    DFG, neighborhood and windowed DFGs, the repeat-query crossover, a fused
    columnar process map, a snapshot round trip and an append extension,
    each held against the host oracles, with the build's split;
+3c. conformance at the same width on a default ``QueryEngine()``:
+   ``fitness()`` on the numpy, streaming and graph backends (all equal, no
+   ``align_dp`` launch), ``alignments()`` with the default model, with
+   phase 3's discovered model, over a 30-day window and on the graph
+   backend (one ``align_dp`` launch each); the DP's full output against its
+   plain version on the card, a 4,096-variant sample against the host
+   oracle, alignments' perfect traces against replay's, and the cost
+   bounds; with the split of an alignment query;
 4. the mining CLI in-process (``repro_torch.launch.mine``);
 5. kernel, plain-version and library times at the main paths' shapes beside
-   the bytes bound, and the end-to-end split of the main-path queries.
+   the bytes or operations bound, and the end-to-end split of the
+   main-path queries.
 
 The line before the last is a JSON ``kernels`` report; the last line is
-``{"ok": true, "device": {...}}``.  Counts are exact integers, so every
-comparison has tolerance 0.
+``{"ok": true, "device": {...}}``.  Counts are exact integers and the
+alignment DP is f32 adds and mins in one fixed order, so every comparison
+has tolerance 0.
 """
 
 from __future__ import annotations
@@ -45,19 +56,35 @@ import time
 DAY = 86400.0
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet; it
+#: counts an FMA as two operations), for the operations bound
+FP32_OPS_PER_S = 67e12
+#: the H100 SXM's SMs and FP32 lanes per SM, for the issue-rate bound of a
+#: kernel whose f32 operations are adds and mins (one per lane per clock)
+H100_SMS, FP32_LANES_PER_SM = 132, 128
 #: the source of each kernel
 SOURCES = {
     "dfg_count": "src/repro_torch/kernels/dfg_count/csrc/dfg_count.cu",
     "dfg_count_diced": "src/repro_torch/kernels/dfg_count/csrc/dfg_count.cu",
     "segment_count":
         "src/repro_torch/kernels/segment_count/csrc/segment_count.cu",
+    "align_dp": "src/repro_torch/kernels/align_dp/csrc/align_dp.cu",
 }
 #: the TPU kernels this port replaces (file:line of the Pallas kernel body)
 REPLACES = {
     "dfg_count": "src/repro/kernels/dfg_count/kernel.py:34",
     "dfg_count_diced": "src/repro/kernels/dfg_count/kernel.py:61",
     "segment_count": "src/repro/kernels/segment_count/kernel.py:31",
+    "align_dp": "src/repro/kernels/align_dp/kernel.py:39",
 }
+#: what bounds each kernel at the main paths' shapes
+BOUND_BY = {
+    "dfg_count": "bytes",
+    "dfg_count_diced": "bytes",
+    "segment_count": "bytes",
+    "align_dp": "operations",
+}
+KERNELS = ("dfg_count", "dfg_count_diced", "segment_count", "align_dp")
 
 
 class SmokeFailure(Exception):
@@ -261,6 +288,91 @@ def phase_segment_sweep(torch, seg_ops):
     return worst
 
 
+def _dp_tables(np, rng, s, a, big):
+    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs: small integers,
+    about a third of them ``big`` (unreachable), one start state."""
+    m = rng.integers(0, 6, (s, a)).astype(np.float32)
+    m[rng.random((s, a)) < 0.3] = big
+    d0 = np.full(s, big, dtype=np.float32)
+    d0[rng.integers(0, s)] = 0.0
+    end = rng.integers(0, 4, s).astype(np.float32)
+    end[rng.random(s) < 0.5] = big
+    return m, d0, end
+
+
+def phase_align_sweep(torch, dp_ops):
+    """align_dp ≡ align_dp_plain with torch.equal.  8 warps' fronts of S
+    f32 states fit a block's shared memory up to S = 7,264; 7,265 and
+    20,000 states take the global branch.  One case runs at the main path's
+    scale (294,838 variants of up to 168 events over 601 states), one on
+    cost tables of a random model."""
+    import numpy as np
+
+    from repro_torch.conformance import ModelSpec, alignment_cost_tables
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+    big = np.float32(dp_ops.BIG_COST)
+    worst, cases, branches = 0.0, 0, set()
+
+    def compare(seqs, lens, tables, what):
+        nonlocal worst, cases
+        inputs = dp_ops.prepare(seqs, lens, *tables, dev)
+        got = dp_ops.align_dp_device(*inputs)
+        want = dp_ops.align_dp_plain(*inputs)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              f"align_dp {what}: dtype/shape {got.dtype}{tuple(got.shape)}")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"align_dp {what}: max |err| {err}")
+        if seqs.shape[0]:
+            branches.add(dp_ops.last_launch["branch"])
+        cases += 1
+
+    for s, a in ((1, 1), (3, 2), (33, 32), (129, 128), (601, 600),
+                 (7264, 40), (7265, 40), (20_000, 300)):
+        tables = _dp_tables(np, rng, s, a, big)
+        shapes = [(0, 1), (1, 1), (7, 5), (1000, 40)]
+        shapes.append((2000, 168) if s > 7264 else (20_000, 168))
+        for v, l in shapes:
+            seqs = rng.integers(0, a, (v, l)).astype(np.int32)
+            lens = rng.integers(0, l + 1, v)
+            compare(seqs, lens, tables, f"S={s} A={a} V={v} L={l}")
+        # int64 ids: converted; ids outside [0, A) at an active position, or
+        # beyond int32's range, are refused
+        seqs = rng.integers(0, a, (64, 9))
+        lens = rng.integers(0, 10, 64)
+        compare(seqs, lens, tables, f"S={s} A={a} int64 ids")
+        for bad in (a, -1, (1 << 32) + 1):
+            wrong = seqs.copy()
+            wrong[3, 0] = bad
+            lens_w = lens.copy()
+            lens_w[3] = 9
+            try:
+                dp_ops.align_dp(wrong, lens_w, *tables, device=dev)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"align_dp took activity id {bad} at S={s}")
+    # the main path's scale, and a random model's cost tables
+    names = [f"a{i}" for i in range(600)]
+    edges = tuple((x, y) for x in names[:200] for y in names[:200]
+                  if rng.random() < 0.02)
+    spec = ModelSpec(activities=tuple(names), edges=edges,
+                     starts=tuple(names[:5]), ends=tuple(names[100:110]))
+    tables = alignment_cost_tables(spec, names)
+    seqs = rng.integers(0, 600, (294_838, 168)).astype(np.int32)
+    lens = np.minimum(rng.geometric(1 / 13, 294_838), 168)
+    compare(seqs, lens, tables, "V=294838 L=168 S=601, random model")
+    compare(seqs, lens, _dp_tables(np, rng, 601, 600, big),
+            "V=294838 L=168 S=601, random costs")
+    check(branches == {"shared", "global"},
+          f"align_dp reached branches {branches}, expected both")
+    log(f"align_dp sweep: {cases} kernel-vs-plain comparisons bit-identical "
+        f"(tolerance 0) over both branches {sorted(branches)}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3 — the main path at PAPER_EVAL width
 # ---------------------------------------------------------------------------
@@ -349,7 +461,7 @@ def phase_main_path(torch, tmp):
     check(len(model.edges) > 0, "discovery found no edges")
     log(f"discovery: {len(model.edges)} dependency edges, "
         f"{len(model.start_activities)} start activities")
-    return counts, results, repo, mlog
+    return counts, results, repo, mlog, model
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +687,231 @@ def phase_graph(torch, mlog, repo, results, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c — conformance at PAPER_EVAL width
+# ---------------------------------------------------------------------------
+
+
+def _same_replay(np, got, want, what):
+    check(np.array_equal(got.trace_fitness, want.trace_fitness)
+          and got.fitness == want.fitness
+          and got.perfectly_fitting == want.perfectly_fitting
+          and got.deviating_edges == want.deviating_edges,
+          f"{what}: replay results differ")
+
+
+def _same_alignment(np, got, want, what):
+    for f in ("trace_cost", "trace_fitness", "variant_costs"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)),
+              f"{what}: {f} differs")
+    check((got.fitness, got.perfectly_fitting, got.empty_cost)
+          == (want.fitness, want.perfectly_fitting, want.empty_cost)
+          and got.deviating_edges == want.deviating_edges,
+          f"{what}: alignment summaries differ")
+
+
+def _alignment_split(torch, mlog, dp_ops):
+    """One default-model alignment of ``mlog``, step by step as the engine
+    runs it (materialize, model discovery, variant table, cost tables, the
+    seqs matrix, the id checks and h2d, the kernel, d2h, broadcast +
+    census), each step on the host clock with the card synchronized.
+    Returns ({step: seconds}, AlignmentResult, DP inputs on the card, the
+    kernel's raw output, the host seqs / lens / tables)."""
+    import numpy as np
+
+    from repro_torch.conformance import alignment_cost_tables
+    from repro_torch.conformance.align import (
+        finish_alignment,
+        finish_variant_costs,
+        variant_matrix,
+    )
+    from repro_torch.core import (
+        dfg_numpy,
+        discover_dependency_graph,
+        variant_table,
+    )
+    from repro_torch.query import repository_from_memmap
+
+    dev = torch.device("cuda", 0)
+    split = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        return out
+
+    repo = step("materialize", lambda: repository_from_memmap(mlog))
+    names = list(repo.activity_names)
+    act, trace = repo.event_activity, repo.event_trace
+
+    def discover():
+        src, dst, valid = repo.df_pairs()
+        starts, ends = repo.trace_boundaries()
+        return discover_dependency_graph(
+            dfg_numpy(src, dst, valid, len(names)), names, starts, ends)
+
+    model = step("default model", discover)
+    tv = step("variant table",
+              lambda: variant_table(act, trace, repo.num_traces, names))
+    m, d0, end = step("cost tables", lambda: alignment_cost_tables(model, names))
+    seqs, lens = step("seqs", lambda: variant_matrix(tv, names))
+    inputs = step("checks + h2d",
+                  lambda: dp_ops.prepare(seqs, lens, m, d0, end, dev))
+    raw_d = step("kernel", lambda: dp_ops.align_dp_device(*inputs))
+    raw = step("d2h", lambda: raw_d.cpu().numpy())
+
+    def finish():
+        empty = float((d0 + end).min())
+        empty_cost = -1 if empty >= dp_ops.BIG_COST / 2 else int(empty)
+        costs = finish_variant_costs(raw, lens)
+        return finish_alignment(act, trace, repo.num_traces, names, model,
+                                tv, costs, empty_cost)
+
+    res = step("broadcast + census", finish)
+    return split, res, inputs, raw_d, (seqs, lens, m, d0, end)
+
+
+def phase_conformance(torch, mlog, repo, model):
+    import numpy as np
+
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.query import Q, QueryEngine
+
+    t_min = float(mlog.time[0])
+    w30 = (t_min, t_min + 30 * DAY)
+    engine = QueryEngine()
+    q = Q.log(mlog).using(engine)
+    # the first two conformance misses on a source run on auto's columnar
+    # path; from the third, auto would serve them from the source's graph
+    # (the repeat-query crossover), so the rest name their backend
+    queries = {
+        "alignments": lambda: q.alignments(),
+        "alignments model": lambda: q.alignments(model),
+        "alignments 30d": lambda: q.window(*w30).alignments(backend="numpy"),
+        "fitness numpy": lambda: q.fitness(backend="numpy"),
+        "fitness streaming": lambda: q.fitness(backend="streaming"),
+        "fitness graph": lambda: q.fitness(backend="graph"),
+        "alignments graph": lambda: q.alignments(backend="graph"),
+    }
+    ops.reset_launch_counts()
+    seg_ops.reset_launch_counts()
+    dp_ops.reset_launch_counts()
+    res, launched = {}, {}
+    for name, fn in queries.items():
+        before = dp_ops.launch_counts["align_dp"]
+        res[name] = fn()
+        launched[name] = dp_ops.launch_counts["align_dp"] - before
+    counts = {**ops.launch_counts, **seg_ops.launch_counts,
+              **dp_ops.launch_counts}
+    log(f"conformance path launches: {counts}")
+    for name, r in res.items():
+        want = 1 if name.startswith("alignments") else 0
+        check(launched[name] == want,
+              f"{name}: align_dp launched {launched[name]} times, not {want}")
+        check(not r.from_cache, f"{name} came from the cache")
+        log(f"  {name}: wall {r.wall_s:.4f} s, align_dp launches "
+            f"{launched[name]}; {r.physical.describe()}")
+    for b in ("numpy", "streaming", "graph"):
+        check(res[f"fitness {b}"].physical.backend == b,
+              f"fitness {b} ran on {res[f'fitness {b}'].physical.backend}")
+    for name in ("alignments", "alignments model", "alignments 30d"):
+        check(res[name].physical.backend == "numpy"
+              and res[name].physical.materialize,
+              f"{name}: {res[name].physical.describe()}")
+    check(res["alignments graph"].physical.backend == "graph",
+          "alignments(backend='graph') did not run on the graph")
+
+    # fitness: the three backends agree
+    base = res["fitness numpy"].value
+    for b in ("streaming", "graph"):
+        _same_replay(np, res[f"fitness {b}"].value, base, f"fitness {b}")
+    log(f"fitness: numpy == streaming == graph (fitness {base.fitness:.6f}, "
+        f"{base.perfectly_fitting} of {base.trace_fitness.shape[0]} traces "
+        f"fit, {len(base.deviating_edges)} deviating edges)")
+    _same_alignment(np, res["alignments graph"].value,
+                    res["alignments"].value, "graph vs columnar alignments")
+
+    # alignments' perfect traces are replay's (cost 0 ⇔ a sync-only walk ⇔
+    # replay fitness 1), for the same model and selection
+    before = dp_ops.launch_counts["align_dp"]
+    replays = {
+        "alignments": base,
+        "alignments model": q.fitness(model, backend="numpy").value,
+        "alignments 30d": q.window(*w30).fitness(backend="numpy").value,
+    }
+    check(dp_ops.launch_counts["align_dp"] == before,
+          "a fitness() query launched align_dp")
+    ts = repo.event_time
+    in30 = (ts >= w30[0]) & (ts < w30[1])
+    trace_lens = {
+        "alignments": np.bincount(repo.event_trace, minlength=repo.num_traces),
+        "alignments model": np.bincount(repo.event_trace,
+                                        minlength=repo.num_traces),
+        "alignments 30d": np.unique(repo.event_trace[in30],
+                                    return_counts=True)[1],
+    }
+    for name, rep in replays.items():
+        ali = res[name].value
+        cost = ali.trace_cost
+        check(cost.shape == rep.trace_fitness.shape,
+              f"{name}: {cost.shape} traces vs replay's "
+              f"{rep.trace_fitness.shape}")
+        check(np.array_equal(cost == 0, rep.trace_fitness >= 1.0 - 1e-12)
+              and ali.perfectly_fitting == rep.perfectly_fitting,
+              f"{name}: perfect traces differ from replay's")
+        lens = trace_lens[name]
+        top = lens + max(ali.empty_cost, 0)
+        check(bool((cost >= 0).all() and (cost <= top).all()),
+              f"{name}: a cost outside [0, len + empty_cost]")
+        check(np.isfinite(ali.trace_fitness).all()
+              and ((ali.trace_fitness >= 0) & (ali.trace_fitness <= 1)).all(),
+              f"{name}: fitness outside [0, 1]")
+        log(f"  {name}: {cost.shape[0]} traces, {ali.variant_costs.shape[0]} "
+            f"variants, fitness {ali.fitness:.6f}, {ali.perfectly_fitting} "
+            f"perfect == replay's, empty_cost {ali.empty_cost}, costs in "
+            f"[0, len + empty_cost] (max {int(cost.max())})")
+
+    # the DP of the default-model query, step by step: it equals the query,
+    # its full output equals the plain version on the card, and a sample
+    # equals the host oracle
+    split, again, inputs, raw_d, host = _alignment_split(torch, mlog, dp_ops)
+    _same_alignment(np, again, res["alignments"].value,
+                    "step-by-step vs query alignments")
+    plain = dp_ops.align_dp_plain(*inputs)
+    torch.cuda.synchronize()
+    err = float((raw_d - plain).abs().max())
+    check(torch.equal(raw_d, plain),
+          f"align_dp differs from its plain version on the main path's "
+          f"{raw_d.shape[0]} variants: max |err| {err}")
+    seqs, lens, m, d0, end = host
+    rng = np.random.default_rng(0)
+    ends = {int(np.argmax(lens)), int(np.argmin(lens))}
+    rest = np.setdiff1d(np.arange(lens.shape[0]), list(ends))
+    k = min(4096, lens.shape[0]) - len(ends)
+    pick = np.sort(np.concatenate([
+        list(ends), rng.choice(rest, k, replace=False)]).astype(np.int64))
+    want = dp_ops.align_dp(seqs[pick], lens[pick], m, d0, end, backend="numpy")
+    got = raw_d.cpu().numpy()[pick]
+    check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+          f"align_dp differs from the host oracle on the sample in "
+          f"{int((got != want).sum())} variants")
+    v, l = seqs.shape
+    log(f"align_dp on the main path's inputs: V={v} L={l} S={m.shape[0]} "
+        f"A={m.shape[1]}, sum(len)={int(lens.sum())}; all {v} variants == "
+        f"align_dp_plain on the card (max |err| {err}); {pick.shape[0]} "
+        f"sampled variants (longest {int(lens.max())}, shortest "
+        f"{int(lens.min())}) == host align_dp_numpy, bit for bit")
+    return counts, {
+        "inputs": inputs, "lens": lens, "split": split, "results": res,
+        "err": err,
+    }
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 — the CLI
 # ---------------------------------------------------------------------------
 
@@ -656,9 +993,10 @@ def _distinct_bytes(*tensors) -> int:
     return total
 
 
-def phase_times(torch, repo, results, card, graph_counts):
+def phase_times(torch, repo, results, card, graph_counts, conf):
     import numpy as np
 
+    from repro_torch.kernels.align_dp import ops as dp_ops
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.kernels.segment_count import ops as seg_ops
 
@@ -741,6 +1079,18 @@ def phase_times(torch, repo, results, card, graph_counts):
             lambda: seg_ops.launch(uni, None, out_s, a), out_s.zero_),
     }
     measured = _measure(torch, cases)
+    # align_dp on the default-model alignment query's own inputs; its plain
+    # version takes ~10^5 times longer, so fewer rounds
+    dp_in = conf["inputs"]
+    dp_out = torch.empty((dp_in[0].shape[0],), dtype=torch.float32, device=dev)
+    measured.update(_measure(torch, {
+        ("align_dp", "ms"): (lambda: dp_ops.launch(*dp_in, dp_out), None),
+    }))
+    measured.update(_measure(torch, {
+        ("align_dp", "plain_ms"): (lambda: dp_ops.align_dp_plain(*dp_in), None),
+    }, rounds=2, iters=3))
+    check(dp_ops.last_launch["branch"] == "shared",
+          f"align_dp took the {dp_ops.last_launch['branch']} branch")
     clocks = run_cmd([
         "nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
         "temperature.gpu", "--format=csv,noheader", "-i", "0",
@@ -767,10 +1117,27 @@ def phase_times(torch, repo, results, card, graph_counts):
         f"+ {8 * a * a} B of int64 output; segment_count "
         f"{seg_read / e:.4f} B/id (+1 with valid) + {8 * a} B of int64 "
         f"output; at {HBM_BYTES_PER_S:.3g} B/s")
+    # align_dp: per active (variant, layer, state) two f32 adds and two
+    # mins, then one add and one min per (variant, state) for the end
+    seqs_d, lens_d, mt_d, d0_d, end_d = dp_in
+    v_n, s_n = int(seqs_d.shape[0]), int(mt_d.shape[1])
+    sum_len = int(conf["lens"].sum())
+    dp_ops_n = 4 * s_n * sum_len + 2 * s_n * v_n
+    dp_bytes = (4 * sum_len + 4 * v_n + mt_d.numel() * 4 + 8 * s_n + 4 * v_n)
+    dp_ops_ms = dp_ops_n / FP32_OPS_PER_S * 1e3
+    dp_bytes_ms = dp_bytes / HBM_BYTES_PER_S * 1e3
+    bound["align_dp"] = max(dp_ops_ms, dp_bytes_ms)
+    check(dp_ops_ms >= dp_bytes_ms, "align_dp is bound by bytes, not operations")
+    try:
+        sm_mhz = float(clocks.split(",")[0].split()[0])
+    except ValueError:
+        raise SmokeFailure(f"cannot read the SM clock from {clocks!r}")
+    dp_issue_ms = dp_ops_n / (H100_SMS * FP32_LANES_PER_SM * sm_mhz * 1e6) * 1e3
     times = {name: {"bound_ms": b} for name, b in bound.items()}
     for (name, key), (med, q1, q3, count) in measured.items():
         times[name][key] = med
         times[name][key + "_iqr"] = (q1, q3, count)
+    times["align_dp"]["library_ms"] = None
 
     def fmt_ms(t, key):
         q1, q3, count = t[key + "_iqr"]
@@ -812,6 +1179,19 @@ def phase_times(torch, repo, results, card, graph_counts):
         f"A, valid) {fmt_ms(times['dfg_count'], 'uniform_ms')}. The main "
         f"path's Ψ has {int((psi > 0).sum())} nonzero cells of {a * a}; "
         f"{top} of them hold 90% of the pairs.")
+    t = times["align_dp"]
+    ll = dp_ops.last_launch
+    log(f"  align_dp V={v_n} L={int(seqs_d.shape[1])} S={s_n} "
+        f"A={int(mt_d.shape[0])} sum(len)={sum_len} ({ll['branch']} branch, "
+        f"grid {ll['grid']}x{ll['threads']}, {ll['smem_bytes']} B smem; one "
+        f"launch per alignments() query): kernel {fmt_ms(t, 'ms')}, plain "
+        f"{fmt_ms(t, 'plain_ms')}, no single PyTorch call computes this DP "
+        f"(library_ms null); operations bound {dp_ops_n:.4g} f32 ops at "
+        f"{FP32_OPS_PER_S:.3g}/s = {dp_ops_ms:.4f} ms "
+        f"({dp_ops_ms / t['ms'] * 100:.1f}% of the bound), issue bound at the "
+        f"sampled {sm_mhz:.0f} MHz SM clock (add and min issue one per lane "
+        f"per clock) {dp_issue_ms:.4f} ms ({dp_issue_ms / t['ms'] * 100:.1f}%), "
+        f"bytes bound {dp_bytes / 1e6:.2f} MB = {dp_bytes_ms:.4f} ms")
     log(f"end-to-end split [{card}] (s; host clock, card synchronized):")
     for name, _, res in results:
         notes = res.trace.notes
@@ -820,6 +1200,13 @@ def phase_times(torch, repo, results, card, graph_counts):
             f"{notes.get('h2d_s', 0.0):.4f}  kernel "
             f"{notes.get('kernel_s', 0.0):.4f}  d2h "
             f"{notes.get('d2h_s', 0.0):.4f}")
+    split = conf["split"]
+    log(f"  default-model alignments(), step by step: "
+        + "  ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"  (sum {sum(split.values()):.4f}; the query's own wall "
+        f"{conf['results']['alignments'].wall_s:.4f})")
+    for name, r in conf["results"].items():
+        log(f"  {name}: wall {r.wall_s:.4f}")
     return times
 
 
@@ -841,6 +1228,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src_dir)
     from repro_torch.kernels import build
+    from repro_torch.kernels.align_dp import ops as dp_ops
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.kernels.segment_count import ops as seg_ops
 
@@ -851,16 +1239,20 @@ def main() -> int:
         log("== phase 2: kernels against their plain versions")
         worst = phase_sweep(torch, ops)
         worst["segment_count"] = phase_segment_sweep(torch, seg_ops)
+        worst["align_dp"] = phase_align_sweep(torch, dp_ops)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             log("== phase 3: main path at PAPER_EVAL width")
-            counts, results, repo, mlog = phase_main_path(torch, tmp)
+            counts, results, repo, mlog, model = phase_main_path(torch, tmp)
             log("== phase 3b: graph tier at PAPER_EVAL width")
             graph_counts = phase_graph(torch, mlog, repo, results, tmp)
+            log("== phase 3c: conformance at PAPER_EVAL width")
+            conf_counts, conf = phase_conformance(torch, mlog, repo, model)
         counts["segment_count"] = graph_counts["segment_count"]
+        counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")
         phase_cli()
         log("== phase 5: times")
-        times = phase_times(torch, repo, results, card, graph_counts)
+        times = phase_times(torch, repo, results, card, graph_counts, conf)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -875,10 +1267,10 @@ def main() -> int:
             "ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": BOUND_BY[name],
             "library_ms": times[name]["library_ms"],
         }
-        for name in ("dfg_count", "dfg_count_diced", "segment_count")
+        for name in KERNELS
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

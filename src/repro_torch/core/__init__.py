@@ -2,7 +2,8 @@
 
 Event repositories (Definition 1), Algorithm 1 (DFG) in scatter / one-hot /
 CUDA-kernel formulations, dicing, access-control views, streaming
-(out-of-core) execution, and DFG-based discovery.
+(out-of-core) execution, DFG-based discovery, token-replay conformance and
+trace variants.
 """
 
 from .repository import EventRepository, GraphRepo, paper_example_repo
@@ -28,6 +29,15 @@ from .discovery import (
     filter_dfg,
     to_dot,
 )
+from .conformance import (
+    ModelSpec,
+    ReplayResult,
+    deviation_census,
+    model_tables,
+    replay_core,
+    replay_fitness,
+)
+from .variants import TraceVariants, trace_variants, variant_table
 from .streaming import (
     MemmapLog,
     MemmapLogWriter,
@@ -48,4 +58,7 @@ __all__ = [
     "filter_dfg", "to_dot",
     "MemmapLog", "MemmapLogWriter", "MinerState", "StreamingDFGMiner",
     "memmap_log_name", "streaming_dfg",
+    "ModelSpec", "ReplayResult", "deviation_census", "model_tables",
+    "replay_core", "replay_fitness",
+    "TraceVariants", "trace_variants", "variant_table",
 ]

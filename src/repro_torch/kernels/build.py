@@ -34,6 +34,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "dfg_count": _PKG / "dfg_count" / "csrc" / "dfg_count.cu",
     "segment_count": _PKG / "segment_count" / "csrc" / "segment_count.cu",
+    "align_dp": _PKG / "align_dp" / "csrc" / "align_dp.cu",
 }
 
 NVCC_FLAGS = [

@@ -13,6 +13,12 @@ One entry point::
     Q.log(repo).using(engine).histogram()          # events per activity
     Q.log(repo).using(engine).process_map(top=0.2) # significance-filtered map
     Q.log(repo).using(engine).neighborhood("a", k=2, direction="both")
+    Q.log(repo).using(engine).fitness(model)       # token-replay fitness
+    Q.log(repo).using(engine).alignments()         # optimal DFG alignments
+
+``fitness()`` / ``alignments()`` default to the source's own discovered
+model; the alignment DP runs on the engine's device (the ``align_dp`` CUDA
+kernel on a card).
 
 Topology sinks route to the event-knowledge graph store
 (:mod:`repro_torch.graph`) once a source has been queried often enough, or
@@ -27,10 +33,13 @@ mapped to a physical backend by a small cost model
 """
 
 from .ast import (
+    CONFORMANCE_SINKS,
     EMPTY_WINDOW,
     Activities,
+    AlignmentsSink,
     ApplyView,
     DFGSink,
+    FitnessSink,
     HistogramSink,
     LogicalPlan,
     NeighborhoodSink,
@@ -60,6 +69,7 @@ from .execute import (
 from .optimize import canonicalize
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
+    REPLAY_STREAMING_CROSSOVER,
     PhysicalPlan,
     SourceInfo,
     device_memory_budget,
@@ -71,6 +81,7 @@ __all__ = [
     "Q", "Query", "QueryPlanError",
     "Window", "EMPTY_WINDOW", "Activities", "ApplyView", "DFGSink",
     "HistogramSink", "ProcessMapSink", "NeighborhoodSink", "TOPOLOGY_SINKS",
+    "FitnessSink", "AlignmentsSink", "CONFORMANCE_SINKS",
     "LogicalPlan",
     "QueryCache", "fingerprint", "fingerprint_memmap",
     "fingerprint_repository", "MemmapFingerprint", "parse_memmap_fingerprint",
@@ -79,4 +90,5 @@ __all__ = [
     "canonicalize",
     "plan_physical", "PhysicalPlan", "SourceInfo", "source_info",
     "device_memory_budget", "GRAPH_REPEAT_CROSSOVER",
+    "REPLAY_STREAMING_CROSSOVER",
 ]

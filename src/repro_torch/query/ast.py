@@ -24,6 +24,12 @@ Grammar (this slice of the port)::
             | HistogramSink(backend)    -- per-activity event counts
             | ProcessMapSink(top, edge_top, backend)
             | NeighborhoodSink(activity, k, direction, backend)
+            | FitnessSink(model, backend)     -- token-replay conformance
+            | AlignmentsSink(model, backend)  -- optimal DFG alignments
+
+Conformance sinks apply the chain's ops with **sequence semantics**: a
+filtered-out or hidden event is dropped and its neighbours re-link, a
+window keeps the events inside it, and each surviving trace is scored.
 
 The reference package's other operators, sinks and sources raise
 :class:`QueryPlanError` naming the ROADMAP item that ports them.
@@ -36,6 +42,7 @@ import hashlib
 import json
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+from repro_torch.core.conformance import ModelSpec
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog
 from repro_torch.core.views import HIDDEN, ActivityView
@@ -50,6 +57,9 @@ __all__ = [
     "ProcessMapSink",
     "NeighborhoodSink",
     "TOPOLOGY_SINKS",
+    "FitnessSink",
+    "AlignmentsSink",
+    "CONFORMANCE_SINKS",
     "LogicalPlan",
     "Query",
     "Q",
@@ -191,11 +201,46 @@ class NeighborhoodSink:
     backend: str = "auto"
 
 
-Sink = Union[DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink]
+@dataclasses.dataclass(frozen=True)
+class FitnessSink:
+    """Token-replay conformance: per-trace replay fitness of the selected
+    traces against ``model`` (a canonical :class:`ModelSpec`).
+
+    ``model=None`` replays against the source's **own** discovered
+    dependency graph (whole log, the plan's view/filter applied, windows
+    ignored — the "does this slice conform to the overall process" drift
+    question; the engine memoizes the discovery per source fingerprint).
+    ``backend`` ∈ auto | numpy | streaming | graph."""
+
+    model: Optional[ModelSpec] = None
+    backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignmentsSink:
+    """Optimal DFG alignments (skip / insert / move-on-model edit distance
+    over the model's edge relation), batched per trace variant through the
+    ``align_dp`` CUDA kernel.  ``model`` defaults like
+    :class:`FitnessSink`.  Needs the variant table, so a memmap source is
+    materialized (budget-gated out-of-core)."""
+
+    model: Optional[ModelSpec] = None
+    backend: str = "auto"
+
+
+Sink = Union[
+    DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink, FitnessSink,
+    AlignmentsSink,
+]
 
 #: sinks answered from the aggregated :DF topology — the graph backend's
 #: domain (and the planner's amortization candidates)
 TOPOLOGY_SINKS = (DFGSink, ProcessMapSink, NeighborhoodSink)
+
+#: sinks that replay/align trace sequences — ops apply with re-linking
+#: (sequence) semantics, and the graph backend serves them from the stored
+#: event tables rather than the aggregated CSR
+CONFORMANCE_SINKS = (FitnessSink, AlignmentsSink)
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +286,7 @@ class LogicalPlan:
 class Query:
     """Immutable fluent chain.  Non-terminal methods return a new Query;
     terminal methods (:meth:`dfg`, :meth:`histogram`, :meth:`process_map`,
-    :meth:`neighborhood`) hand the plan to a
+    :meth:`neighborhood`, :meth:`fitness`, :meth:`alignments`) hand the plan to a
     :class:`repro_torch.query.execute.QueryEngine`."""
 
     def __init__(self, source, ops: Tuple[Op, ...] = (), engine=None):
@@ -322,13 +367,27 @@ class Query:
         ))
 
     def fitness(self, model=None, backend: str = "auto"):
-        raise not_ported("the fitness sink", 9)
+        """Token-replay conformance of the selected traces.
+
+        ``model`` is a :class:`~repro_torch.core.discovery.DiscoveredModel`
+        (or canonical :class:`ModelSpec`); ``None`` replays against the
+        source's own whole-log discovered model (see :class:`FitnessSink`).
+        """
+        return self._run(FitnessSink(
+            model=ModelSpec.from_model(model) if model is not None else None,
+            backend=backend,
+        ))
 
     def alignments(self, model=None, backend: str = "auto"):
-        raise not_ported("the alignments sink", 9)
+        """Optimal DFG alignments (per-trace cost + normalized fitness),
+        batched per variant.  ``model`` as in :meth:`fitness`."""
+        return self._run(AlignmentsSink(
+            model=ModelSpec.from_model(model) if model is not None else None,
+            backend=backend,
+        ))
 
     def compare(self, backend: str = "auto"):
-        raise not_ported("compare() (multi-log sources arrive with item 5)", 9)
+        raise not_ported("compare() (it needs multi-log sources)", 5)
 
     # -- introspection -------------------------------------------------------
     def logical_plan(self, sink: Sink) -> LogicalPlan:

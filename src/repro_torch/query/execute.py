@@ -15,7 +15,11 @@ primitives:
   window pushed to a row range via the chunk time index,
 * the event-knowledge graph store (:mod:`repro_torch.graph`), built once
   per source on the engine's device and then answering topology and
-  histogram sinks as CSR lookups.
+  histogram sinks as CSR lookups,
+* conformance (:mod:`repro_torch.conformance`): token replay on the host
+  over the columns, a streaming scan or the graph's event tables, and
+  alignments whose per-variant DP runs on the engine's device (the
+  ``align_dp`` CUDA kernel on a card).
 
 Every path produces values bit-identical to the reference package's engine
 on the same source and chain.  The engine runs on ``cuda`` unless it is
@@ -35,8 +39,16 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.lockdep import make_lock
+from repro_torch.conformance.align import align_arrays
+from repro_torch.conformance.replay import (
+    StreamingModelDiscoverer,
+    StreamingReplayer,
+    replay_fitness_arrays,
+)
+from repro_torch.core.conformance import ModelSpec
 from repro_torch.core.dfg import dfg_numpy, dfg_onehot, dfg_scatter
 from repro_torch.core.dicing import pair_mask_for_window
+from repro_torch.core.discovery import DiscoveredModel, discover_dependency_graph
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog, StreamingDFGMiner, memmap_log_name
 from repro_torch.core.views import HIDDEN
@@ -49,10 +61,12 @@ from repro_torch.obs import MetricsRegistry, QueryTrace
 from repro_torch.obs.context import mint_context
 
 from .ast import (
+    CONFORMANCE_SINKS,
     TOPOLOGY_SINKS,
     Activities,
     ApplyView,
     DFGSink,
+    FitnessSink,
     HistogramSink,
     LogicalPlan,
     NeighborhoodSink,
@@ -67,6 +81,7 @@ from .optimize import canonicalize, compose_views
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
     MEMORY_BUDGET_EVENTS,
+    REPLAY_STREAMING_CROSSOVER,
     TINY_PAIRS,
     PhysicalPlan,
     SourceInfo,
@@ -90,8 +105,10 @@ class QueryResult:
     """What a terminal query call returns.
 
     ``value`` is the sink's payload, on the host: the int64 Ψ matrix, the
-    int64 per-activity histogram, a :class:`~repro_torch.graph.ProcessMap`
-    or a :class:`~repro_torch.graph.Neighborhood`; ``names`` labels its
+    int64 per-activity histogram, a :class:`~repro_torch.graph.ProcessMap`,
+    a :class:`~repro_torch.graph.Neighborhood`, a
+    :class:`~repro_torch.conformance.ReplayResult` or an
+    :class:`~repro_torch.conformance.AlignmentResult`; ``names`` labels its
     activity axis.
     """
 
@@ -123,6 +140,7 @@ class EngineStats:
     cache_hits: int = 0
     rows_scanned: int = 0  # source rows fed to scans and graph builds
     graph_queries: int = 0  # answered from the CSR event-knowledge graph
+    conformance_queries: int = 0  # fitness / alignments sinks
 
 
 def repository_from_memmap(
@@ -165,6 +183,9 @@ def repository_from_memmap(
 #: materialized memmap repositories an engine keeps (tenants alternating
 #: over a few in-budget logs each keep their load)
 _REPO_MEMO_SIZE = 4
+#: default conformance models an engine keeps (one per source and
+#: transform; a sliding-window dashboard reuses one)
+_MODEL_MEMO_SIZE = 16
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +335,10 @@ class QueryEngine:
     the value chosen.  ``graph_crossover`` is the number of topology-query
     misses on one source after which ``auto`` builds and serves its
     event-knowledge graph; ``max_graphs`` and ``graph_spill_dir`` size the
-    engine's :class:`~repro_torch.graph.GraphStore`."""
+    engine's :class:`~repro_torch.graph.GraphStore`.  ``replay_crossover``
+    (default :data:`~repro_torch.query.planner.REPLAY_STREAMING_CROSSOVER`)
+    is the memmap size above which ``auto`` fitness replays in one
+    streaming scan instead of materializing."""
 
     def __init__(
         self,
@@ -325,6 +349,7 @@ class QueryEngine:
         graph_crossover: int = GRAPH_REPEAT_CROSSOVER,
         max_graphs: int = 8,
         graph_spill_dir: Optional[str] = None,
+        replay_crossover: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.tiny_pairs = tiny_pairs
@@ -338,6 +363,11 @@ class QueryEngine:
                 memory_budget_events = MEMORY_BUDGET_EVENTS
         self.memory_budget_events = int(memory_budget_events)
         self.graph_crossover = graph_crossover
+        self.replay_crossover = (
+            REPLAY_STREAMING_CROSSOVER
+            if replay_crossover is None
+            else int(replay_crossover)
+        )
         self.metrics = MetricsRegistry()
         m = self.metrics
         self._c_queries = m.counter(
@@ -356,6 +386,13 @@ class QueryEngine:
         self._c_graph = m.counter(
             "engine_graph_queries_total",
             "Queries answered from the CSR event-knowledge graph",
+        )
+        self._c_conformance = m.counter(
+            "engine_conformance_queries_total",
+            "Conformance (fitness / alignments) queries",
+        )
+        self._h_replay_chunk = m.histogram(
+            "replay_chunk_seconds", "Streaming-replay chunk wall time"
         )
         # hot-path memo of query_latency_seconds{sink,backend} histograms
         self._lat_hists: Dict[Tuple[str, str], object] = {}  # guarded by _lock
@@ -381,6 +418,8 @@ class QueryEngine:
         self._max_plans = 512
         # materialized memmap repos keyed by source fingerprint
         self._repo_memo: "OrderedDict[str, EventRepository]" = OrderedDict()  # guarded by _lock
+        # default conformance models keyed by (source fingerprint, transform)
+        self._model_memo: "OrderedDict[Tuple, ModelSpec]" = OrderedDict()  # guarded by _lock
         self._lock = make_lock("QueryEngine")
 
     @property
@@ -391,6 +430,7 @@ class QueryEngine:
             cache_hits=self._c_cache_hits.value,
             rows_scanned=self._c_rows.value,
             graph_queries=self._c_graph.value,
+            conformance_queries=self._c_conformance.value,
         )
 
     # -- tracing ---------------------------------------------------------------
@@ -421,6 +461,9 @@ class QueryEngine:
             key = f"{phase}_s"
             tr.notes[key] = tr.notes.get(key, 0.0) + seconds
 
+    def _observe_replay_chunk(self, seconds: float, rows: int) -> None:
+        self._h_replay_chunk.observe(seconds)
+
     def _trace_finish(self, tr: QueryTrace, result: QueryResult) -> None:
         self._tls.trace = None
         tr.finish()
@@ -441,6 +484,8 @@ class QueryEngine:
     # -- public --------------------------------------------------------------
     def run(self, query: Query, sink: Sink) -> QueryResult:
         qid = self._c_queries.inc()
+        if isinstance(sink, CONFORMANCE_SINKS):
+            self._c_conformance.inc()
         tr = self._trace_begin(qid, sink, query.source)
         try:
             s = tr.begin("parse")
@@ -497,13 +542,25 @@ class QueryEngine:
         finally:
             self._tls.trace = None
 
+    def _conformance_graph_ok(self, source) -> bool:
+        """Conformance can use the graph tier only when the graph carries
+        event tables — out-of-core sources build topology-only graphs."""
+        return not (
+            isinstance(source, MemmapLog)
+            and source.num_events > self.memory_budget_events
+        )
+
     def _graph_available(self, source, fp: str, logical: LogicalPlan) -> bool:
         """The planner's amortization signal: is the event-knowledge graph
         of this source built (or provably extendable over an append), or has
         this source crossed the repeat-query count where building one pays?
-        Counts only topology cache *misses* — every hit is already O(1), so
-        repeats that matter are the ones that would rescan."""
-        if not isinstance(logical.sink, TOPOLOGY_SINKS):
+        Counts only topology/conformance cache *misses* — every hit is
+        already O(1), so repeats that matter are the ones that would
+        rescan."""
+        if isinstance(logical.sink, CONFORMANCE_SINKS):
+            if not self._conformance_graph_ok(source):
+                return False
+        elif not isinstance(logical.sink, TOPOLOGY_SINKS):
             return False
         if self.graphs.peek(fp) or self.graphs.has_extendable(source):
             return True
@@ -532,6 +589,7 @@ class QueryEngine:
             tiny_pairs=self.tiny_pairs,
             memory_budget_events=self.memory_budget_events,
             graph_available=graph_available,
+            replay_crossover=self.replay_crossover,
         )
         with self._lock:
             self._plans[plan_key] = physical
@@ -545,14 +603,18 @@ class QueryEngine:
         source_fp: Optional[str] = None,
     ):
         st = _collect(logical)
-        if st.window is not None and st.window.empty:
+        conformance = isinstance(logical.sink, CONFORMANCE_SINKS)
+        if st.window is not None and st.window.empty and not conformance:
             # an empty window can select no pair or event: zeros of the
-            # right shape, without materializing or scanning anything
+            # right shape, without materializing or scanning anything.
+            # Conformance sinks score an empty selection on their backend.
             return self._empty_result(source, logical, st)
         if physical.backend == "graph":
             return self._execute_graph(source, logical, st, source_fp)
         if physical.backend == "streaming":
-            return self._execute_streaming(source, logical, physical, st)
+            return self._execute_streaming(
+                source, logical, physical, st, source_fp
+            )
         if logical.source == "memmap":
             t0 = time.perf_counter()
             repo = self._materialize(source, source_fp)
@@ -567,6 +629,12 @@ class QueryEngine:
             return self._dfg_on_repo(repo, st, physical)
         if isinstance(logical.sink, HistogramSink):
             return self._histogram_on_repo(repo, st)
+        if conformance:
+            return self._conformance_from_columns(
+                logical, st, source_fp,
+                repo.event_activity, repo.event_trace, repo.event_time,
+                repo.num_traces, list(repo.activity_names),
+            )
         return self._topology_on_repo(repo, st, logical.sink, physical)
 
     def _empty_result(self, source, logical: LogicalPlan, st: _Collected):
@@ -744,6 +812,20 @@ class QueryEngine:
         names = list(g.activity_names)
         if st.keep is not None:
             _validate_keep(st.keep, names)
+        if isinstance(logical.sink, CONFORMANCE_SINKS):
+            # replay/align over the stored event tables — the canonical
+            # :BELONGS_TO order makes each case a contiguous segment whose
+            # :DF steps are adjacent rows; no source re-materialization
+            if not g.has_event_tables:
+                raise QueryPlanError(
+                    "conformance needs event tables; this graph is "
+                    "topology-only (built out-of-core) — use streaming/auto"
+                )
+            return self._conformance_from_columns(
+                logical, st, fp,
+                g.event_activity, g.event_trace, g.event_time,
+                g.num_traces, names,
+            )
         windowed = st.window is not None
         if windowed and not g.has_event_tables:
             raise QueryPlanError(
@@ -817,11 +899,15 @@ class QueryEngine:
     # -- streaming (out-of-core) ---------------------------------------------
     def _execute_streaming(
         self, log: MemmapLog, logical: LogicalPlan, physical: PhysicalPlan,
-        st: _Collected,
+        st: _Collected, source_fp: Optional[str] = None,
     ):
         names = log.activity_labels()
         if st.keep is not None:
             _validate_keep(st.keep, names)
+        if isinstance(logical.sink, FitnessSink):
+            return self._streaming_conformance(
+                log, logical, physical, st, names, source_fp
+            )
         # the planner owns the row-range pushdown decision; consume it here
         # so describe() always reflects what actually runs
         window = physical.row_range_window
@@ -845,6 +931,210 @@ class QueryEngine:
         if topology:
             return _finish_topology(miner.finalize(), counts, names, st, sink)
         return _finish_dfg(miner.finalize(), names, st)
+
+
+    # -- conformance (fitness / alignments) ----------------------------------
+    @staticmethod
+    def _transform_tables(st: _Collected, names: List[str]):
+        """(dest, out_names) for conformance's sequence semantics: ``dest``
+        maps each raw activity id to its transformed id, ``-1`` meaning the
+        event is dropped (filtered out / hidden) and its neighbors re-link.
+        ``dest=None`` is the identity (no keep / no view)."""
+        if st.keep is None and st.view is None:
+            return None, list(names)
+        a = len(names)
+        dest = np.arange(a, dtype=np.int64)
+        out_names = list(names)
+        if st.keep is not None:
+            kept = set(st.keep)
+            for i, n in enumerate(names):
+                if n not in kept:
+                    dest[i] = -1
+        if st.view is not None:
+            view = st.view.to_view()
+            out_names = view.visible_names(names)
+            gidx = {g: i for i, g in enumerate(out_names)}
+            mapped = np.full(a, -1, dtype=np.int64)
+            for i, n in enumerate(names):
+                if dest[i] < 0:
+                    continue
+                g = view.mapping.get(n, view.default)
+                mapped[i] = gidx.get(g, -1)  # HIDDEN drops the event
+            dest = mapped
+        return dest, out_names
+
+    @staticmethod
+    def _model_key(st: _Collected) -> Tuple:
+        """What the default model depends on besides the data: the *folded*
+        keep/view transform (a view-protected model must not alias the raw
+        one).  Windows are left out on purpose: see :meth:`_resolve_model`.
+        The leading empty tuple holds the reference's barrier ops, which
+        this slice does not carry."""
+        return ((), st.keep, st.view)
+
+    def _resolve_model(
+        self, sink, key_tail: Tuple, fp: Optional[str], build
+    ) -> ModelSpec:
+        """The sink's model, or the memoized default (discovered from the
+        whole source under the plan's transform — windows are a drift
+        *question* against the overall process, so a sliding dashboard
+        keeps one model per data generation)."""
+        if sink.model is not None:
+            return sink.model
+        key = (fp,) + key_tail
+        if fp is not None:
+            with self._lock:
+                hit = self._model_memo.get(key)
+                if hit is not None:
+                    self._model_memo.move_to_end(key)
+                    return hit
+        spec = ModelSpec.from_model(build())
+        if fp is not None:
+            with self._lock:
+                self._model_memo[key] = spec
+                while len(self._model_memo) > _MODEL_MEMO_SIZE:
+                    self._model_memo.popitem(last=False)
+        return spec
+
+    @staticmethod
+    def _model_from_arrays(
+        acts: np.ndarray, traces: np.ndarray, out_names: List[str]
+    ) -> DiscoveredModel:
+        """Dependency-graph discovery from (already transformed) canonical
+        columns — Ψ plus trace-boundary counts, all vectorized on the
+        host."""
+        a = len(out_names)
+        n = acts.shape[0]
+        starts = np.zeros(a, dtype=np.int64)
+        ends = np.zeros(a, dtype=np.int64)
+        if n == 0:
+            psi = np.zeros((a, a), dtype=np.int64)
+        else:
+            if n >= 2:
+                valid = traces[:-1] == traces[1:]
+                psi = dfg_numpy(acts[:-1], acts[1:], valid, a)
+            else:
+                psi = np.zeros((a, a), dtype=np.int64)
+            is_start = np.ones(n, dtype=bool)
+            is_start[1:] = traces[1:] != traces[:-1]
+            is_end = np.ones(n, dtype=bool)
+            is_end[:-1] = traces[:-1] != traces[1:]
+            np.add.at(starts, acts[is_start], 1)
+            np.add.at(ends, acts[is_end], 1)
+        return discover_dependency_graph(psi, out_names, starts, ends)
+
+    def _conformance_value(
+        self, sink, acts, traces, out_names: List[str], model: ModelSpec,
+        num_traces: Optional[int],
+    ):
+        if isinstance(sink, FitnessSink):
+            return replay_fitness_arrays(
+                acts, traces, out_names, model, num_traces=num_traces
+            )
+        # the alignment DP runs on the engine's device: the align_dp CUDA
+        # kernel on a card, its plain version on the CPU
+        return align_arrays(
+            acts, traces, out_names, model, num_traces=num_traces,
+            backend="auto", device=self.device,
+        )
+
+    def _conformance_from_columns(
+        self,
+        logical: LogicalPlan,
+        st: _Collected,
+        source_fp: Optional[str],
+        acts: np.ndarray,
+        traces: np.ndarray,
+        times: np.ndarray,
+        num_traces: int,
+        names: List[str],
+    ):
+        """Shared columnar/graph conformance: transform the event columns
+        (sequence semantics), resolve the model from the whole selection,
+        replay/align the windowed selection."""
+        dest, out_names = self._transform_tables(st, names)
+        acts = np.asarray(acts).astype(np.int64)
+        traces = np.asarray(traces)
+        keep_mask = np.ones(acts.shape[0], dtype=bool)
+        tacts = acts
+        if dest is not None:
+            tacts = dest[acts]
+            keep_mask &= tacts >= 0
+        model = self._resolve_model(
+            logical.sink, self._model_key(st), source_fp,
+            lambda: self._model_from_arrays(
+                tacts[keep_mask], traces[keep_mask], out_names
+            ),
+        )
+        windowed = st.window is not None
+        if windowed:
+            ts = np.asarray(times)
+            keep_mask &= (ts >= st.window.t0) & (ts < st.window.t1)
+        transformed = dest is not None or windowed
+        value = self._conformance_value(
+            logical.sink,
+            tacts[keep_mask] if transformed else tacts,
+            traces[keep_mask] if transformed else traces,
+            out_names, model,
+            num_traces=None if transformed else num_traces,
+        )
+        return value, out_names
+
+    @staticmethod
+    def _apply_stream_transform(dest, a, c, t):
+        """Sequence-semantics transform of one chunk: drop masked events,
+        relabel survivors (re-linking is implicit — the replayer only ever
+        sees the surviving stream)."""
+        if dest is None:
+            return a, c, t
+        ta = dest[np.asarray(a).astype(np.int64)]
+        m = ta >= 0
+        return ta[m], np.asarray(c)[m], np.asarray(t)[m]
+
+    def _streaming_default_model(
+        self, log: MemmapLog, dest, out_names: List[str]
+    ) -> DiscoveredModel:
+        """Whole-log discovery in one O(A² + chunk) scan (memoized by the
+        caller per source fingerprint)."""
+        disc = StreamingModelDiscoverer(len(out_names))
+        rows = 0
+        for a, c, t in log.iter_chunks():
+            rows += a.shape[0]
+            disc.update(*self._apply_stream_transform(dest, a, c, t))
+        self._note_rows(rows)
+        return disc.finalize(out_names)
+
+    def _streaming_conformance(
+        self,
+        log: MemmapLog,
+        logical: LogicalPlan,
+        physical: PhysicalPlan,
+        st: _Collected,
+        names: List[str],
+        source_fp: Optional[str],
+    ):
+        """One-pass streaming replay (FitnessSink only — alignments need
+        the variant table and are budget-gated by the planner)."""
+        dest, out_names = self._transform_tables(st, names)
+        model = self._resolve_model(
+            logical.sink, self._model_key(st), source_fp,
+            lambda: self._streaming_default_model(log, dest, out_names),
+        )
+        if st.window is not None and st.window.empty:
+            rng = (0, 0)
+        else:
+            window = physical.row_range_window
+            rng = (
+                log.rows_for_window(*window) if window
+                else (0, log.num_events)
+            )
+        self._note_rows(max(rng[1] - rng[0], 0))
+        rep = StreamingReplayer(
+            out_names, model, observer=self._observe_replay_chunk
+        )
+        for a, c, t in log.iter_chunks(row_range=rng):
+            rep.update(*self._apply_stream_transform(dest, a, c, t))
+        return rep.finalize(), out_names
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,13 @@ Histograms count on the host: ``numpy`` over a repository, a chunked
 ``streaming`` bincount over a memmap log, or the graph store's ``:OF_TYPE``
 degrees when pinned to ``graph``.
 
+Conformance sinks (fitness / alignments) plan apart
+(:func:`_plan_conformance`): ``numpy`` replays or aligns the columns (a
+memmap log is materialized first), ``streaming`` replays a memmap log in
+one scan, ``graph`` replays or aligns the graph store's event tables.
+Alignments need the variant table, so they never stream; their DP runs on
+the engine's device either way (the ``align_dp`` CUDA kernel on a card).
+
 The thresholds are the static constants below, except the memory budget,
 which a CUDA engine takes from the card and the host
 (:func:`device_memory_budget`).  The reference package's calibration
@@ -54,7 +61,9 @@ from repro_torch.core.streaming import MemmapLog
 from repro_torch.kernels.dfg_count.ops import MAX_ACTIVITIES, MAX_PAIRS
 
 from .ast import (
+    CONFORMANCE_SINKS,
     Activities,
+    AlignmentsSink,
     ApplyView,
     DFGSink,
     HistogramSink,
@@ -74,6 +83,7 @@ __all__ = [
     "TINY_PAIRS",
     "MEMORY_BUDGET_EVENTS",
     "GRAPH_REPEAT_CROSSOVER",
+    "REPLAY_STREAMING_CROSSOVER",
     "device_memory_budget",
 ]
 
@@ -85,6 +95,13 @@ MEMORY_BUDGET_EVENTS = 1 << 22
 #: repeated topology-query misses on one source after which building the
 #: event-knowledge graph amortizes (the reference's static default)
 GRAPH_REPEAT_CROSSOVER = 3
+#: memmap events above which ``auto`` replays a memmap log in one streaming
+#: scan instead of materializing it.  The reference ties its static default
+#: to the memory budget constant and reads a measured value from its
+#: calibration record; the port reads no calibration, so it keeps the static
+#: value (a CUDA engine's measured budget is larger, and the crossover is
+#: then what sends large logs to the streaming replayer)
+REPLAY_STREAMING_CROSSOVER = MEMORY_BUDGET_EVENTS
 
 #: device bytes per event that ``QueryEngine._count`` uploads: the int32
 #: activity column (4 B), the bool valid column (1 B) and, for a fused
@@ -132,6 +149,10 @@ _DFG_BACKENDS = {
 _LATER_BACKENDS = {"distributed": 6, "sharded-graph": 8}
 #: sinks the planner maps (the reference's other sinks are later items)
 _SINKS = (DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink)
+#: conformance sinks replay/align sequences — device counting backends do
+#: not apply; "numpy" is the columnar replay, "streaming" the one-pass
+#: replayer, "graph" the stored-event-table walk
+_CONFORMANCE_BACKENDS = {"auto", "numpy", "streaming", "graph"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +229,90 @@ def _device_backend(
     return "kernel"
 
 
+def _plan_conformance(
+    plan: LogicalPlan,
+    info: SourceInfo,
+    *,
+    memory_budget_events: int,
+    replay_crossover: int,
+    graph_available: bool,
+) -> PhysicalPlan:
+    """Physical plan for fitness/alignments on a single source.
+
+    Replay (fitness) has all three evaluation paths; alignments need the
+    variant table, so out-of-core sources are budget-gated.  The
+    streaming↔materialize crossover for replay is ``replay_crossover``, the
+    budget is the hard rail.
+    """
+    requested = plan.sink.backend
+    if requested not in _CONFORMANCE_BACKENDS:
+        raise QueryPlanError(
+            f"backend {requested!r} is not a conformance backend; pick one "
+            f"of {sorted(_CONFORMANCE_BACKENDS)}"
+        )
+    window, _acts, _view = _plan_features(plan)
+    notes = []
+    if window is not None and window.empty:
+        notes.append("empty_window=zeros")
+    is_align = isinstance(plan.sink, AlignmentsSink)
+    out_of_core = (
+        info.kind == "memmap" and info.num_events > memory_budget_events
+    )
+
+    if requested == "graph" or (requested == "auto" and graph_available):
+        if out_of_core:
+            raise QueryPlanError(
+                "graph conformance replays the stored event tables; this "
+                "out-of-core log builds a topology-only graph — use "
+                "streaming/auto"
+            )
+        return PhysicalPlan(
+            backend="graph",
+            notes=("graph=event_table_replay",) + tuple(notes),
+        )
+
+    if info.kind == "memmap":
+        if requested == "streaming" and is_align:
+            raise QueryPlanError(
+                "streaming replay cannot evaluate alignments; they need a "
+                "materialized repository"
+            )
+        if is_align:
+            if out_of_core:
+                raise QueryPlanError(
+                    "alignments / materializing ops on an out-of-core log "
+                    "exceed the memory budget; raise memory_budget_events "
+                    "or pre-dice the log"
+                )
+            return PhysicalPlan(
+                backend="numpy", materialize=True, notes=tuple(notes)
+            )
+        if out_of_core and requested == "numpy":
+            raise QueryPlanError(
+                "backend 'numpy' would materialize an out-of-core log into "
+                "memory; use streaming/auto or raise memory_budget_events"
+            )
+        if requested == "streaming" or (
+            requested == "auto"
+            and info.num_events > min(memory_budget_events, replay_crossover)
+        ):
+            return PhysicalPlan(
+                backend="streaming",
+                row_range_window=(
+                    (window.t0, window.t1)
+                    if window is not None and not window.empty
+                    else None
+                ),
+                notes=("replay=O(A²+chunk) scan",) + tuple(notes),
+            )
+        return PhysicalPlan(
+            backend="numpy", materialize=True, notes=tuple(notes)
+        )
+    if requested == "streaming":
+        raise QueryPlanError("streaming backend requires a MemmapLog source")
+    return PhysicalPlan(backend="numpy", notes=tuple(notes))
+
+
 def plan_physical(
     plan: LogicalPlan,
     info: SourceInfo,
@@ -216,6 +321,7 @@ def plan_physical(
     tiny_pairs: int = TINY_PAIRS,
     memory_budget_events: int = MEMORY_BUDGET_EVENTS,
     graph_available: bool = False,
+    replay_crossover: int = REPLAY_STREAMING_CROSSOVER,
 ) -> PhysicalPlan:
     """Map a canonical logical plan to a physical one.  ``plan`` must be the
     output of :func:`repro_torch.query.optimize.canonicalize`;
@@ -225,7 +331,16 @@ def plan_physical(
     event-knowledge graph of this source is already built (or provably
     extendable / past the repeat-query crossover, so building it now pays).
     With it, un-windowed topology sinks route to the ``graph`` backend —
-    CSR lookups instead of an O(E) recount."""
+    CSR lookups instead of an O(E) recount — and conformance sinks replay
+    the graph's stored event tables.  ``replay_crossover`` is the memmap
+    size above which ``auto`` replays in one streaming scan."""
+    if isinstance(plan.sink, CONFORMANCE_SINKS):
+        return _plan_conformance(
+            plan, info,
+            memory_budget_events=memory_budget_events,
+            replay_crossover=replay_crossover,
+            graph_available=graph_available,
+        )
     if not isinstance(plan.sink, _SINKS):
         raise QueryPlanError(f"unknown sink {plan.sink!r}")
     requested = plan.sink.backend

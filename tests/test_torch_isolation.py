@@ -1,7 +1,8 @@
 """The port stands alone and never falls back: no file of ``repro_torch`` (or
 ``chip_smoke.py``) imports JAX or the reference package, it imports and
-answers CPU queries (a DFG, a graph-store process map) with both blocked, and its entry points refuse to run
-on a card that is not there."""
+answers CPU queries (a DFG, a graph-store process map, replay fitness and
+alignments) with both blocked, and its entry points refuse to run on a card
+that is not there."""
 
 import ast
 import os
@@ -65,6 +66,10 @@ res = Q.log(repo).using(engine).window(0, 40 * 86400.0).dfg(backend="kernel")
 assert res.physical.fused_dicing, res.physical
 pm = Q.log(repo).using(engine).process_map(top=0.5, backend="graph")
 assert pm.physical.backend == "graph" and pm.value.edges, pm.physical
+fit = Q.log(repo).using(engine).fitness()
+assert 0.0 < fit.value.fitness <= 1.0, fit.value
+ali = Q.log(repo).using(engine).alignments()
+assert ali.value.trace_cost.shape == (repo.num_traces,), ali.value
 print(int(res.value.sum()), sorted(m for m in sys.modules if m.startswith("jax")))
 """
 

@@ -6,12 +6,14 @@ the test, so every worker collects the same tests).  On the card run it with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 This file imports torch and the port only, so it also runs where JAX is
-absent.  Counts are integers: kernel and plain version must agree bit for
-bit."""
+absent.  Counts are integers, and the alignment DP is f32 adds and mins in
+one fixed order: kernel and plain version must agree bit for bit."""
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.align_dp import ops as dp_ops
 from repro_torch.kernels.dfg_count import ops
 from repro_torch.kernels.segment_count import ops as seg_ops
 
@@ -93,4 +95,61 @@ def test_segment_count_kernel_matches_plain_version_on_the_card():
             want = seg_ops.segment_count_plain(x, num_segments=s)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (s, x.dtype)
+    assert branches == {"shared", "global"}
+
+
+def _dp_tables(rng, s, a):
+    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs: small integers,
+    about a third of them BIG_COST (unreachable), one start state."""
+    big = np.float32(dp_ops.BIG_COST)
+    m = rng.integers(0, 6, (s, a)).astype(np.float32)
+    m[rng.random((s, a)) < 0.3] = big
+    d0 = np.full(s, big, dtype=np.float32)
+    d0[rng.integers(0, s)] = 0.0
+    end = rng.integers(0, 4, s).astype(np.float32)
+    end[rng.random(s) < 0.5] = big
+    return m, d0, end
+
+
+@pytest.mark.gpu
+def test_align_dp_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    branches = set()
+    # 8 warps x S x 4 B of fronts fit a block's shared memory up to
+    # S = 7,264; 7,265 and 9,000 states take the global branch
+    for s, a in ((1, 1), (3, 2), (33, 32), (129, 128), (601, 600),
+                 (7264, 40), (7265, 40), (9000, 300)):
+        m, d0, end = _dp_tables(rng, s, a)
+        for v, l in ((0, 1), (1, 1), (7, 5), (300, 40), (3000, 168)):
+            seqs = rng.integers(0, a, (v, l))  # int64 ids
+            lens = rng.integers(0, l + 1, v)
+            inputs = dp_ops.prepare(seqs, lens, m, d0, end, dev)
+            before = dp_ops.launch_counts["align_dp"]
+            got = dp_ops.align_dp_device(*inputs)
+            want = dp_ops.align_dp_plain(*inputs)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == (v,)
+            assert torch.equal(got, want), (s, a, v, l)
+            if v:
+                branches.add(dp_ops.last_launch["branch"])
+                assert dp_ops.launch_counts["align_dp"] == before + 1
+            if v * l * s <= 2_000_000:
+                host = dp_ops.align_dp(seqs, lens, m, d0, end, backend="numpy")
+                np.testing.assert_array_equal(got.cpu().numpy(), host)
+        # the public entry on the card: ids past the sync columns, or beyond
+        # int32's range, at an active position are refused
+        seqs = rng.integers(0, a, (4, 3))
+        lens = np.full(4, 3)
+        for bad in (a, -1, (1 << 32) + 1):
+            wrong = seqs.copy()
+            wrong[2, 1] = bad
+            with pytest.raises(ValueError, match="activity ids"):
+                dp_ops.align_dp(wrong, lens, m, d0, end, device=dev)
+        got = dp_ops.align_dp(seqs, lens, m, d0, end, backend="kernel", device=dev)
+        np.testing.assert_array_equal(
+            got, dp_ops.align_dp(seqs, lens, m, d0, end, backend="numpy")
+        )
     assert branches == {"shared", "global"}

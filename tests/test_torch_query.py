@@ -208,14 +208,16 @@ def test_unported_features_name_their_roadmap_item(repos):
     calls = [
         lambda: q.variants(), lambda: q.top_variants(3),
         lambda: q.activities(["act_000"], relink=True),
-        lambda: port_query.Q.logs(port_repo, port_repo), lambda: q.compare(),
-        lambda: q.fitness(), lambda: q.alignments(),
+        lambda: port_query.Q.logs(port_repo, port_repo),
         lambda: q.dfg(backend="distributed"),
         lambda: q.dfg(backend="sharded-graph"),
     ]
     for call in calls:
         with pytest.raises(port_query.QueryPlanError, match="ROADMAP"):
             call()
+    # compare() waits for the multi-log sources of item 5
+    with pytest.raises(port_query.QueryPlanError, match="ROADMAP Queue A item 5"):
+        q.compare()
     with pytest.raises(port_query.QueryPlanError, match="kernel"):
         q.dfg(backend="pallas")
 
