@@ -9,11 +9,13 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. environment — card name and power limit, torch / CUDA / nvcc versions,
    each kernel library's build time (one ``nvcc`` per source, all started
-   together) and ``-Xptxas -v`` report;
+   together) and ``-Xptxas -v`` report; every ``align_dp`` instance's
+   registers, none of the register tier's spilling;
 2. every CUDA kernel against its plain PyTorch version on the card, bit for
    bit, over a sweep of activity / segment / state counts, pair / id /
-   variant counts, dtypes and windows that reaches both branches of each
-   kernel;
+   variant counts, dtypes and windows that reaches every branch of each
+   kernel (``align_dp``: its registers, shared and global tiers, and each
+   register instance);
 3. the main path at the paper's evaluation width (PAPER_EVAL: 7.2 M events,
    600 activities, 120 days) on a default ``QueryEngine()`` (its memory
    budget taken from the card): ``Q.log(log).using(engine).dfg()`` plus
@@ -29,13 +31,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``fitness()`` on the numpy, streaming and graph backends (all equal, no
    ``align_dp`` launch), ``alignments()`` with the default model, with
    phase 3's discovered model, over a 30-day window and on the graph
-   backend (one ``align_dp`` launch each); the DP's full output against its
-   plain version on the card, a 4,096-variant sample against the host
-   oracle, alignments' perfect traces against replay's, and the cost
-   bounds; with the split of an alignment query;
+   backend (one ``align_dp`` launch each, the default-model one on the
+   registers tier, its input the variant table's ragged ids); the DP's full
+   output against its plain version on the card, a 4,096-variant sample
+   against the host oracle, alignments' perfect traces against replay's,
+   and the cost bounds; with the split of an alignment query, the padded
+   (V, L) route timed beside it;
 4. the mining CLI in-process (``repro_torch.launch.mine``);
 5. kernel, plain-version and library times at the main paths' shapes beside
-   the bytes or operations bound, and the end-to-end split of the
+   the bytes or operations bound (``align_dp`` also beside its issue
+   bounds, with its work orders compared), and the end-to-end split of the
    main-path queries.
 
 The line before the last is a JSON ``kernels`` report; the last line is
@@ -62,6 +67,10 @@ FP32_OPS_PER_S = 67e12
 #: the H100 SXM's SMs and FP32 lanes per SM, for the issue-rate bound of a
 #: kernel whose f32 operations are adds and mins (one per lane per clock)
 H100_SMS, FP32_LANES_PER_SM = 132, 128
+#: results a clock per SM of f32 min, if it issues at half the add rate
+#: (the CUDA C++ Programming Guide's throughput table, compute capability
+#: 9.0: 64 for "compare, minimum, maximum", 128 for f32 add)
+MIN_LANES_PER_SM = 64
 #: the source of each kernel
 SOURCES = {
     "dfg_count": "src/repro_torch/kernels/dfg_count/csrc/dfg_count.cu",
@@ -288,9 +297,19 @@ def phase_segment_sweep(torch, seg_ops):
     return worst
 
 
-def _dp_tables(np, rng, s, a, big):
-    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs: small integers,
-    about a third of them ``big`` (unreachable), one start state."""
+def _dp_tables(np, rng, s, a, big, kind=0):
+    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs of three kinds:
+    0 sparse (small integers, about a third of them ``big``, one start
+    state), 1 cheap syncs (the answer hinges on every id), 2 dear syncs (a
+    log move often beats the sync on state a)."""
+    if kind == 1:
+        m = rng.integers(0, 3, (s, a)).astype(np.float32)
+        m[rng.random((s, a)) < 0.1] = big
+    elif kind == 2:
+        m = rng.integers(2, 9, (s, a)).astype(np.float32)
+    if kind:
+        d0 = rng.integers(0, 3, s).astype(np.float32)
+        return m, d0, rng.integers(0, 2, s).astype(np.float32)
     m = rng.integers(0, 6, (s, a)).astype(np.float32)
     m[rng.random((s, a)) < 0.3] = big
     d0 = np.full(s, big, dtype=np.float32)
@@ -300,12 +319,44 @@ def _dp_tables(np, rng, s, a, big):
     return m, d0, end
 
 
+def _align_dp_resources(build, dp_ops):
+    """Registers and spill bytes of each align_dp kernel instance, from
+    nvcc's -Xptxas -v report: {"registers K=20": (regs, spill stores,
+    spill loads), "shared": ..., "global": ...}.  Fails unless every
+    register instance is there and none spills."""
+    import re
+
+    rows = {}
+    for entry, r in build.ptxas_resources(build.build("align_dp").ptxas).items():
+        k = re.search(r"align_dp_registersILi(\d+)E", entry)
+        tier = re.search(r"align_dp_memoryILb([01])E", entry)
+        if k:
+            label = f"registers K={k.group(1)}"
+        elif tier:
+            label = "shared" if tier.group(1) == "1" else "global"
+        else:
+            continue
+        rows[label] = (r.get("registers"), r.get("spill_stores"),
+                       r.get("spill_loads"))
+    want = ([f"registers K={k}" for k, _ in dp_ops.REGISTER_INSTANCES]
+            + ["shared", "global"])
+    check(sorted(rows) == sorted(want),
+          f"align_dp's ptxas report lists {sorted(rows)}, not {sorted(want)}")
+    spills = {k: v for k, v in rows.items()
+              if k.startswith("registers") and (v[1] or v[2])}
+    check(not spills, f"align_dp register instances spill: {spills}")
+    return {k: rows[k] for k in want}
+
+
 def phase_align_sweep(torch, dp_ops):
-    """align_dp ≡ align_dp_plain with torch.equal.  8 warps' fronts of S
-    f32 states fit a block's shared memory up to S = 7,264; 7,265 and
-    20,000 states take the global branch.  One case runs at the main path's
-    scale (294,838 variants of up to 168 events over 601 states), one on
-    cost tables of a random model."""
+    """align_dp ≡ align_dp_plain with torch.equal on all three tiers: each
+    register instance (K, KLO) at both ends of 32 KLO < S <= 32 K and one
+    state past each, with ids over every state but the last (so the sync
+    lands on every slot of the register front); 8 warps' fronts of S f32
+    states fit a block's shared memory up to S = 7,264; 7,265 and 20,000
+    states take the global tier.  Two cases run
+    at the main path's scale (294,838 variants of up to 168 events over 601
+    states), one on cost tables of a random model."""
     import numpy as np
 
     from repro_torch.conformance import ModelSpec, alignment_cost_tables
@@ -313,12 +364,21 @@ def phase_align_sweep(torch, dp_ops):
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2)
     big = np.float32(dp_ops.BIG_COST)
-    worst, cases, branches = 0.0, 0, set()
+    worst, cases, tiers, ks = 0.0, 0, set(), set()
 
     def compare(seqs, lens, tables, what):
         nonlocal worst, cases
         inputs = dp_ops.prepare(seqs, lens, *tables, dev)
+        v = int(inputs[1].shape[0]) - 1
         got = dp_ops.align_dp_device(*inputs)
+        if v:
+            tiers.add(dp_ops.last_launch["branch"])
+            if dp_ops.last_launch["branch"] == "registers":
+                k = dp_ops.last_launch["k"]
+                ks.add(k)
+                s = int(inputs[2].shape[1])
+                check(32 * dict(dp_ops.REGISTER_INSTANCES)[k] < s <= 32 * k,
+                      f"align_dp {what}: S={s} launched the K={k} instance")
         want = dp_ops.align_dp_plain(*inputs)
         torch.cuda.synchronize()
         check(got.dtype == torch.float32 and got.shape == want.shape,
@@ -326,13 +386,14 @@ def phase_align_sweep(torch, dp_ops):
         err = float((got - want).abs().max()) if got.numel() else 0.0
         worst = max(worst, err)
         check(torch.equal(got, want), f"align_dp {what}: max |err| {err}")
-        if seqs.shape[0]:
-            branches.add(dp_ops.last_launch["branch"])
         cases += 1
 
-    for s, a in ((1, 1), (3, 2), (33, 32), (129, 128), (601, 600),
-                 (7264, 40), (7265, 40), (20_000, 300)):
-        tables = _dp_tables(np, rng, s, a, big)
+    sizes = sorted({x for k, lo in dp_ops.REGISTER_INSTANCES
+                    for x in (32 * lo, 32 * lo + 1, 32 * k, 32 * k + 1)}
+                   | {1, 3, 601, 7264, 7265, 20_000})
+    for n, s in enumerate(sizes):
+        a = max(s - 1, 1) if s <= 1025 else (300 if s > 7265 else 40)
+        tables = _dp_tables(np, rng, s, a, big, kind=n % 3)
         shapes = [(0, 1), (1, 1), (7, 5), (1000, 40)]
         shapes.append((2000, 168) if s > 7264 else (20_000, 168))
         for v, l in shapes:
@@ -340,7 +401,7 @@ def phase_align_sweep(torch, dp_ops):
             lens = rng.integers(0, l + 1, v)
             compare(seqs, lens, tables, f"S={s} A={a} V={v} L={l}")
         # int64 ids: converted; ids outside [0, A) at an active position, or
-        # beyond int32's range, are refused
+        # beyond int32's range, are refused, padded or ragged
         seqs = rng.integers(0, a, (64, 9))
         lens = rng.integers(0, 10, 64)
         compare(seqs, lens, tables, f"S={s} A={a} int64 ids")
@@ -349,11 +410,18 @@ def phase_align_sweep(torch, dp_ops):
             wrong[3, 0] = bad
             lens_w = lens.copy()
             lens_w[3] = 9
-            try:
-                dp_ops.align_dp(wrong, lens_w, *tables, device=dev)
-            except ValueError:
-                continue
-            raise SmokeFailure(f"align_dp took activity id {bad} at S={s}")
+            offsets = np.concatenate([[0], np.cumsum(lens_w)])
+            ragged = wrong[np.arange(9)[None, :] < lens_w[:, None]]
+            for call in (
+                lambda: dp_ops.align_dp(wrong, lens_w, *tables, device=dev),
+                lambda: dp_ops.align_dp_ragged(ragged, offsets, *tables,
+                                               device=dev),
+            ):
+                try:
+                    call()
+                except ValueError:
+                    continue
+                raise SmokeFailure(f"align_dp took activity id {bad} at S={s}")
     # the main path's scale, and a random model's cost tables
     names = [f"a{i}" for i in range(600)]
     edges = tuple((x, y) for x in names[:200] for y in names[:200]
@@ -364,12 +432,17 @@ def phase_align_sweep(torch, dp_ops):
     seqs = rng.integers(0, 600, (294_838, 168)).astype(np.int32)
     lens = np.minimum(rng.geometric(1 / 13, 294_838), 168)
     compare(seqs, lens, tables, "V=294838 L=168 S=601, random model")
-    compare(seqs, lens, _dp_tables(np, rng, 601, 600, big),
+    compare(seqs, lens, _dp_tables(np, rng, 601, 600, big, kind=1),
             "V=294838 L=168 S=601, random costs")
-    check(branches == {"shared", "global"},
-          f"align_dp reached branches {branches}, expected both")
+    check(tiers == {"registers", "shared", "global"},
+          f"align_dp reached tiers {tiers}, expected all three")
+    want_ks = {k for k, _ in dp_ops.REGISTER_INSTANCES}
+    check(ks == want_ks,
+          f"align_dp reached register instances {sorted(ks)}, expected "
+          f"{sorted(want_ks)}")
     log(f"align_dp sweep: {cases} kernel-vs-plain comparisons bit-identical "
-        f"(tolerance 0) over both branches {sorted(branches)}")
+        f"(tolerance 0) over the tiers "
+        f"{sorted(tiers)} and register instances K = {sorted(ks)}")
     return worst
 
 
@@ -712,16 +785,19 @@ def _same_alignment(np, got, want, what):
 def _alignment_split(torch, mlog, dp_ops):
     """One default-model alignment of ``mlog``, step by step as the engine
     runs it (materialize, model discovery, variant table, cost tables, the
-    seqs matrix, the id checks and h2d, the kernel, d2h, broadcast +
-    census), each step on the host clock with the card synchronized.
-    Returns ({step: seconds}, AlignmentResult, DP inputs on the card, the
-    kernel's raw output, the host seqs / lens / tables)."""
+    ragged ids' checks and h2d, the kernel, d2h, broadcast + census), each
+    step on the host clock with the card synchronized; then, off the sum,
+    the padded route (the (V, L) seqs matrix, its checks and h2d), whose
+    tensors must equal the ragged ones.  Returns ({step: seconds}, {padded step: seconds},
+    AlignmentResult, DP inputs on the card, the kernel's raw output, the
+    host seqs / lens / tables)."""
     import numpy as np
 
     from repro_torch.conformance import alignment_cost_tables
     from repro_torch.conformance.align import (
         finish_alignment,
         finish_variant_costs,
+        variant_ids,
         variant_matrix,
     )
     from repro_torch.core import (
@@ -732,14 +808,14 @@ def _alignment_split(torch, mlog, dp_ops):
     from repro_torch.query import repository_from_memmap
 
     dev = torch.device("cuda", 0)
-    split = {}
+    split, padded = {}, {}
 
-    def step(name, fn):
+    def step(name, fn, into=split):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        split[name] = time.perf_counter() - t0
+        into[name] = time.perf_counter() - t0
         return out
 
     repo = step("materialize", lambda: repository_from_memmap(mlog))
@@ -756,21 +832,27 @@ def _alignment_split(torch, mlog, dp_ops):
     tv = step("variant table",
               lambda: variant_table(act, trace, repo.num_traces, names))
     m, d0, end = step("cost tables", lambda: alignment_cost_tables(model, names))
-    seqs, lens = step("seqs", lambda: variant_matrix(tv, names))
-    inputs = step("checks + h2d",
-                  lambda: dp_ops.prepare(seqs, lens, m, d0, end, dev))
+    inputs = step("checks + h2d", lambda: dp_ops.prepare_ragged(
+        variant_ids(tv, names), tv.variant_offsets, m, d0, end, dev))
     raw_d = step("kernel", lambda: dp_ops.align_dp_device(*inputs))
     raw = step("d2h", lambda: raw_d.cpu().numpy())
 
     def finish():
         empty = float((d0 + end).min())
         empty_cost = -1 if empty >= dp_ops.BIG_COST / 2 else int(empty)
-        costs = finish_variant_costs(raw, lens)
+        costs = finish_variant_costs(raw, tv.lengths)
         return finish_alignment(act, trace, repo.num_traces, names, model,
                                 tv, costs, empty_cost)
 
     res = step("broadcast + census", finish)
-    return split, res, inputs, raw_d, (seqs, lens, m, d0, end)
+    seqs, lens = step("seqs", lambda: variant_matrix(tv, names), padded)
+    from_padded = step("checks + h2d", lambda: dp_ops.prepare(
+        seqs, lens, m, d0, end, dev), padded)
+    check(all(torch.equal(x, y) for x, y in zip(from_padded, inputs)),
+          "prepare of the padded matrix differs from prepare_ragged of the "
+          "variant table")
+    check(np.array_equal(lens, tv.lengths), "variant_matrix's lens differ")
+    return split, padded, res, inputs, raw_d, (seqs, lens, m, d0, end)
 
 
 def phase_conformance(torch, mlog, repo, model):
@@ -800,11 +882,13 @@ def phase_conformance(torch, mlog, repo, model):
     ops.reset_launch_counts()
     seg_ops.reset_launch_counts()
     dp_ops.reset_launch_counts()
-    res, launched = {}, {}
+    res, launched, tiers = {}, {}, {}
     for name, fn in queries.items():
         before = dp_ops.launch_counts["align_dp"]
         res[name] = fn()
         launched[name] = dp_ops.launch_counts["align_dp"] - before
+        if launched[name]:
+            tiers[name] = dp_ops.last_launch["branch"]
     counts = {**ops.launch_counts, **seg_ops.launch_counts,
               **dp_ops.launch_counts}
     log(f"conformance path launches: {counts}")
@@ -814,7 +898,11 @@ def phase_conformance(torch, mlog, repo, model):
               f"{name}: align_dp launched {launched[name]} times, not {want}")
         check(not r.from_cache, f"{name} came from the cache")
         log(f"  {name}: wall {r.wall_s:.4f} s, align_dp launches "
-            f"{launched[name]}; {r.physical.describe()}")
+            f"{launched[name]} ({tiers.get(name, 'none')} tier); "
+            f"{r.physical.describe()}")
+    check(tiers["alignments"] == "registers",
+          f"the default-model alignments() ran on the {tiers['alignments']} "
+          "tier")
     for b in ("numpy", "streaming", "graph"):
         check(res[f"fitness {b}"].physical.backend == b,
               f"fitness {b} ran on {res[f'fitness {b}'].physical.backend}")
@@ -878,9 +966,13 @@ def phase_conformance(torch, mlog, repo, model):
     # the DP of the default-model query, step by step: it equals the query,
     # its full output equals the plain version on the card, and a sample
     # equals the host oracle
-    split, again, inputs, raw_d, host = _alignment_split(torch, mlog, dp_ops)
+    split, padded, again, inputs, raw_d, host = _alignment_split(
+        torch, mlog, dp_ops)
     _same_alignment(np, again, res["alignments"].value,
                     "step-by-step vs query alignments")
+    check(dp_ops.last_launch["branch"] == "registers"
+          and dp_ops.last_launch["events"] == int(inputs[0].shape[0]),
+          f"the default-model DP ran as {dp_ops.last_launch}")
     plain = dp_ops.align_dp_plain(*inputs)
     torch.cuda.synchronize()
     err = float((raw_d - plain).abs().max())
@@ -900,14 +992,17 @@ def phase_conformance(torch, mlog, repo, model):
           f"align_dp differs from the host oracle on the sample in "
           f"{int((got != want).sum())} variants")
     v, l = seqs.shape
+    ll = dp_ops.last_launch
     log(f"align_dp on the main path's inputs: V={v} L={l} S={m.shape[0]} "
-        f"A={m.shape[1]}, sum(len)={int(lens.sum())}; all {v} variants == "
-        f"align_dp_plain on the card (max |err| {err}); {pick.shape[0]} "
-        f"sampled variants (longest {int(lens.max())}, shortest "
-        f"{int(lens.min())}) == host align_dp_numpy, bit for bit")
+        f"A={m.shape[1]}, sum(len)={int(lens.sum())}, ragged ({ll['events']} "
+        f"ids + {v + 1} offsets, no (V, L) matrix on the card; {ll['branch']} "
+        f"tier, K={ll['k']}, grid {ll['grid']}x{ll['threads']}); all {v} "
+        f"variants == align_dp_plain on the card (max |err| {err}); "
+        f"{pick.shape[0]} sampled variants (longest {int(lens.max())}, "
+        f"shortest {int(lens.min())}) == host align_dp_numpy, bit for bit")
     return counts, {
-        "inputs": inputs, "lens": lens, "split": split, "results": res,
-        "err": err,
+        "inputs": inputs, "lens": lens, "split": split,
+        "padded": padded, "results": res, "err": err, "tiers": tiers,
     }
 
 
@@ -993,7 +1088,7 @@ def _distinct_bytes(*tensors) -> int:
     return total
 
 
-def phase_times(torch, repo, results, card, graph_counts, conf):
+def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     import numpy as np
 
     from repro_torch.kernels.align_dp import ops as dp_ops
@@ -1079,18 +1174,53 @@ def phase_times(torch, repo, results, card, graph_counts, conf):
             lambda: seg_ops.launch(uni, None, out_s, a), out_s.zero_),
     }
     measured = _measure(torch, cases)
-    # align_dp on the default-model alignment query's own inputs; its plain
-    # version takes ~10^5 times longer, so fewer rounds
+    # align_dp on the default-model alignment query's own ragged inputs; the
+    # longest-first work order measured beside it: the lengths sorted on the
+    # card (timed), then the kernel on a copy of the ragged input stored
+    # longest first, whose costs are the same variants' in that order; its
+    # plain version takes ~10^5 times longer, so fewer rounds
     dp_in = conf["inputs"]
-    dp_out = torch.empty((dp_in[0].shape[0],), dtype=torch.float32, device=dev)
+    v_n = int(dp_in[1].shape[0]) - 1
+    dp_out = torch.empty((v_n,), dtype=torch.float32, device=dev)
+    lens_d = dp_in[1][1:] - dp_in[1][:-1]
+
+    def longest_first():
+        return torch.argsort(lens_d, descending=True, stable=True)
+
+    perm = longest_first()
+    off_p = torch.zeros_like(dp_in[1])
+    torch.cumsum(lens_d[perm], 0, out=off_p[1:])
+    at = (torch.repeat_interleave(dp_in[1][:-1][perm] - off_p[:-1],
+                                  lens_d[perm])
+          + torch.arange(int(off_p[-1]), device=dev))
+    by_len = (dp_in[0][at].contiguous(), off_p, *dp_in[2:])
+    got = dp_ops.align_dp_device(*by_len)
+    check(torch.equal(got, dp_ops.align_dp_device(*dp_in)[perm]),
+          "align_dp on the longest-first input differs")
+    # locality control: the same offsets and tables with every id one
+    # activity (one Mt row, resident in L1) and with ids drawn uniformly
+    # (the least reuse), so the row reads' share of the time shows
+    one_row = (torch.zeros_like(dp_in[0]), *dp_in[1:])
+    uniform = (torch.randint(0, int(dp_in[2].shape[0]), dp_in[0].shape,
+                             generator=gen, device=dev, dtype=torch.int32),
+               *dp_in[1:])
     measured.update(_measure(torch, {
         ("align_dp", "ms"): (lambda: dp_ops.launch(*dp_in, dp_out), None),
+        ("align_dp", "longest_first_ms"): (
+            lambda: dp_ops.launch(*by_len, dp_out), None),
+        ("align_dp", "sort_ms"): (longest_first, None),
+        ("align_dp", "one_row_ms"): (
+            lambda: dp_ops.launch(*one_row, dp_out), None),
+        ("align_dp", "uniform_ms"): (
+            lambda: dp_ops.launch(*uniform, dp_out), None),
     }))
     measured.update(_measure(torch, {
         ("align_dp", "plain_ms"): (lambda: dp_ops.align_dp_plain(*dp_in), None),
     }, rounds=2, iters=3))
-    check(dp_ops.last_launch["branch"] == "shared",
-          f"align_dp took the {dp_ops.last_launch['branch']} branch")
+    dp_ops.launch(*dp_in, dp_out)
+    check(dp_ops.last_launch["branch"] == "registers",
+          f"align_dp took the {dp_ops.last_launch['branch']} tier")
+    dp_launch = dict(dp_ops.last_launch)
     clocks = run_cmd([
         "nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
         "temperature.gpu", "--format=csv,noheader", "-i", "0",
@@ -1117,13 +1247,21 @@ def phase_times(torch, repo, results, card, graph_counts, conf):
         f"+ {8 * a * a} B of int64 output; segment_count "
         f"{seg_read / e:.4f} B/id (+1 with valid) + {8 * a} B of int64 "
         f"output; at {HBM_BYTES_PER_S:.3g} B/s")
-    # align_dp: per active (variant, layer, state) two f32 adds and two
-    # mins, then one add and one min per (variant, state) for the end
-    seqs_d, lens_d, mt_d, d0_d, end_d = dp_in
-    v_n, s_n = int(seqs_d.shape[0]), int(mt_d.shape[1])
-    sum_len = int(conf["lens"].sum())
-    dp_ops_n = 4 * s_n * sum_len + 2 * s_n * v_n
-    dp_bytes = (4 * sum_len + 4 * v_n + mt_d.numel() * 4 + 8 * s_n + 4 * v_n)
+    # align_dp: per active (variant, layer, state) two f32 adds and one min
+    # (d + Mt and its min into the sync, d + 1), then one add and one min
+    # per (variant, state) for the end; the select form's count (two mins
+    # per state, the bound's earlier definition) is printed beside it; the
+    # bytes: ids, offsets, Mt, d0 and end read once, out written once
+    ids_d, off_d, mt_d, d0_d, end_d = dp_in
+    s_n = int(mt_d.shape[1])
+    sum_len = int(ids_d.shape[0])
+    check(sum_len == int(conf["lens"].sum()), "sum(len) differs")
+    dp_adds = 2 * s_n * sum_len + s_n * v_n
+    dp_mins = s_n * sum_len + s_n * v_n
+    dp_ops_n = dp_adds + dp_mins
+    dp_select_ms = 2 * dp_adds / FP32_OPS_PER_S * 1e3
+    dp_bytes = (4 * sum_len + 8 * (v_n + 1) + mt_d.numel() * 4 + 8 * s_n
+                + 4 * v_n)
     dp_ops_ms = dp_ops_n / FP32_OPS_PER_S * 1e3
     dp_bytes_ms = dp_bytes / HBM_BYTES_PER_S * 1e3
     bound["align_dp"] = max(dp_ops_ms, dp_bytes_ms)
@@ -1132,7 +1270,12 @@ def phase_times(torch, repo, results, card, graph_counts, conf):
         sm_mhz = float(clocks.split(",")[0].split()[0])
     except ValueError:
         raise SmokeFailure(f"cannot read the SM clock from {clocks!r}")
+    # an add or a min is one instruction, 128 a clock per SM (the 67e12
+    # peak counts an FMA as two), and the same with mins at half the add
+    # rate (64 a clock per SM)
     dp_issue_ms = dp_ops_n / (H100_SMS * FP32_LANES_PER_SM * sm_mhz * 1e6) * 1e3
+    dp_half_ms = ((dp_adds / FP32_LANES_PER_SM + dp_mins / MIN_LANES_PER_SM)
+                  / (H100_SMS * sm_mhz * 1e6) * 1e3)
     times = {name: {"bound_ms": b} for name, b in bound.items()}
     for (name, key), (med, q1, q3, count) in measured.items():
         times[name][key] = med
@@ -1180,18 +1323,39 @@ def phase_times(torch, repo, results, card, graph_counts, conf):
         f"path's Ψ has {int((psi > 0).sum())} nonzero cells of {a * a}; "
         f"{top} of them hold 90% of the pairs.")
     t = times["align_dp"]
-    ll = dp_ops.last_launch
-    log(f"  align_dp V={v_n} L={int(seqs_d.shape[1])} S={s_n} "
-        f"A={int(mt_d.shape[0])} sum(len)={sum_len} ({ll['branch']} branch, "
-        f"grid {ll['grid']}x{ll['threads']}, {ll['smem_bytes']} B smem; one "
-        f"launch per alignments() query): kernel {fmt_ms(t, 'ms')}, plain "
+    ll = dp_launch
+    lens = conf["lens"]
+    log(f"  align_dp V={v_n} L={int(lens.max())} S={s_n} "
+        f"A={int(mt_d.shape[0])} sum(len)={sum_len}, ragged ({ll['branch']} "
+        f"tier, K={ll['k']}, grid {ll['grid']}x{ll['threads']}, "
+        f"{ll['smem_bytes']} B smem; one launch per alignments() query): "
+        f"kernel {fmt_ms(t, 'ms')}, plain "
         f"{fmt_ms(t, 'plain_ms')}, no single PyTorch call computes this DP "
-        f"(library_ms null); operations bound {dp_ops_n:.4g} f32 ops at "
-        f"{FP32_OPS_PER_S:.3g}/s = {dp_ops_ms:.4f} ms "
-        f"({dp_ops_ms / t['ms'] * 100:.1f}% of the bound), issue bound at the "
-        f"sampled {sm_mhz:.0f} MHz SM clock (add and min issue one per lane "
-        f"per clock) {dp_issue_ms:.4f} ms ({dp_issue_ms / t['ms'] * 100:.1f}%), "
-        f"bytes bound {dp_bytes / 1e6:.2f} MB = {dp_bytes_ms:.4f} ms")
+        f"(library_ms null); operations bound {dp_ops_n:.4g} f32 ops (two "
+        f"adds and one min per state) at {FP32_OPS_PER_S:.3g}/s = "
+        f"{dp_ops_ms:.4f} ms ({dp_ops_ms / t['ms'] * 100:.1f}% of the bound; "
+        f"the select form's count, two mins per state, {2 * dp_adds:.4g} ops = "
+        f"{dp_select_ms:.4f} ms, {dp_select_ms / t['ms'] * 100:.1f}%), "
+        f"issue bound at the "
+        f"sampled {sm_mhz:.0f} MHz SM clock (add and min one per lane per "
+        f"clock) {dp_issue_ms:.4f} ms ({dp_issue_ms / t['ms'] * 100:.1f}%), "
+        f"with mins at half rate {dp_half_ms:.4f} ms "
+        f"({dp_half_ms / t['ms'] * 100:.1f}%), bytes bound "
+        f"{dp_bytes / 1e6:.2f} MB = {dp_bytes_ms:.4f} ms")
+    log(f"  align_dp work order [{card}]: input order (the kernel's) "
+        f"{fmt_ms(t, 'ms')}; longest first: kernel on the input stored "
+        f"longest first {fmt_ms(t, 'longest_first_ms')} + torch.argsort of "
+        f"the lengths {fmt_ms(t, 'sort_ms')} = "
+        f"{t['longest_first_ms'] + t['sort_ms']:.4f} ms")
+    log(f"locality control [{card}]: align_dp on the main path's ids "
+        f"{fmt_ms(t, 'ms')}; every id one activity (one Mt row, L1-resident) "
+        f"{fmt_ms(t, 'one_row_ms')}; uniform ids (same offsets) "
+        f"{fmt_ms(t, 'uniform_ms')}. Each variant-layer reads a "
+        f"{4 * s_n} B Mt row; {sum_len} of them read "
+        f"{4 * s_n * sum_len / 1e9:.2f} GB from L1 / L2.")
+    log("  align_dp instances (nvcc -Xptxas -v: registers, spill stores / "
+        "loads in bytes): " + "; ".join(
+            f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in resources.items()))
     log(f"end-to-end split [{card}] (s; host clock, card synchronized):")
     for name, _, res in results:
         notes = res.trace.notes
@@ -1204,7 +1368,10 @@ def phase_times(torch, repo, results, card, graph_counts, conf):
     log(f"  default-model alignments(), step by step: "
         + "  ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f"  (sum {sum(split.values()):.4f}; the query's own wall "
-        f"{conf['results']['alignments'].wall_s:.4f})")
+        f"{conf['results']['alignments'].wall_s:.4f}); the padded route "
+        "instead of checks + h2d: "
+        + "  ".join(f"{k} {v:.4f}" for k, v in conf["padded"].items())
+        + f" (sum {sum(conf['padded'].values()):.4f})")
     for name, r in conf["results"].items():
         log(f"  {name}: wall {r.wall_s:.4f}")
     return times
@@ -1236,6 +1403,10 @@ def main() -> int:
     try:
         log("== phase 1: environment")
         card = phase_environment(torch, build)
+        resources = _align_dp_resources(build, dp_ops)
+        log("align_dp instances (registers, spill stores / loads): "
+            + "; ".join(f"{k} {r} {st}/{ld}" for k, (r, st, ld)
+                        in resources.items()))
         log("== phase 2: kernels against their plain versions")
         worst = phase_sweep(torch, ops)
         worst["segment_count"] = phase_segment_sweep(torch, seg_ops)
@@ -1252,7 +1423,8 @@ def main() -> int:
         log("== phase 4: mining CLI")
         phase_cli()
         log("== phase 5: times")
-        times = phase_times(torch, repo, results, card, graph_counts, conf)
+        times = phase_times(torch, repo, results, card, graph_counts, conf,
+                            resources)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -43,11 +43,12 @@ from repro_torch.core.conformance import ModelSpec, deviation_census, model_tabl
 from repro_torch.core.discovery import DiscoveredModel
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.variants import TraceVariants, variant_table
-from repro_torch.kernels.align_dp import BIG_COST, align_dp
+from repro_torch.kernels.align_dp import BIG_COST, align_dp_ragged
 
 __all__ = [
     "AlignmentResult",
     "alignment_cost_tables",
+    "variant_ids",
     "variant_matrix",
     "align_variants",
     "finish_variant_costs",
@@ -148,22 +149,31 @@ def alignment_cost_tables(
     return m, d0, np.minimum(endcost, big).astype(np.float32)
 
 
-def variant_matrix(
-    tv: TraceVariants, names: Sequence[str]
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(seqs (V, max(L, 1)) int32, lens (V,) int32): each variant's
-    representative sequence as ids over ``names``, zero-padded to the
-    longest.  Ids are taken straight from the variant table; they are
-    renumbered only where ``names`` orders the labels differently."""
-    v = tv.num_variants
-    lens = tv.lengths.astype(np.int32)
-    lp = int(lens.max()) if v else 0
-    seqs = np.zeros((v, max(lp, 1)), dtype=np.int32)
+def variant_ids(tv: TraceVariants, names: Sequence[str]) -> np.ndarray:
+    """The variant table's ids, back to back (``tv.variant_activity``,
+    sliced by ``tv.variant_offsets``), as ids over ``names``: taken
+    straight from the table, renumbered only where ``names`` orders the
+    labels differently."""
     ids = tv.variant_activity
     idx = {n: i for i, n in enumerate(names)}
     remap = np.asarray([idx[n] for n in tv.activity_names], dtype=np.int64)
     if not np.array_equal(remap, np.arange(remap.shape[0])):
         ids = remap[ids]
+    return ids
+
+
+def variant_matrix(
+    tv: TraceVariants, names: Sequence[str]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(seqs (V, max(L, 1)) int32, lens (V,) int32): each variant's
+    representative sequence as ids over ``names`` (:func:`variant_ids`),
+    zero-padded to the longest.  The engine's DP takes the ragged ids
+    instead; this is the reference's padded layout."""
+    v = tv.num_variants
+    lens = tv.lengths.astype(np.int32)
+    lp = int(lens.max()) if v else 0
+    seqs = np.zeros((v, max(lp, 1)), dtype=np.int32)
+    ids = variant_ids(tv, names)
     rows = np.repeat(np.arange(v), lens)
     cols = np.arange(ids.shape[0]) - np.repeat(tv.variant_offsets[:-1], lens)
     seqs[rows, cols] = ids
@@ -179,17 +189,21 @@ def align_variants(
     device="cuda",
 ) -> Tuple[np.ndarray, int]:
     """(per-variant optimal costs (V,) int64, empty_cost) via the batched
-    DP.  ``backend`` routes the DP (auto | numpy | kernel, see
-    :func:`repro_torch.kernels.align_dp.align_dp`) on ``device``."""
+    DP.  The variant table's ragged ids and offsets go to the DP as they
+    are (no padded matrix); ``backend`` routes it (auto | numpy | kernel,
+    see :func:`repro_torch.kernels.align_dp.align_dp_ragged`) on
+    ``device``."""
     m, d0, endcost = alignment_cost_tables(model, names)
     empty = float((d0 + endcost).min())
     empty_cost = -1 if empty >= BIG_COST / 2 else int(empty)
 
     if tv.num_variants == 0:
         return np.zeros((0,), dtype=np.int64), empty_cost
-    seqs, lens = variant_matrix(tv, names)
-    raw = align_dp(seqs, lens, m, d0, endcost, backend=backend, device=device)
-    return finish_variant_costs(raw, lens), empty_cost
+    raw = align_dp_ragged(
+        variant_ids(tv, names), tv.variant_offsets, m, d0, endcost,
+        backend=backend, device=device,
+    )
+    return finish_variant_costs(raw, tv.lengths), empty_cost
 
 
 def finish_variant_costs(raw: np.ndarray, lens: np.ndarray) -> np.ndarray:

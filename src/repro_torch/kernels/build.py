@@ -17,6 +17,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +25,10 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["SOURCES", "BuildRecord", "build", "build_all", "load", "find_nvcc"]
+__all__ = [
+    "SOURCES", "BuildRecord", "build", "build_all", "load", "find_nvcc",
+    "ptxas_resources",
+]
 
 _PKG = Path(__file__).resolve().parent
 #: repo root for a source checkout (``src/repro_torch/kernels`` → root)
@@ -57,6 +61,29 @@ _records: Dict[str, BuildRecord] = {}
 _lock = threading.Lock()
 
 
+def ptxas_resources(report: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel entry (mangled name) of a ``-Xptxas -v`` report: its
+    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def find_nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
@@ -74,6 +101,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _report(lib: Path) -> Path:
+    """Where nvcc's ``-Xptxas -v`` report of ``lib`` is kept beside it."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all(names: Optional[Sequence[str]] = None) -> List[BuildRecord]:
     """Compile the libraries ``names`` (default: every source) that are not
     on disk yet, one ``nvcc`` each, all started together.  Raises with the
@@ -86,7 +118,11 @@ def build_all(names: Optional[Sequence[str]] = None) -> List[BuildRecord]:
                 continue
             out = _target(name)
             if out.exists():
-                _records[name] = BuildRecord(name, out, 0.0, "(already built)")
+                log = _report(out)
+                _records[name] = BuildRecord(
+                    name, out, 0.0, log.read_text() if log.exists()
+                    else "(already built)",
+                )
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -103,6 +139,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> List[BuildRecord]:
                 failed.append(f"nvcc failed for {name} (exit "
                               f"{proc.returncode}):\n{log}")
                 continue
+            _report(out).write_text(log.strip())
             os.replace(tmp, out)
             _records[name] = BuildRecord(
                 name, out, time.perf_counter() - t0, log.strip()

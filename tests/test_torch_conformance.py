@@ -14,6 +14,8 @@ runs its plain PyTorch version on CPU tensors and its numpy copy.
 import dataclasses
 import itertools
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.core.dfg import dfg_numpy
 from repro_torch.core.discovery import discover_dependency_graph as port_discover
 from repro_torch.core.repository import EventRepository as PortRepository
 from repro_torch.core.streaming import MemmapLog as PortMemmapLog
+from repro_torch.kernels import build
 from repro_torch.kernels.align_dp import ops as dp_ops
 
 DAY = 86400.0
@@ -387,6 +390,14 @@ def _dp_inputs(case: str):
     return seqs, lens, m, d0, endc
 
 
+def _ragged(seqs, lens):
+    """(ids, offsets) of a padded (seqs, lens): the active positions row
+    after row and the rows' bounds."""
+    lens = np.clip(np.asarray(lens, np.int64), 0, seqs.shape[1])
+    active = np.arange(seqs.shape[1])[None, :] < lens[:, None]
+    return seqs[active], np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+
 #: the sweep of tests/test_conformance_subsystem.py plus the edge cases
 DP_CASES = [f"{s}:" for s in (17, 18, 19, 20)] + [
     "21:v0", "22:l1", "23:lens0", "24:unalignable", "25:lane_plus_one",
@@ -407,6 +418,14 @@ def test_align_dp_matches_reference_numpy_and_pallas_interpret(case):
             *dp_ops.prepare(seqs, lens, m, d0, endc, "cpu")
         ).numpy(),
     }
+    ids, offsets = _ragged(seqs, lens)
+    for backend in ("auto", "kernel", "numpy"):
+        outs[f"ragged {backend}"] = dp_ops.align_dp_ragged(
+            ids, offsets, m, d0, endc, backend=backend, device="cpu"
+        )
+    outs["ragged plain"] = dp_ops.align_dp_plain(
+        *dp_ops.prepare_ragged(ids, offsets, m, d0, endc, "cpu")
+    ).numpy()
     if seqs.shape[0]:
         outs["pallas"] = ref_align_dp(
             seqs, lens, m, d0, endc, backend="pallas", interpret=True
@@ -497,6 +516,126 @@ def test_lengths_past_the_matrix_are_clamped_like_the_reference():
     )
 
 
+RAGGED_CASES = ["some_empty", "all_empty", "no_variants", "one_long", "wide_ids"]
+
+
+def _ragged_case(case):
+    """(seqs, lens, m, d0, endcost) of one ragged-input case."""
+    seqs, lens, m, d0, endc = _dp_inputs("40:")
+    if case == "some_empty":
+        lens[1::3] = 0
+    elif case == "all_empty":
+        lens[:] = 0
+    elif case == "no_variants":
+        seqs, lens = seqs[:0], lens[:0]
+    elif case == "one_long":
+        seqs = np.random.default_rng(41).integers(0, m.shape[1], (1, 200))
+        lens = np.array([200])
+    elif case == "wide_ids":  # int64 ids in range
+        seqs = seqs.astype(np.int64)
+    return seqs, lens, m, d0, endc
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_ragged_prepare_and_plain_match_reference(case):
+    """The ragged input (ids back to back + offsets) through prepare_ragged,
+    align_dp_plain and align_dp_ragged equals the reference's padded
+    align_dp bit for bit, the Pallas kernel in interpret mode included;
+    prepare of the padded input gives the very same tensors."""
+    seqs, lens, m, d0, endc = _ragged_case(case)
+    ids, offsets = _ragged(seqs, lens)
+    want = ref_align_dp(seqs, lens, m, d0, endc, backend="numpy")
+    inputs = dp_ops.prepare_ragged(ids, offsets, m, d0, endc, "cpu")
+    assert inputs[0].dtype == torch.int32 and inputs[1].dtype == torch.int64
+    assert inputs[0].shape == (int(lens.sum()),)
+    for x, y in zip(dp_ops.prepare(seqs, lens, m, d0, endc, "cpu"), inputs):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    outs = {
+        "plain": dp_ops.align_dp_plain(*inputs).numpy(),
+        **{b: dp_ops.align_dp_ragged(ids, offsets, m, d0, endc, backend=b,
+                                     device="cpu")
+           for b in ("auto", "kernel", "numpy")},
+    }
+    if seqs.shape[0] and case != "one_long":
+        outs["pallas"] = ref_align_dp(
+            seqs, lens, m, d0, endc, backend="pallas", interpret=True
+        )
+    for name, got in outs.items():
+        assert got.dtype == np.float32 and got.shape == want.shape, name
+        np.testing.assert_array_equal(
+            got.view(np.uint32), want.view(np.uint32), err_msg=name
+        )
+
+
+def test_ragged_input_is_checked():
+    seqs, lens, m, d0, endc = _dp_inputs("42:")
+    ids, offsets = _ragged(seqs, lens)
+    a = m.shape[1]
+    bad_offsets = {
+        "not from 0": offsets + 1,
+        "falling": np.concatenate([[0], offsets[2:], offsets[1:2]]),
+        "short of the ids": offsets[:-1],
+    }
+    for what, off in bad_offsets.items():
+        for backend in ("auto", "numpy"):
+            with pytest.raises(ValueError, match="offsets"):
+                dp_ops.align_dp_ragged(ids, off, m, d0, endc, backend=backend,
+                                       device="cpu")
+    for bad in (a, -1, (1 << 32) + 1):
+        wrong = ids.astype(np.int64)
+        wrong[len(wrong) // 2] = bad
+        for backend in ("auto", "numpy"):
+            with pytest.raises(ValueError, match="activity ids"):
+                dp_ops.align_dp_ragged(wrong, offsets, m, d0, endc,
+                                       backend=backend, device="cpu")
+
+
+def test_align_dp_device_refuses_more_sync_columns_than_states():
+    """An Mᵀ of more rows than states would let an id name a state past the
+    front; align_dp_device refuses it (and wrong shapes) on any device,
+    while prepare_ragged's padded tables pass."""
+    seqs, lens, m, d0, endc = _dp_inputs("43:")
+    ids, offsets, mt, d0p, endp = dp_ops.prepare(seqs, lens, m, d0, endc, "cpu")
+    assert mt.shape[0] <= mt.shape[1]
+    tall = mt.new_zeros((mt.shape[1] + 1, mt.shape[1]))
+    with pytest.raises(ValueError, match="rows"):
+        dp_ops.align_dp_device(ids, offsets, tall, d0p, endp)
+    with pytest.raises(ValueError, match="shape"):
+        dp_ops.align_dp_device(ids, offsets, mt, d0p[:-1], endp)
+
+
+def test_register_instances_match_the_kernel_source():
+    """ops.REGISTER_INSTANCES lists the register tier's instances as the
+    CUDA source declares them: (K, KLO), each serving 32·KLO < S ≤ 32·K,
+    the ranges following one another without a gap, so that only slots
+    k ≥ KLO bounds-test (at most twelve)."""
+    src = (Path(dp_ops.__file__).parent / "csrc" / "align_dp.cu").read_text()
+    body = src.split("#define ALIGN_DP_REGISTER_INSTANCES(X)")[1].split("#define")[0]
+    pairs = [tuple(map(int, p)) for p in re.findall(r"X\((\d+), (\d+)\)", body)]
+    assert tuple(pairs) == dp_ops.REGISTER_INSTANCES
+    assert [lo for _, lo in pairs[1:]] == [k for k, _ in pairs[:-1]]
+    assert all(0 < k - lo <= 12 for k, lo in pairs)
+    assert pairs[-1][0] == 32
+
+
+def test_ptxas_report_parses_registers_and_spills():
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooILi20EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi20EEvv
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 86 registers, used 0 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 380 bytes cmem[0]
+"""
+    assert build.ptxas_resources(report) == {
+        "_Z3fooILi20EEvv": {"registers": 86, "spill_stores": 4,
+                            "spill_loads": 12},
+        "_Z3barv": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
+    }
+
+
 # ---------------------------------------------------------------------------
 # alignments end to end
 # ---------------------------------------------------------------------------
@@ -557,6 +696,68 @@ def test_align_repository_random_logs_match_reference(exact_ref_variants, seed):
     # the variant costs broadcast to traces; perfect traces fit replay too
     replay = port_conf.replay_fitness(port_repo, port_spec)
     assert ((got.trace_cost == 0) <= (replay.trace_fitness >= 1.0 - 1e-12)).all()
+
+
+@pytest.mark.parametrize("names_order", ["table", "reversed"])
+@pytest.mark.parametrize("backend", ["auto", "kernel", "numpy"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_align_variants_ragged_matches_reference(
+    exact_ref_variants, seed, backend, names_order
+):
+    """align_variants hands the variant table's ragged ids (remapped where
+    ``names`` orders the labels differently) straight to the DP; its costs
+    equal the reference's align_variants on the same exact table, and
+    align_arrays equals the reference's end to end; tolerance 0."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"a{i}" for i in range(8)]
+    a, t = _columns(rng, 60, len(vocab), max_len=40)
+    a[t == 3] = 0  # a one-activity variant
+    port_tv = port_variants.variant_table(a, t, 60, vocab)
+    ref_tv = ref_variants.TraceVariants(
+        counts=port_tv.counts, sequences=port_tv.sequences,
+        trace_variant=port_tv.trace_variant,
+    )
+    names = vocab[::-1] if names_order == "reversed" else vocab
+    port_spec, ref_spec = _random_spec(rng, names, extra=("ghost",))
+    got, got_empty = port_conf.align_variants(
+        port_tv, names, port_spec, backend=backend, device="cpu"
+    )
+    want, want_empty = ref_align.align_variants(ref_tv, names, ref_spec)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    assert got_empty == want_empty
+    ids = port_conf.align.variant_ids(port_tv, names)
+    assert [[names[i] for i in ids[o:e]] for o, e in zip(
+        port_tv.variant_offsets[:-1], port_tv.variant_offsets[1:])] \
+        == port_tv.sequences
+    # end to end over the columns, the activity ids renumbered by names
+    remap = np.asarray([names.index(x) for x in vocab], np.int32)
+    _same_alignment(
+        port_conf.align_arrays(remap[a], t, names, port_spec, 60,
+                               backend=backend, device="cpu"),
+        ref_conf.align_arrays(remap[a], t, names, ref_spec, 60),
+    )
+
+
+def test_engine_alignments_build_no_padded_matrix(monkeypatch):
+    """The engine's DP input is the variant table's ragged ids: neither the
+    padded (V, L) matrix nor a padded copy of it is built on the way."""
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a padded (V, L) matrix was built")
+
+    rng = np.random.default_rng(4)
+    names = [f"a{i}" for i in range(6)]
+    a, t = _columns(rng, 40, len(names), max_len=12)
+    port_spec, _ = _random_spec(rng, names)
+    want = port_conf.align_arrays(a, t, names, port_spec, 40, device="cpu")
+    monkeypatch.setattr(port_conf.align, "variant_matrix", refuse)
+    monkeypatch.setattr(dp_ops, "_padded_of_ragged", refuse)
+    monkeypatch.setattr(dp_ops, "_ragged_of_padded", refuse)
+    for backend in ("auto", "kernel"):
+        got = port_conf.align_arrays(a, t, names, port_spec, 40,
+                                     backend=backend, device="cpu")
+        _same_alignment(got, want)
 
 
 # ---------------------------------------------------------------------------

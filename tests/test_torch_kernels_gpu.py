@@ -98,10 +98,20 @@ def test_segment_count_kernel_matches_plain_version_on_the_card():
     assert branches == {"shared", "global"}
 
 
-def _dp_tables(rng, s, a):
-    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs: small integers,
-    about a third of them BIG_COST (unreachable), one start state."""
+def _dp_tables(rng, s, a, kind=0):
+    """Random (m (S, A), d0 (S,), endcost (S,)) f32 costs of three kinds:
+    0 sparse (small integers, about a third of them BIG_COST, one start
+    state), 1 cheap syncs (the answer hinges on every id), 2 dear syncs (a
+    log move often beats the sync on state a)."""
     big = np.float32(dp_ops.BIG_COST)
+    if kind == 1:
+        m = rng.integers(0, 3, (s, a)).astype(np.float32)
+        m[rng.random((s, a)) < 0.1] = big
+    elif kind == 2:
+        m = rng.integers(2, 9, (s, a)).astype(np.float32)
+    if kind:
+        d0 = rng.integers(0, 3, s).astype(np.float32)
+        return m, d0, rng.integers(0, 2, s).astype(np.float32)
     m = rng.integers(0, 6, (s, a)).astype(np.float32)
     m[rng.random((s, a)) < 0.3] = big
     d0 = np.full(s, big, dtype=np.float32)
@@ -117,12 +127,18 @@ def test_align_dp_kernel_matches_plain_version_on_the_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(3)
-    branches = set()
-    # 8 warps x S x 4 B of fronts fit a block's shared memory up to
-    # S = 7,264; 7,265 and 9,000 states take the global branch
-    for s, a in ((1, 1), (3, 2), (33, 32), (129, 128), (601, 600),
-                 (7264, 40), (7265, 40), (9000, 300)):
-        m, d0, end = _dp_tables(rng, s, a)
+    tiers, ks = set(), set()
+    # each register instance (K, KLO) at both ends of 32 KLO < S <= 32 K and
+    # one state past each; 8 warps x S x 4 B of fronts fit a block's shared
+    # memory up to S = 7,264; 7,265 and 9,000 states take the global tier.
+    # Up to 1,025 states the ids cover every state but the last, so the
+    # sync lands on every slot k of the register front
+    sizes = sorted({x for k, lo in dp_ops.REGISTER_INSTANCES
+                    for x in (32 * lo, 32 * lo + 1, 32 * k, 32 * k + 1)}
+                   | {1, 3, 33, 129, 601, 7264, 7265, 9000})
+    for n, s in enumerate(sizes):
+        a = max(s - 1, 1) if s <= 1025 else (300 if s > 7265 else 40)
+        m, d0, end = _dp_tables(rng, s, a, kind=n % 3)
         for v, l in ((0, 1), (1, 1), (7, 5), (300, 40), (3000, 168)):
             seqs = rng.integers(0, a, (v, l))  # int64 ids
             lens = rng.integers(0, l + 1, v)
@@ -134,13 +150,17 @@ def test_align_dp_kernel_matches_plain_version_on_the_card():
             assert got.dtype == torch.float32 and got.shape == (v,)
             assert torch.equal(got, want), (s, a, v, l)
             if v:
-                branches.add(dp_ops.last_launch["branch"])
+                tiers.add(dp_ops.last_launch["branch"])
+                if dp_ops.last_launch["branch"] == "registers":
+                    k = dp_ops.last_launch["k"]
+                    ks.add(k)
+                    assert 32 * dict(dp_ops.REGISTER_INSTANCES)[k] < s <= 32 * k
                 assert dp_ops.launch_counts["align_dp"] == before + 1
             if v * l * s <= 2_000_000:
                 host = dp_ops.align_dp(seqs, lens, m, d0, end, backend="numpy")
                 np.testing.assert_array_equal(got.cpu().numpy(), host)
-        # the public entry on the card: ids past the sync columns, or beyond
-        # int32's range, at an active position are refused
+        # the public entries on the card: ids past the sync columns, or
+        # beyond int32's range, at an active position are refused
         seqs = rng.integers(0, a, (4, 3))
         lens = np.full(4, 3)
         for bad in (a, -1, (1 << 32) + 1):
@@ -148,8 +168,15 @@ def test_align_dp_kernel_matches_plain_version_on_the_card():
             wrong[2, 1] = bad
             with pytest.raises(ValueError, match="activity ids"):
                 dp_ops.align_dp(wrong, lens, m, d0, end, device=dev)
+            with pytest.raises(ValueError, match="activity ids"):
+                dp_ops.align_dp_ragged(wrong.ravel(), [0, 3, 6, 9, 12], m, d0,
+                                       end, device=dev)
         got = dp_ops.align_dp(seqs, lens, m, d0, end, backend="kernel", device=dev)
         np.testing.assert_array_equal(
             got, dp_ops.align_dp(seqs, lens, m, d0, end, backend="numpy")
         )
-    assert branches == {"shared", "global"}
+        np.testing.assert_array_equal(
+            dp_ops.align_dp_ragged(seqs.ravel(), [0, 3, 6, 9, 12], m, d0, end,
+                                   device=dev), got)
+    assert tiers == {"registers", "shared", "global"}
+    assert ks == {k for k, _ in dp_ops.REGISTER_INSTANCES}
