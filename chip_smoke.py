@@ -14,8 +14,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. every CUDA kernel against its plain PyTorch version on the card, bit for
    bit, over a sweep of activity / segment / state counts, pair / id /
    variant counts, dtypes and windows that reaches every branch of each
-   kernel (``align_dp``: its registers, shared and global tiers, and each
-   register instance);
+   kernel (``dfg_count``: its shared and hash branches, the hash table with
+   no, partial and full overflow, shifted and separate columns, views at
+   odd offsets; ``align_dp``: its registers, shared and global tiers, and
+   each register instance);
 3. the main path at the paper's evaluation width (PAPER_EVAL: 7.2 M events,
    600 activities, 120 days) on a default ``QueryEngine()`` (its memory
    budget taken from the card): ``Q.log(log).using(engine).dfg()`` plus
@@ -39,9 +41,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    (V, L) route timed beside it;
 4. the mining CLI in-process (``repro_torch.launch.mine``);
 5. kernel, plain-version and library times at the main paths' shapes beside
-   the bytes or operations bound (``align_dp`` also beside its issue
-   bounds, with its work orders compared), and the end-to-end split of the
-   main-path queries.
+   the bytes or operations bound (``ms``: CUDA events around the host's
+   call and the launch; ``device_ms``: the same launch enqueued behind a
+   spin, so the host's call is off the clock; ``dfg_count`` also on the
+   graph build's separate columns and the CLI's A = 32 shared branch, as 50
+   back-to-back launches, with the hash table's overflow and flush counts
+   on the main path's inputs, on uniform keys and on the 99% cells;
+   ``align_dp`` also beside its issue bounds, with its work orders
+   compared), and the end-to-end split of the main-path queries.
 
 The line before the last is a JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
@@ -71,6 +78,10 @@ H100_SMS, FP32_LANES_PER_SM = 132, 128
 #: (the CUDA C++ Programming Guide's throughput table, compute capability
 #: 9.0: 64 for "compare, minimum, maximum", 128 for f32 add)
 MIN_LANES_PER_SM = 64
+#: clock cycles of the spin that keeps the stream busy while the host
+#: enqueues a launch timed for ``device_ms`` (~0.5 ms at 1,980 MHz; a
+#: launch's host call takes tens of µs)
+SPIN_CYCLES = 1_000_000
 #: the source of each kernel
 SOURCES = {
     "dfg_count": "src/repro_torch/kernels/dfg_count/csrc/dfg_count.cu",
@@ -162,12 +173,37 @@ def _pairs(torch, gen, n, a, dev):
     return src, dst, valid, ts
 
 
+def _stats_launch(torch, ops, src, dst, valid, a, ts_src=None, ts_dst=None,
+                  window=None):
+    """One dfg_count launch through the wrappers' conversions, with the
+    kernel's counters: (out, [overflowed pairs, flush atomics],
+    last_launch)."""
+    s, d, v = ops._device_columns(src, dst, valid, a)
+    if window is not None:
+        ts_src, ts_dst = ops._device_timestamps(ts_src, ts_dst)
+    out = torch.zeros((a, a), dtype=torch.int64, device=src.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=src.device)
+    ops.launch(s, d, v, out, a, ts_src, ts_dst, window, stats)
+    return out, stats.tolist(), dict(ops.last_launch)
+
+
 def phase_sweep(torch, ops):
+    """dfg_count / dfg_count_diced ≡ their plain versions with torch.equal:
+    16 B + 4·A² B of dense counters fit a block's 227 KB up to A = 241
+    ("shared"); 242 and above take the hash table ("hash"), reached with no
+    overflow (a generated process log at A = 600), partial overflow (1.5
+    distinct keys per slot) and full overflow (uniform keys); separate
+    columns and shifted views of one column, at the column's start and at
+    odd offsets; n from 0 to 7.2 M, every remainder mod the run of 8
+    pairs."""
+    from repro_torch.data import ProcessSpec
+    from repro_torch.data.synthetic_log import generate_repository
+
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     worst = {"dfg_count": 0, "dfg_count_diced": 0}
-    branches = set()
+    branches, columns, overflow = set(), set(), {}
     cases = 0
 
     def compare(name, got, want, what):
@@ -180,7 +216,20 @@ def phase_sweep(torch, ops):
         check(torch.equal(got, want), f"{name} {what}: max |err| {err}")
         cases += 1
 
-    for a in (1, 3, 26, 130, 257, 600):
+    def compare_stats(src, dst, valid, a, what, ts_src=None, ts_dst=None,
+                      window=None):
+        name = "dfg_count" if window is None else "dfg_count_diced"
+        got, stats, launch = _stats_launch(torch, ops, src, dst, valid, a,
+                                           ts_src, ts_dst, window)
+        if window is None:
+            want = ops.dfg_count_plain(src, dst, valid, num_activities=a)
+        else:
+            want = ops.dfg_count_diced_plain(src, dst, valid, ts_src, ts_dst,
+                                             window, num_activities=a)
+        compare(name, got, want, what)
+        return stats, launch
+
+    for a in (1, 3, 26, 130, 241, 242, 257, 600):
         for n in (0, 1, 7, 1000, 1 << 20, 7_200_000):
             src, dst, valid, ts = _pairs(torch, gen, n, a, dev)
             what = f"A={a} E={n}"
@@ -190,6 +239,7 @@ def phase_sweep(torch, ops):
                     what)
             if n:
                 branches.add(ops.last_launch["branch"])
+                columns.add(ops.last_launch["columns"])
             k = torch.randint(0, n + 1, (2,), generator=gen, device=dev)
             lo, hi = sorted(ts[k].tolist())
             windows = {
@@ -203,6 +253,33 @@ def phase_sweep(torch, ops):
                         ops.dfg_count_diced(*args, num_activities=a),
                         ops.dfg_count_diced_plain(*args, num_activities=a),
                         f"{what} window={wname}")
+            # shifted views of one column: the column's start and odd
+            # offsets (ids, valid and timestamps off the vectors'
+            # alignment); n + head - 3 pairs, so every remainder mod 8
+            act = src if n < 8 else torch.cat([src[:4], dst])
+            vcol = torch.cat([valid, valid[:4]])
+            tcol = torch.cat([ts, ts[:4]])
+            for head in (0, 1, 3):
+                m = max(min(n + head - 3, act.shape[0] - head - 1), 0)
+                s_, d_ = act[head:head + m], act[head + 1:head + 1 + m]
+                v_, t_ = vcol[head:head + m], tcol[head:head + m + 1]
+                for wname, w in (("none", None), ("bounds=timestamps", (lo, hi))):
+                    args = (t_[:-1], t_[1:], w) if w is not None else ()
+                    stats, launch = compare_stats(
+                        s_, d_, v_, a,
+                        f"A={a} shifted E={m} head={head} window={wname}", *args)
+                    if m:
+                        check(launch["columns"] == "shifted",
+                              f"A={a} E={m} head={head}: {launch['columns']}")
+                        columns.add("shifted")
+            # uniform keys fill every block's hash table
+            if a > 241 and n == 7_200_000:
+                stats, launch = compare_stats(src, dst, valid, a,
+                                              f"A={a} E={n} stats")
+                check(launch["branch"] == "hash" and stats[0] > 0
+                      and stats[1] >= 0.99 * launch["grid"] * ops.HASH_SLOTS,
+                      f"A={a} uniform keys: stats {stats}, {launch}")
+                overflow[f"full A={a}"] = stats
     # input dtypes the wrapper converts on the card
     for n in (1000, 1 << 20):
         src, dst, valid, ts = _pairs(torch, gen, n, 130, dev)
@@ -236,10 +313,43 @@ def phase_sweep(torch, ops):
         compare("dfg_count_diced",
                 ops.dfg_count_diced(*args, num_activities=a),
                 ops.dfg_count_diced_plain(*args, num_activities=a), what)
-    check(branches == {"shared", "global"},
-          f"sweep reached branches {branches}, expected shared and global")
+        # the same int64 ids as successor views of one column
+        col = torch.cat([s2[:1], d2])
+        compare_stats(col[:-1], col[1:], valid, a, what + ", shifted")
+    # the hash table with no overflow: a generated process log at the main
+    # path's width, its columns as the engine passes them
+    repo = generate_repository(50_000, ProcessSpec(num_activities=600, seed=5),
+                               seed=5)
+    act = torch.from_numpy(repo.event_activity.astype("int32")).to(dev)
+    ts = torch.from_numpy(repo.event_time).to(dev)
+    valid = torch.from_numpy(repo.df_pairs()[2]).to(dev)
+    t = ts.sort().values
+    w = (float(t[t.shape[0] // 4]), float(t[3 * t.shape[0] // 4]))
+    for wname, args in (("none", ()), ("middle half", (ts[:-1], ts[1:], w))):
+        stats, launch = compare_stats(act[:-1], act[1:], valid, 600,
+                                      f"process log window={wname}", *args)
+        check(launch["branch"] == "hash" and launch["columns"] == "shifted"
+              and stats[0] == 0,
+              f"process log window={wname}: stats {stats}, {launch}")
+        overflow[f"none window={wname}"] = stats
+    # partial overflow: 1.5 times as many distinct keys as slots
+    k = 3 * ops.HASH_SLOTS // 2
+    keys = torch.randperm(360_000, generator=gen, device=dev)[:k]
+    key = keys[torch.randint(0, k, (1 << 23,), generator=gen, device=dev)]
+    valid = torch.rand(1 << 23, generator=gen, device=dev) < 0.9
+    stats, launch = compare_stats(key // 600, key % 600, valid, 600,
+                                  f"{k} distinct keys")
+    check(launch["branch"] == "hash" and 0 < stats[0] < int(valid.sum()),
+          f"{k} distinct keys: stats {stats}, {launch}")
+    overflow["partial"] = stats
+    check(branches == {"shared", "hash"},
+          f"sweep reached branches {branches}, expected shared and hash")
+    check(columns == {"shifted", "separate"},
+          f"sweep reached column layouts {columns}")
     log(f"sweep: {cases} kernel-vs-plain comparisons bit-identical "
-        f"(tolerance 0) over both branches {sorted(branches)}")
+        f"(tolerance 0) over both branches {sorted(branches)} and both "
+        f"column layouts {sorted(columns)}; hash table [overflowed pairs, "
+        f"flush atomics]: {overflow}")
     return worst
 
 
@@ -1031,17 +1141,30 @@ def phase_cli():
 # ---------------------------------------------------------------------------
 
 
-def _launch_ms(torch, fn, reset, flush, iters, warmup):
-    """Device ms of each of ``iters`` launches of ``fn`` (CUDA events), each
-    preceded off the clock by ``reset`` and an L2 flush: the inputs come
-    fresh from a host copy, so the caller finds the 50 MB L2 cold."""
+def _launch_ms(torch, fn, reset, flush, iters, warmup, clean=False,
+               spin=False):
+    """Ms of each of ``iters`` launches of ``fn`` between two CUDA events,
+    each preceded off the clock by ``reset`` and an L2 flush: the inputs
+    come fresh from a host copy, so the caller finds the 50 MB L2 cold.  The
+    flush writes 64 MiB, which leaves the L2 full of dirty lines that the
+    launch then writes back; ``clean`` flushes by reading them instead.
+    The stream is idle when the start event is recorded, so the span holds
+    the host's Python and ctypes call as well as the device's work; with
+    ``spin`` a ~0.5 ms spin keeps the stream busy while the host records
+    the start event and enqueues ``fn``, so the span is the device's work
+    alone."""
     out = []
     for i in range(warmup + iters):
         if reset is not None:
             reset()
-        flush.zero_()
+        if clean:
+            flush.view(torch.int64).sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -1051,22 +1174,55 @@ def _launch_ms(torch, fn, reset, flush, iters, warmup):
     return out
 
 
-def _measure(torch, cases, rounds=5, iters=10):
+def _measure(torch, cases, rounds=5, iters=10, clean=False, spin=False):
     """Per-launch ms of every case, in ``rounds`` interleaved rounds so a
     drift of the card's clocks spreads over all cases alike.  Returns
     name → (median, first quartile, third quartile, launches)."""
     import numpy as np
 
-    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    flush = torch.zeros(64 << 20, dtype=torch.int8, device="cuda")
     samples = {name: [] for name in cases}
     for r in range(rounds):
         for name, (fn, reset) in cases.items():
             samples[name] += _launch_ms(
-                torch, fn, reset, flush, iters, warmup=3 if r == 0 else 1
+                torch, fn, reset, flush, iters, warmup=3 if r == 0 else 1,
+                clean=clean, spin=spin,
             )
     return {
         name: (*np.percentile(v, [50, 25, 75]).tolist(), len(v))
         for name, v in samples.items()
+    }
+
+
+def _back_to_back(torch, cases, launches=50, rounds=5):
+    """Device ms per launch of ``launches`` launches of each case issued
+    back to back between two CUDA events (the host's Python and ctypes
+    call included; no L2 flush between them), and host µs per launch call
+    to enqueue them, over ``rounds`` interleaved rounds.  Returns name →
+    (median, first quartile, third quartile, rounds, host µs median)."""
+    import numpy as np
+
+    samples = {name: ([], []) for name in cases}
+    for r in range(rounds + 1):
+        for name, (fn, reset) in cases.items():
+            reset()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            host = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            if r:  # the first round warms up
+                samples[name][0].append(start.elapsed_time(end) / launches)
+                samples[name][1].append(host / launches * 1e6)
+    return {
+        name: (*np.percentile(dev, [50, 25, 75]).tolist(), len(dev),
+               float(np.median(host)))
+        for name, (dev, host) in samples.items()
     }
 
 
@@ -1113,6 +1269,15 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     in_win = (ts_src >= w[0]) & (ts_src < w[1]) & (ts_dst >= w[0]) & (ts_dst < w[1])
     key_plain = key[valid_d.bool()]
     key_diced = key[valid_d.bool() & in_win]
+    # sparse control: the same pairs, valid only in the cells that hold 99%
+    # of them (the hash table's occupancy without the long tail)
+    psi_all = torch.from_numpy(results[0][2].value).to(dev).reshape(-1)
+    by_count = torch.sort(psi_all, descending=True).values
+    top = int(torch.searchsorted(torch.cumsum(by_count, 0),
+                                 0.99 * float(by_count.sum()))) + 1
+    kept = torch.zeros(a * a, dtype=torch.bool, device=dev)
+    kept[torch.argsort(psi_all, descending=True)[:top]] = True
+    valid_sparse = (valid_d.bool() & kept[key]).view(torch.uint8)
     # contention control: the same E, A and valid, with activities drawn
     # uniformly, so the adds spread over all A² cells instead of the
     # process's few hot ones
@@ -1126,8 +1291,36 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     out_s = torch.zeros((a,), dtype=torch.int64, device=dev)
     ones_d = torch.ones(n + 1, dtype=torch.uint8, device=dev)
     ids_masked = act_d[(act_d >= 0) & (act_d < a)].long()
+    # the graph build's call (core/dfg.py:dfg): src, dst and valid uploaded
+    # as separate buffers, so 9 B per pair
+    src_np, dst_np, _ = repo.df_pairs()
+    src_sep = torch.from_numpy(np.ascontiguousarray(src_np, np.int32)).to(dev)
+    dst_sep = torch.from_numpy(np.ascontiguousarray(dst_np, np.int32)).to(dev)
+    valid_sep = torch.from_numpy(valid).to(dev)
+    # the CLI's count (phase 4): its A = 32 log, counted on the dense
+    # "shared" branch, plain and with its 30-day window
+    from repro_torch.data import ProcessSpec, generate_memmap_log
+    from repro_torch.query.execute import repository_from_memmap
 
-    # the kernels against their plain versions on the main path's own inputs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cli_log = generate_memmap_log(
+            os.path.join(tmp, "cli"), 4_000_000,
+            ProcessSpec(num_activities=32, seed=7), seed=7)
+        cli_repo = repository_from_memmap(cli_log)
+        a_cli = cli_repo.num_activities
+        t_min = float(cli_log.time[0])
+        w_cli = (t_min, t_min + 30 * DAY)
+        act_cli = torch.from_numpy(
+            np.ascontiguousarray(cli_repo.event_activity, np.int32)).to(dev)
+        valid_cli = torch.from_numpy(cli_repo.df_pairs()[2]).to(dev)
+        ts_cli = torch.from_numpy(cli_repo.event_time).to(dev)
+    out_cli = torch.zeros((a_cli, a_cli), dtype=torch.int64, device=dev)
+    cli_args = (act_cli[:-1], act_cli[1:], valid_cli.view(torch.uint8))
+    cli_diced = (ts_cli[:-1], ts_cli[1:], w_cli)
+
+    # the kernels against their plain versions on the main path's own
+    # inputs, then once more with the hash table's counters
+    table_stats = {}
     for name, w_, _ in results:
         if w_ is None:
             got = ops.dfg_count(src_d, dst_d, valid_d, num_activities=a)
@@ -1139,13 +1332,68 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         torch.cuda.synchronize()
         check(torch.equal(got, want),
               f"main-path inputs, query {name}: kernel differs from plain")
-    log(f"main-path inputs: kernel == plain on all {len(results)} queries")
+        check(ops.last_launch["branch"] == "hash"
+              and ops.last_launch["columns"] == "shifted",
+              f"main-path inputs, query {name}: {ops.last_launch}")
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        out.zero_()
+        if w_ is None:
+            ops.launch(src_d, dst_d, valid_d, out, a, stats=stats)
+        else:
+            ops.launch(src_d, dst_d, valid_d, out, a, ts_src, ts_dst, w_, stats)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want) and stats[0] == 0,
+              f"main-path inputs, query {name}: {int(stats[0])} pairs "
+              "overflowed the hash table")
+        table_stats[name] = stats.tolist()
+    log(f"main-path inputs: kernel == plain on all {len(results)} queries, "
+        f"hash branch ({ops.HASH_SLOTS} slots, grid "
+        f"{ops.last_launch['grid']}x{ops.last_launch['threads']}, shifted "
+        f"columns); [overflowed pairs, flush atomics] per query: {table_stats}")
+    control_stats = {}
+    for cname, args in (("uniform", (uni[:-1], uni[1:], valid_d)),
+                        ("sparse", (src_d, dst_d, valid_sparse))):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        out.zero_()
+        ops.launch(*args, out, a, stats=stats)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ops.dfg_count_plain(*args, num_activities=a)),
+              f"{cname} control: kernel differs from plain")
+        control_stats[cname] = stats.tolist()
     got = seg_ops.segment_count(act_d, num_segments=a)
     want = seg_ops.segment_count_plain(act_d, num_segments=a)
     torch.cuda.synchronize()
     check(torch.equal(got, want),
           "graph-path inputs: segment_count differs from plain")
-    log("graph-path inputs: segment_count == plain")
+    got = ops.dfg_count(src_sep, dst_sep, valid_sep, num_activities=a)
+    want = ops.dfg_count_plain(src_sep, dst_sep, valid_sep, num_activities=a)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want)
+          and ops.last_launch["branch"] == "hash"
+          and ops.last_launch["columns"] == "separate",
+          f"graph-path inputs: dfg_count differs from plain or ran as "
+          f"{ops.last_launch}")
+    sep_launch = dict(ops.last_launch)
+    log("graph-path inputs: segment_count == plain; dfg_count on separate "
+        "columns (hash branch) == plain")
+    cli_launch = {}
+    for name, args in (("dfg_count", cli_args),
+                       ("dfg_count_diced", cli_args + cli_diced)):
+        if name == "dfg_count":
+            got = ops.dfg_count(*args, num_activities=a_cli)
+            want = ops.dfg_count_plain(*args, num_activities=a_cli)
+        else:
+            got = ops.dfg_count_diced(*args, num_activities=a_cli)
+            want = ops.dfg_count_diced_plain(*args, num_activities=a_cli)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want)
+              and ops.last_launch["branch"] == "shared"
+              and ops.last_launch["columns"] == "shifted",
+              f"CLI inputs: {name} differs from plain or ran as "
+              f"{ops.last_launch}")
+        cli_launch[name] = dict(ops.last_launch)
+    log(f"CLI inputs (A={a_cli}, E={int(act_cli.shape[0])}): dfg_count and "
+        "dfg_count_diced (shared branch, shifted columns) == plain")
 
     cases = {
         ("dfg_count", "ms"): (
@@ -1156,6 +1404,14 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
             key_plain, minlength=a * a), None),
         ("dfg_count", "uniform_ms"): (
             lambda: ops.launch(uni[:-1], uni[1:], valid_d, out, a), out.zero_),
+        ("dfg_count", "sparse_ms"): (
+            lambda: ops.launch(src_d, dst_d, valid_sparse, out, a), out.zero_),
+        ("dfg_count", "separate_ms"): (lambda: ops.launch(
+            src_sep, dst_sep, valid_sep.view(torch.uint8), out, a), out.zero_),
+        ("dfg_count", "cli_ms"): (
+            lambda: ops.launch(*cli_args, out_cli, a_cli), out_cli.zero_),
+        ("dfg_count_diced", "cli_ms"): (lambda: ops.launch(
+            *cli_args, out_cli, a_cli, *cli_diced), out_cli.zero_),
         ("dfg_count_diced", "ms"): (lambda: ops.launch(
             src_d, dst_d, valid_d, out, a, ts_src, ts_dst, w), out.zero_),
         ("dfg_count_diced", "plain_ms"): (lambda: ops.dfg_count_diced_plain(
@@ -1174,6 +1430,28 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
             lambda: seg_ops.launch(uni, None, out_s, a), out_s.zero_),
     }
     measured = _measure(torch, cases)
+    measured.update(_measure(torch, {
+        ("dfg_count", "clean_ms"): cases[("dfg_count", "ms")],
+        ("dfg_count_diced", "clean_ms"): cases[("dfg_count_diced", "ms")],
+    }, clean=True))
+    # the same launches with the host's call off the clock
+    spun = {
+        (name, "device_ms"): cases[(name, "ms")]
+        for name in ("dfg_count", "dfg_count_diced", "segment_count")
+    }
+    spun.update({
+        ("dfg_count", "separate_device_ms"): cases[("dfg_count", "separate_ms")],
+        ("dfg_count", "cli_device_ms"): cases[("dfg_count", "cli_ms")],
+        ("dfg_count_diced", "cli_device_ms"):
+            cases[("dfg_count_diced", "cli_ms")],
+    })
+    measured.update(_measure(torch, spun, spin=True))
+    back = _back_to_back(torch, {
+        "dfg_count": (lambda: ops.launch(src_d, dst_d, valid_d, out, a),
+                      out.zero_),
+        "dfg_count_diced": (lambda: ops.launch(
+            src_d, dst_d, valid_d, out, a, ts_src, ts_dst, w), out.zero_),
+    })
     # align_dp on the default-model alignment query's own ragged inputs; the
     # longest-first work order measured beside it: the lengths sorted on the
     # card (timed), then the kernel on a copy of the ragged input stored
@@ -1215,6 +1493,9 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
             lambda: dp_ops.launch(*uniform, dp_out), None),
     }))
     measured.update(_measure(torch, {
+        ("align_dp", "device_ms"): (lambda: dp_ops.launch(*dp_in, dp_out), None),
+    }, spin=True))
+    measured.update(_measure(torch, {
         ("align_dp", "plain_ms"): (lambda: dp_ops.align_dp_plain(*dp_in), None),
     }, rounds=2, iters=3))
     dp_ops.launch(*dp_in, dp_out)
@@ -1225,7 +1506,7 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         "nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
         "temperature.gpu", "--format=csv,noheader", "-i", "0",
     ])
-    check(ops.last_launch["branch"] == "global",
+    check(ops.last_launch["branch"] == "hash",
           f"A={a} took the {ops.last_launch['branch']} branch")
     check(seg_ops.last_launch["branch"] == "shared",
           f"S={a} took the {seg_ops.last_launch['branch']} branch")
@@ -1235,6 +1516,16 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     }
     bound = {
         name: (b + 8 * a * a) / HBM_BYTES_PER_S * 1e3 for name, b in read.items()
+    }
+    sep_bound = ((_distinct_bytes(src_sep, dst_sep, valid_sep) + 8 * a * a)
+                 / HBM_BYTES_PER_S * 1e3)
+    cli_bound = {
+        "dfg_count": _distinct_bytes(*cli_args),
+        "dfg_count_diced": _distinct_bytes(*cli_args, *cli_diced[:2]),
+    }
+    cli_bound = {
+        name: (b + 8 * a_cli * a_cli) / HBM_BYTES_PER_S * 1e3
+        for name, b in cli_bound.items()
     }
     e = int(act_d.shape[0])
     seg_read = _distinct_bytes(act_d)
@@ -1287,21 +1578,51 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         return f"{t[key]:.4f} ms ({q1:.4f}-{q3:.4f}, {count})"
 
     log(f"times [{card}] (median ms of per-launch CUDA-event times, "
-        f"interquartile range, launches; clocks right after: {clocks})")
+        f"interquartile range, launches; clocks right after: {clocks}); "
+        "'kernel' spans the host's call and the launch, 'device' the launch "
+        "alone, enqueued behind a spin")
     for name in ("dfg_count", "dfg_count_diced"):
         t = times[name]
+        med, q1, q3, rounds, host_us = back[name]
         log(f"  {name} E={n} A={a} ({ops.last_launch['branch']} branch, "
-            f"grid {ops.last_launch['grid']}x256): kernel {fmt_ms(t, 'ms')}, "
+            f"{ops.last_launch['table_slots']} slots, "
+            f"{ops.last_launch['columns']} columns, grid "
+            f"{ops.last_launch['grid']}x{ops.last_launch['threads']}): kernel "
+            f"{fmt_ms(t, 'ms')}, device {fmt_ms(t, 'device_ms')} "
+            f"({t['bound_ms'] / t['device_ms'] * 100:.1f}% of the bound), "
             f"plain {fmt_ms(t, 'plain_ms')}, torch.bincount on pre-masked "
             f"keys {fmt_ms(t, 'library_ms')} (leaves out the mask and the key build), "
             f"bytes bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of the bound)")
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of the bound); with "
+            f"the L2 flushed by a read, so no dirty line is left to write "
+            f"back, {fmt_ms(t, 'clean_ms')} "
+            f"({t['bound_ms'] / t['clean_ms'] * 100:.1f}%); 50 "
+            f"back-to-back ops.launch calls {med:.4f} ms per launch "
+            f"({q1:.4f}-{q3:.4f}, {rounds} rounds; no L2 flush), the host "
+            f"enqueueing each in {host_us:.1f} us")
+        cl = cli_launch[name]
+        log(f"  {name} on the CLI's inputs E={int(act_cli.shape[0]) - 1} "
+            f"A={a_cli} ({cl['branch']} branch, {cl['columns']} columns, grid "
+            f"{cl['grid']}x{cl['threads']}): kernel {fmt_ms(t, 'cli_ms')}, "
+            f"device {fmt_ms(t, 'cli_device_ms')}, bytes bound "
+            f"{cli_bound[name]:.4f} ms "
+            f"({cli_bound[name] / t['cli_device_ms'] * 100:.1f}% of the "
+            "bound, device)")
+    t = times["dfg_count"]
+    log(f"  dfg_count on the graph build's separate columns E={n} A={a} "
+        f"({sep_launch['branch']} branch, {sep_launch['columns']} columns, "
+        f"grid {sep_launch['grid']}x{sep_launch['threads']}; src, dst, valid "
+        f"9 B/pair): kernel {fmt_ms(t, 'separate_ms')}, device "
+        f"{fmt_ms(t, 'separate_device_ms')}, bytes bound {sep_bound:.4f} ms "
+        f"({sep_bound / t['separate_device_ms'] * 100:.1f}% of the bound, "
+        "device)")
     t = times["segment_count"]
     log(f"  segment_count E={e} S={a} ({seg_ops.last_launch['branch']} branch, "
         f"grid {seg_ops.last_launch['grid']}x256, "
         f"{seg_ops.last_launch['smem_bytes']} B smem; "
         f"{graph_counts['segment_count']} launch per graph build): kernel "
-        f"{fmt_ms(t, 'ms')} without valid, "
+        f"{fmt_ms(t, 'ms')} without valid (device "
+        f"{fmt_ms(t, 'device_ms')}), "
         f"{fmt_ms(t, 'valid_ms')} with an all-ones valid; plain "
         f"{fmt_ms(t, 'plain_ms')}, torch.bincount on pre-masked ids "
         f"{fmt_ms(t, 'library_ms')}; bytes bound {t['bound_ms']:.4f} ms "
@@ -1316,12 +1637,20 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         "events.")
     psi = results[0][2].value
     hot = np.cumsum(np.sort(psi.ravel())[::-1])
-    top = int(np.searchsorted(hot, 0.9 * hot[-1]) + 1)
+    top90 = int(np.searchsorted(hot, 0.9 * hot[-1]) + 1)
     log(f"contention control [{card}]: dfg_count on the main path's pairs "
-        f"{fmt_ms(times['dfg_count'], 'ms')}; on uniform activities (same E, "
-        f"A, valid) {fmt_ms(times['dfg_count'], 'uniform_ms')}. The main "
-        f"path's Ψ has {int((psi > 0).sum())} nonzero cells of {a * a}; "
-        f"{top} of them hold 90% of the pairs.")
+        f"{fmt_ms(times['dfg_count'], 'ms')} (hash table [overflowed pairs, "
+        f"flush atomics] {table_stats['all']}); on uniform activities (same "
+        f"E, A, valid) {fmt_ms(times['dfg_count'], 'uniform_ms')} "
+        f"({control_stats['uniform']}: the tables fill and the rest "
+        f"overflows into global atomics); sparse, valid only in the {top} "
+        f"cells that hold 99% of the pairs, "
+        f"{fmt_ms(times['dfg_count'], 'sparse_ms')} "
+        f"({control_stats['sparse']}). The main path's Ψ has "
+        f"{int((psi > 0).sum())} nonzero cells of {a * a}; {top90} of them "
+        f"hold 90% of the pairs, a block's table of {ops.HASH_SLOTS} slots "
+        f"holds at most {int((psi > 0).sum()) / ops.HASH_SLOTS * 100:.1f}% "
+        f"load.")
     t = times["align_dp"]
     ll = dp_launch
     lens = conf["lens"]
@@ -1329,7 +1658,7 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         f"A={int(mt_d.shape[0])} sum(len)={sum_len}, ragged ({ll['branch']} "
         f"tier, K={ll['k']}, grid {ll['grid']}x{ll['threads']}, "
         f"{ll['smem_bytes']} B smem; one launch per alignments() query): "
-        f"kernel {fmt_ms(t, 'ms')}, plain "
+        f"kernel {fmt_ms(t, 'ms')} (device {fmt_ms(t, 'device_ms')}), plain "
         f"{fmt_ms(t, 'plain_ms')}, no single PyTorch call computes this DP "
         f"(library_ms null); operations bound {dp_ops_n:.4g} f32 ops (two "
         f"adds and one min per state) at {FP32_OPS_PER_S:.3g}/s = "
@@ -1441,6 +1770,7 @@ def main() -> int:
             "bound_ms": times[name]["bound_ms"],
             "bound_by": BOUND_BY[name],
             "library_ms": times[name]["library_ms"],
+            "device_ms": times[name]["device_ms"],
         }
         for name in KERNELS
     ]

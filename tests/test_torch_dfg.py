@@ -209,3 +209,72 @@ def test_kernel_limits_are_checked():
         ops.check_limits(1 << 31, 8)
     with pytest.raises(ValueError, match="num_activities"):
         ops.check_limits(10, ops.MAX_ACTIVITIES + 1)
+
+
+def test_successor_views_are_recognised():
+    """The wrapper passes one column to the kernel when ``dst`` is ``src``'s
+    successor view of one storage, and two columns otherwise."""
+    x = torch.arange(20, dtype=torch.int32)
+    col = ops._successor_column(x[:-1], x[1:])
+    assert col is not None and col.data_ptr() == x.data_ptr()
+    assert torch.equal(col, x)
+    # at an offset, and one pair
+    col = ops._successor_column(x[3:9], x[4:10])
+    assert col is not None and torch.equal(col, x[3:10])
+    assert torch.equal(ops._successor_column(x[5:6], x[6:7]), x[5:7])
+    ts = torch.linspace(0, 1, 11, dtype=torch.float64)
+    assert torch.equal(ops._successor_column(ts[:-1], ts[1:]), ts)
+    not_successors = [
+        (x[:-1].clone(), x[1:].clone()),          # separate buffers
+        (x[:-1], x[1:].clone()),                  # different storages
+        (x[0:-2:2], x[1:-1:2]),                   # non-unit strides
+        (x[:-2], x[2:]),                          # dst is src + 2
+        (x[1:], x[:-1]),                          # dst is src - 1
+        (x[:-1], x[:-1]),                         # the same view
+        (x[:-2], x[1:]),                          # lengths differ
+        (x[:0], x[1:1]),                          # no pairs
+        (x[:-1], x.view(torch.float32)[1:]),      # dtypes differ
+        (x.view(2, 10)[:, :-1], x.view(2, 10)[:, 1:]),  # not 1-D
+    ]
+    for a, b in not_successors:
+        assert ops._successor_column(a, b) is None, (a.shape, b.shape)
+
+
+def test_device_columns_keep_successor_views():
+    """Ids of another dtype convert once, as one column, so the kernel
+    still reads one column; separate columns stay separate."""
+    x = torch.tensor([0, 5, 2, 70, -1, 3, 3], dtype=torch.int64)
+    valid = torch.ones(6, dtype=torch.bool)
+    src, dst, v = ops._device_columns(x[:-1], x[1:], valid, 6)
+    assert src.dtype == dst.dtype == torch.int32 and v.dtype == torch.uint8
+    assert ops._successor_column(src, dst) is not None
+    assert src.tolist() == [0, 5, 2, -1, -1, 3] and dst.tolist()[-1] == 3
+    src, dst, _ = ops._device_columns(x[:-1].clone(), x[1:].clone(), valid, 6)
+    assert ops._successor_column(src, dst) is None
+    ts = torch.arange(7, dtype=torch.float32)
+    t_src, t_dst = ops._device_timestamps(ts[:-1], ts[1:])
+    assert t_src.dtype == torch.float64
+    assert ops._successor_column(t_src, t_dst) is not None
+    t_src, t_dst = ops._device_timestamps(ts[:-1].clone(), ts[1:])
+    assert ops._successor_column(t_src, t_dst) is None
+
+
+def test_table_constants_match_the_kernel_source():
+    """ops reports the kernel's run length, hash-table size, probe limit
+    and branch names as ``csrc/dfg_count.cu`` declares them."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ops.__file__).parent / "csrc" / "dfg_count.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kRun")) == ops.RUN
+    assert int(const("kMaxProbes")) == ops.MAX_PROBES
+    assert const("kHashSlots").startswith("1 << kHashBits")
+    assert 1 << int(const("kHashBits")) == ops.HASH_SLOTS
+    names = re.search(r"kBranchNames\[\] = \{([^}]*)\}", src).group(1)
+    assert tuple(re.findall(r'"(\w+)"', names)) == ops.BRANCHES
+    assert int(const("kBranchShared")) == ops.BRANCHES.index("shared")
+    assert int(const("kBranchHash")) == ops.BRANCHES.index("hash")

@@ -18,6 +18,25 @@ from repro_torch.kernels.dfg_count import ops
 from repro_torch.kernels.segment_count import ops as seg_ops
 
 
+def _stats_launch(src, dst, valid, a, ts_src=None, ts_dst=None, window=None):
+    """One launch through the wrappers' conversions with the kernel's
+    counters: (out, [overflowed pairs, flush atomics], last_launch)."""
+    s, d, v = ops._device_columns(src, dst, valid, a)
+    if window is not None:
+        ts_src, ts_dst = ops._device_timestamps(ts_src, ts_dst)
+    out = torch.zeros((a, a), dtype=torch.int64, device=src.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=src.device)
+    ops.launch(s, d, v, out, a, ts_src, ts_dst, window, stats)
+    return out, stats.tolist(), dict(ops.last_launch)
+
+
+def _plain(src, dst, valid, a, ts_src=None, ts_dst=None, window=None):
+    if window is None:
+        return ops.dfg_count_plain(src, dst, valid, num_activities=a)
+    return ops.dfg_count_diced_plain(src, dst, valid, ts_src, ts_dst, window,
+                                     num_activities=a)
+
+
 @pytest.mark.gpu
 def test_dfg_count_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
@@ -25,9 +44,11 @@ def test_dfg_count_kernels_match_plain_versions_on_the_card():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    branches = set()
-    for a in (1, 3, 26, 130, 238, 257, 600):
-        for n in (0, 1, 7, 1000, 100_000):
+    branches, columns, overflow = set(), set(), set()
+    # 16 B + 4·A² B of dense counters fit a block's 227 KB up to A = 241
+    # ("shared"); above, the hash table ("hash")
+    for a in (1, 3, 26, 130, 238, 241, 242, 257, 600):
+        for n in (0, 1, 7, 1000, 100_000, 100_003):
             src = torch.randint(-2, a + 2, (n,), generator=gen, device=dev)
             dst = torch.randint(-2, a + 2, (n,), generator=gen, device=dev)
             valid = torch.rand(n, generator=gen, device=dev) < 0.7
@@ -40,6 +61,7 @@ def test_dfg_count_kernels_match_plain_versions_on_the_card():
             assert torch.equal(got, want), (a, n)
             if n:
                 branches.add(ops.last_launch["branch"])
+                columns.add(ops.last_launch["columns"])
                 assert ops.launch_counts["dfg_count"] == before["dfg_count"] + 1
             for w in ((500.0, 500.0), (-1.0, 1001.0), (100.0, 700.0)):
                 args = (src, dst, valid, ts[:-1], ts[1:], w)
@@ -47,6 +69,28 @@ def test_dfg_count_kernels_match_plain_versions_on_the_card():
                 want = ops.dfg_count_diced_plain(*args, num_activities=a)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (a, n, w)
+            # shifted views of one column, from the column's start and at
+            # odd offsets (ids, valid and timestamps off the vectors'
+            # alignment); n + head - 1 pairs takes every remainder mod 8
+            act = torch.randint(-2, a + 2, (n + 4,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            tcol = torch.randint(0, 1000, (n + 4,), generator=gen, device=dev)
+            tcol = tcol.to(torch.float64)
+            vcol = torch.rand(n + 4, generator=gen, device=dev) < 0.7
+            for head in (0, 1, 2, 3):
+                m = max(n + head - 3, 0)
+                s_, d_ = act[head:head + m], act[head + 1:head + 1 + m]
+                v_ = vcol[head:head + m]
+                for w in (None, (100.0, 700.0)):
+                    t_ = (tcol[head:head + m], tcol[head + 1:head + 1 + m], w)
+                    args = t_ if w is not None else ()
+                    got, stats, launch = _stats_launch(s_, d_, v_, a, *args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, _plain(s_, d_, v_, a, *args)), (
+                        a, m, head, w)
+                    if m:
+                        assert launch["columns"] == "shifted"
+                        columns.add("shifted")
         # int64 ids beyond int32's range are dropped, never wrapped
         src = torch.randint(0, a, (10_000,), generator=gen, device=dev)
         dst = torch.randint(0, a, (10_000,), generator=gen, device=dev)
@@ -58,7 +102,52 @@ def test_dfg_count_kernels_match_plain_versions_on_the_card():
         want = ops.dfg_count_plain(src, dst, valid, num_activities=a)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (a, "int64 ids beyond 2**31")
-    assert branches == {"shared", "global"}
+    assert branches == {"shared", "hash"}
+    assert columns == {"shifted", "separate"}
+
+    # the hash table with no, partial and full overflow
+    from repro_torch.data import ProcessSpec
+    from repro_torch.data.synthetic_log import generate_repository
+
+    repo = generate_repository(20_000, ProcessSpec(num_activities=600, seed=5),
+                               seed=5)
+    act = torch.from_numpy(repo.event_activity.astype("int32")).to(dev)
+    ts = torch.from_numpy(repo.event_time).to(dev)
+    valid = torch.from_numpy(repo.df_pairs()[2]).to(dev)
+    t = ts.sort().values
+    w = (float(t[t.shape[0] // 4]), float(t[3 * t.shape[0] // 4]))
+    for args in ((), (ts[:-1], ts[1:], w)):
+        got, stats, launch = _stats_launch(act[:-1], act[1:], valid, 600, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _plain(act[:-1], act[1:], valid, 600, *args))
+        assert launch["branch"] == "hash" and launch["columns"] == "shifted"
+        assert stats[0] == 0, "a process log overflowed the table"
+        overflow.add("none")
+    # 1.5 times as many distinct keys as the table has slots
+    k = 3 * ops.HASH_SLOTS // 2
+    keys = torch.randperm(360_000, generator=gen, device=dev)[:k]
+    key = keys[torch.randint(0, k, (1 << 23,), generator=gen, device=dev)]
+    src, dst = key // 600, key % 600
+    valid = torch.rand(1 << 23, generator=gen, device=dev) < 0.9
+    got, stats, launch = _stats_launch(src, dst, valid, 600)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _plain(src, dst, valid, 600))
+    assert launch["branch"] == "hash"
+    assert 0 < stats[0] < int(valid.sum()), stats
+    overflow.add("partial")
+    # uniform keys over A² cells fill every block's table (~43,000 valid
+    # pairs a block)
+    for a in (257, 600):
+        src = torch.randint(0, a, (7_200_003,), generator=gen, device=dev)
+        dst = torch.randint(0, a, (7_200_003,), generator=gen, device=dev)
+        valid = torch.rand(7_200_003, generator=gen, device=dev) < 0.8
+        got, stats, launch = _stats_launch(src, dst, valid, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _plain(src, dst, valid, a))
+        assert stats[0] > 0
+        assert stats[1] >= 0.99 * launch["grid"] * ops.HASH_SLOTS, stats
+        overflow.add("full")
+    assert overflow == {"none", "partial", "full"}
 
 
 @pytest.mark.gpu
