@@ -9,15 +9,18 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. environment — card name and power limit, torch / CUDA / nvcc versions,
    each kernel library's build time (one ``nvcc`` per source, all started
-   together) and ``-Xptxas -v`` report; every ``align_dp`` instance's
-   registers, none of the register tier's spilling;
+   together) and ``-Xptxas -v`` report; every ``align_dp`` and
+   ``segment_count`` instance's registers, none of the register tier's and
+   none of ``segment_count``'s spilling;
 2. every CUDA kernel against its plain PyTorch version on the card, bit for
    bit, over a sweep of activity / segment / state counts, pair / id /
    variant counts, dtypes and windows that reaches every branch of each
    kernel (``dfg_count``: its shared and hash branches, the hash table with
    no, partial and full overflow, shifted and separate columns, views at
-   odd offsets; ``align_dp``: its registers, shared and global tiers, and
-   each register instance);
+   odd offsets; ``segment_count``: its shared and global branches on either
+   side of their boundary, id views at offsets 1-3, every N mod 16, one
+   hot bin, each launch's grid and flush bound; ``align_dp``: its
+   registers, shared and global tiers, and each register instance);
 3. the main path at the paper's evaluation width (PAPER_EVAL: 7.2 M events,
    600 activities, 120 days) on a default ``QueryEngine()`` (its memory
    budget taken from the card): ``Q.log(log).using(engine).dfg()`` plus
@@ -47,6 +50,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    graph build's separate columns and the CLI's A = 32 shared branch, as 50
    back-to-back launches, with the hash table's overflow and flush counts
    on the main path's inputs, on uniform keys and on the 99% cells;
+   ``segment_count`` also with a valid column, on uniform ids, with every
+   id one activity, with the L2 flushed by a read, right after a
+   host-to-device copy of its ids, beside two PyTorch reads of the same
+   column;
    ``align_dp`` also beside its issue bounds, with its work orders
    compared), and the end-to-end split of the main-path queries.
 
@@ -353,14 +360,31 @@ def phase_sweep(torch, ops):
     return worst
 
 
+def _segment_launch_ok(torch, ll) -> bool:
+    """A segment_count launch's grid is at most the card's SMs times the
+    blocks per SM its occupancy allows (at most as many as fit an SM by
+    threads), and its flush at most grid x S atomics (none on the global
+    branch)."""
+    props = torch.cuda.get_device_properties(0)
+    per_sm = ll["blocks_per_sm"]
+    return (1 <= per_sm <= props.max_threads_per_multi_processor // ll["threads"]
+            and 1 <= ll["grid"] <= props.multi_processor_count * per_sm
+            and ll["flush_bound"] == (ll["grid"] * ll["num_segments"]
+                                      if ll["branch"] == "shared" else 0))
+
+
 def phase_segment_sweep(torch, seg_ops):
-    """segment_count ≡ segment_count_plain with torch.equal.  S ≤ 58,112
-    fits a block's shared memory (227 KB of int32 bins); 100,000 and
-    1,000,000 take the global branch."""
+    """segment_count ≡ segment_count_plain with torch.equal.  S up to the
+    card's opt-in shared memory / 4 (58,112 on an H100) takes the shared
+    branch, larger S the global one, both checked on either side of that
+    boundary; id views at offsets 1-3 from the 16-byte vectors, every
+    remainder of N mod 16 and one hot bin on both branches.  Every launch's
+    grid is at most SMs x blocks per SM, and its flush at most grid x S."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst, cases, branches = 0, 0, set()
+    last_shared = torch.cuda.get_device_properties(0).shared_memory_per_block_optin // 4
 
     def compare(ids, valid, s, what):
         nonlocal worst, cases
@@ -373,9 +397,37 @@ def phase_segment_sweep(torch, seg_ops):
         worst = max(worst, err)
         check(torch.equal(got, want), f"segment_count {what}: max |err| {err}")
         if ids.numel():
-            branches.add(seg_ops.last_launch["branch"])
+            ll = seg_ops.last_launch
+            branches.add(ll["branch"])
+            check(ll["branch"] == ("shared" if s <= last_shared else "global"),
+                  f"segment_count {what}: {ll['branch']} branch at S={s}")
+            check(_segment_launch_ok(torch, ll),
+                  f"segment_count {what}: launch {ll}")
         cases += 1
 
+    def ids_of(n, s, head):
+        """n ids (about 1% out of range on either side) as an int32 view
+        ``head`` elements into its storage, and a bool valid view beside."""
+        ids = torch.randint(0, s, (n + head,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        bad = torch.rand(n + head, generator=gen, device=dev)
+        ids = torch.where(bad < 0.01, torch.full_like(ids, -3), ids)
+        ids = torch.where(bad > 0.99, torch.full_like(ids, s + 5), ids)
+        valid = torch.rand(n + head, generator=gen, device=dev) < 0.8
+        return ids[head:], valid[head:]
+
+    for s in (600, last_shared, last_shared + 1):
+        for head in (0, 1, 2, 3):
+            for n in [65_536 + r for r in range(16)] + [3, 1 << 20]:
+                ids, valid = ids_of(n, s, head)
+                what = f"S={s} N={n} offset={head}"
+                compare(ids, valid, s, what + " valid=bool")
+                compare(ids, None, s, what + " valid=None")
+        for n in (17, 1 << 20, 7_200_010):
+            hot = torch.full((n + 1,), s - 1, dtype=torch.int32, device=dev)
+            compare(hot, None, s, f"S={s} N={n + 1} one hot bin")
+            compare(hot[1:], torch.ones(n, dtype=torch.bool, device=dev), s,
+                    f"S={s} N={n} one hot bin at offset 1, valid all ones")
     for s in (1, 3, 600, 4096, 58_000, 100_000, 1_000_000):
         for n in (0, 1, 7, 1000, 1 << 20, 7_200_000):
             ids = torch.randint(0, s, (n,), generator=gen, device=dev,
@@ -456,6 +508,28 @@ def _align_dp_resources(build, dp_ops):
               if k.startswith("registers") and (v[1] or v[2])}
     check(not spills, f"align_dp register instances spill: {spills}")
     return {k: rows[k] for k in want}
+
+
+def _segment_count_resources(build):
+    """Registers and spill bytes of each segment_count kernel instance, from
+    nvcc's -Xptxas -v report: {"shared, valid": (regs, spill stores, spill
+    loads), ...}.  Fails unless all four instances are there and none
+    spills: a thread keeps its 16 ids in registers."""
+    import re
+
+    rows = {}
+    for entry, r in build.ptxas_resources(
+            build.build("segment_count").ptxas).items():
+        m = re.search(r"segment_count_kernelILb([01])ELb([01])E", entry)
+        if m:
+            label = (("shared" if m.group(2) == "1" else "global")
+                     + (", valid" if m.group(1) == "1" else ", no valid"))
+            rows[label] = (r.get("registers"), r.get("spill_stores"),
+                           r.get("spill_loads"))
+    check(len(rows) == 4, f"segment_count's ptxas report lists {sorted(rows)}")
+    spills = {k: v for k, v in rows.items() if v[1] or v[2]}
+    check(not spills, f"segment_count instances spill: {spills}")
+    return rows
 
 
 def phase_align_sweep(torch, dp_ops):
@@ -1142,7 +1216,7 @@ def phase_cli():
 
 
 def _launch_ms(torch, fn, reset, flush, iters, warmup, clean=False,
-               spin=False):
+               spin=False, upload=None):
     """Ms of each of ``iters`` launches of ``fn`` between two CUDA events,
     each preceded off the clock by ``reset`` and an L2 flush: the inputs
     come fresh from a host copy, so the caller finds the 50 MB L2 cold.  The
@@ -1152,7 +1226,8 @@ def _launch_ms(torch, fn, reset, flush, iters, warmup, clean=False,
     the host's Python and ctypes call as well as the device's work; with
     ``spin`` a ~0.5 ms spin keeps the stream busy while the host records
     the start event and enqueues ``fn``, so the span is the device's work
-    alone."""
+    alone.  ``upload``, when given, runs after the flush: a host-to-device
+    copy of the inputs, as the caller makes right before its launch."""
     out = []
     for i in range(warmup + iters):
         if reset is not None:
@@ -1161,6 +1236,8 @@ def _launch_ms(torch, fn, reset, flush, iters, warmup, clean=False,
             flush.view(torch.int64).sum()
         else:
             flush.zero_()
+        if upload is not None:
+            upload()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if spin:
@@ -1174,7 +1251,8 @@ def _launch_ms(torch, fn, reset, flush, iters, warmup, clean=False,
     return out
 
 
-def _measure(torch, cases, rounds=5, iters=10, clean=False, spin=False):
+def _measure(torch, cases, rounds=5, iters=10, clean=False, spin=False,
+             upload=None):
     """Per-launch ms of every case, in ``rounds`` interleaved rounds so a
     drift of the card's clocks spreads over all cases alike.  Returns
     name → (median, first quartile, third quartile, launches)."""
@@ -1186,7 +1264,7 @@ def _measure(torch, cases, rounds=5, iters=10, clean=False, spin=False):
         for name, (fn, reset) in cases.items():
             samples[name] += _launch_ms(
                 torch, fn, reset, flush, iters, warmup=3 if r == 0 else 1,
-                clean=clean, spin=spin,
+                clean=clean, spin=spin, upload=upload,
             )
     return {
         name: (*np.percentile(v, [50, 25, 75]).tolist(), len(v))
@@ -1291,6 +1369,10 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     out_s = torch.zeros((a,), dtype=torch.int64, device=dev)
     ones_d = torch.ones(n + 1, dtype=torch.uint8, device=dev)
     ids_masked = act_d[(act_d >= 0) & (act_d < a)].long()
+    # hot control: every id the log's most frequent activity, the worst case
+    # for same-address shared-memory atomics
+    hot_ids = torch.full_like(
+        act_d, int(np.argmax(np.bincount(repo.event_activity, minlength=a))))
     # the graph build's call (core/dfg.py:dfg): src, dst and valid uploaded
     # as separate buffers, so 9 B per pair
     src_np, dst_np, _ = repo.df_pairs()
@@ -1365,6 +1447,7 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     torch.cuda.synchronize()
     check(torch.equal(got, want),
           "graph-path inputs: segment_count differs from plain")
+    seg_launch = dict(seg_ops.last_launch)
     got = ops.dfg_count(src_sep, dst_sep, valid_sep, num_activities=a)
     want = ops.dfg_count_plain(src_sep, dst_sep, valid_sep, num_activities=a)
     torch.cuda.synchronize()
@@ -1428,6 +1511,8 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
             lambda: seg_ops.launch(act_d, ones_d, out_s, a), out_s.zero_),
         ("segment_count", "uniform_ms"): (
             lambda: seg_ops.launch(uni, None, out_s, a), out_s.zero_),
+        ("segment_count", "hot_ms"): (
+            lambda: seg_ops.launch(hot_ids, None, out_s, a), out_s.zero_),
     }
     measured = _measure(torch, cases)
     measured.update(_measure(torch, {
@@ -1440,12 +1525,37 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         for name in ("dfg_count", "dfg_count_diced", "segment_count")
     }
     spun.update({
+        ("segment_count", f"{k}_device_ms"): cases[("segment_count", f"{k}_ms")]
+        for k in ("valid", "uniform", "hot")
+    })
+    spun.update({
+        # the yardstick of one read of the same 28.8 MB in one launch; the
+        # port never calls it
+        ("segment_count", "read_device_ms"): (
+            lambda: torch.sum(act_d, dtype=torch.int64), None),
+        ("segment_count", "read_max_device_ms"): (
+            lambda: torch.amax(act_d), None),
         ("dfg_count", "separate_device_ms"): cases[("dfg_count", "separate_ms")],
         ("dfg_count", "cli_device_ms"): cases[("dfg_count", "cli_ms")],
         ("dfg_count_diced", "cli_device_ms"):
             cases[("dfg_count_diced", "cli_ms")],
     })
     measured.update(_measure(torch, spun, spin=True))
+    # the graph build's order (graph/build.py:_node_counts): the ids copied
+    # from the host, then the count
+    act_up = torch.empty_like(act_d)
+    act_pinned = act_d.cpu().pin_memory()
+    measured.update(_measure(torch, {
+        ("segment_count", "h2d_device_ms"): (
+            lambda: seg_ops.launch(act_up, None, out_s, a), out_s.zero_),
+    }, spin=True, upload=lambda: act_up.copy_(act_pinned)))
+    # the same with the L2 flushed by a read, so the launch writes back no
+    # dirty line of the flush
+    measured.update(_measure(torch, {
+        ("segment_count", "clean_device_ms"): cases[("segment_count", "ms")],
+        ("segment_count", "read_max_clean_device_ms"):
+            spun[("segment_count", "read_max_device_ms")],
+    }, clean=True, spin=True))
     back = _back_to_back(torch, {
         "dfg_count": (lambda: ops.launch(src_d, dst_d, valid_d, out, a),
                       out.zero_),
@@ -1617,24 +1727,45 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         f"({sep_bound / t['separate_device_ms'] * 100:.1f}% of the bound, "
         "device)")
     t = times["segment_count"]
-    log(f"  segment_count E={e} S={a} ({seg_ops.last_launch['branch']} branch, "
-        f"grid {seg_ops.last_launch['grid']}x256, "
-        f"{seg_ops.last_launch['smem_bytes']} B smem; "
+    sl = seg_launch
+    flush_bound = t["flush_bound"] = sl["flush_bound"]
+    check(sl["branch"] == "shared" and _segment_launch_ok(torch, sl),
+          f"segment_count on the graph build's ids: launch {sl}")
+    log(f"  segment_count E={e} S={a} ({sl['branch']} branch, grid "
+        f"{sl['grid']}x{sl['threads']}, {sl['blocks_per_sm']} per SM, "
+        f"{sl['smem_bytes']} B smem, flush <= grid x S = {flush_bound} "
+        f"global atomics; "
         f"{graph_counts['segment_count']} launch per graph build): kernel "
-        f"{fmt_ms(t, 'ms')} without valid (device "
-        f"{fmt_ms(t, 'device_ms')}), "
-        f"{fmt_ms(t, 'valid_ms')} with an all-ones valid; plain "
-        f"{fmt_ms(t, 'plain_ms')}, torch.bincount on pre-masked ids "
-        f"{fmt_ms(t, 'library_ms')}; bytes bound {t['bound_ms']:.4f} ms "
-        f"without valid ({t['bound_ms'] / t['ms'] * 100:.1f}% of the bound), "
-        f"{seg_valid_bound:.4f} ms with valid "
-        f"({seg_valid_bound / t['valid_ms'] * 100:.1f}%)")
+        f"{fmt_ms(t, 'ms')} without valid (device {fmt_ms(t, 'device_ms')}), "
+        f"{fmt_ms(t, 'valid_ms')} with an all-ones valid (device "
+        f"{fmt_ms(t, 'valid_device_ms')}); plain {fmt_ms(t, 'plain_ms')}, "
+        f"torch.bincount on pre-masked ids {fmt_ms(t, 'library_ms')}; bytes "
+        f"bound {t['bound_ms']:.4f} ms without valid "
+        f"({t['bound_ms'] / t['ms'] * 100:.1f}% of the bound, device "
+        f"{t['bound_ms'] / t['device_ms'] * 100:.1f}%), {seg_valid_bound:.4f} "
+        f"ms with valid ({seg_valid_bound / t['valid_ms'] * 100:.1f}%, device "
+        f"{seg_valid_bound / t['valid_device_ms'] * 100:.1f}%)")
     hot = np.sort(np.bincount(repo.event_activity, minlength=a))[::-1]
-    log(f"contention control [{card}]: segment_count on the graph's ids "
-        f"{fmt_ms(t, 'ms')}; on uniform ids (same E, S) "
-        f"{fmt_ms(t, 'uniform_ms')}. The 10 most frequent of the {a} "
-        f"activities hold {hot[:10].sum() / hot.sum() * 100:.1f}% of the "
-        "events.")
+    log(f"load and contention controls [{card}] (device): segment_count on "
+        f"the graph's ids {fmt_ms(t, 'device_ms')}; torch.sum of the same "
+        f"{seg_read} B in one launch {fmt_ms(t, 'read_device_ms')} "
+        f"({seg_read / t['read_device_ms'] / 1e9:.3f} TB/s), torch.amax of "
+        f"them {fmt_ms(t, 'read_max_device_ms')} "
+        f"({seg_read / t['read_max_device_ms'] / 1e9:.3f} TB/s; the kernel "
+        f"{seg_read / t['device_ms'] / 1e9:.3f} TB/s); with the L2 flushed "
+        f"by a read (no dirty line to write back) the kernel "
+        f"{fmt_ms(t, 'clean_device_ms')} "
+        f"({t['bound_ms'] / t['clean_device_ms'] * 100:.1f}% of the bound), "
+        f"torch.amax {fmt_ms(t, 'read_max_clean_device_ms')}; right after "
+        f"a host-to-device copy of the ids, as the graph build calls it, "
+        f"{fmt_ms(t, 'h2d_device_ms')} "
+        f"({t['bound_ms'] / t['h2d_device_ms'] * 100:.1f}%); uniform ids (same E, "
+        f"S) {fmt_ms(t, 'uniform_device_ms')}; every id activity "
+        f"{int(hot_ids[0])} {fmt_ms(t, 'hot_device_ms')}. By 'kernel' "
+        f"(host's call included): uniform {fmt_ms(t, 'uniform_ms')}, hot "
+        f"{fmt_ms(t, 'hot_ms')}. The 10 most frequent of the {a} activities "
+        f"hold {hot[:10].sum() / hot.sum() * 100:.1f}% of the events, the "
+        f"most frequent {hot[0] / hot.sum() * 100:.1f}%.")
     psi = results[0][2].value
     hot = np.cumsum(np.sort(psi.ravel())[::-1])
     top90 = int(np.searchsorted(hot, 0.9 * hot[-1]) + 1)
@@ -1736,6 +1867,9 @@ def main() -> int:
         log("align_dp instances (registers, spill stores / loads): "
             + "; ".join(f"{k} {r} {st}/{ld}" for k, (r, st, ld)
                         in resources.items()))
+        log("segment_count instances (registers, spill stores / loads): "
+            + "; ".join(f"{k} {r} {st}/{ld}" for k, (r, st, ld)
+                        in _segment_count_resources(build).items()))
         log("== phase 2: kernels against their plain versions")
         worst = phase_sweep(torch, ops)
         worst["segment_count"] = phase_segment_sweep(torch, seg_ops)
@@ -1771,6 +1905,11 @@ def main() -> int:
             "bound_by": BOUND_BY[name],
             "library_ms": times[name]["library_ms"],
             "device_ms": times[name]["device_ms"],
+            **({"read_device_ms": times[name]["read_device_ms"],
+                "hot_ms": times[name]["hot_ms"],
+                "hot_device_ms": times[name]["hot_device_ms"],
+                "flush_bound": times[name]["flush_bound"]}
+               if name == "segment_count" else {}),
         }
         for name in KERNELS
     ]

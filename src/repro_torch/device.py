@@ -7,9 +7,11 @@ fallback: asking for ``cuda`` on a host without a card is an error.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_scope"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -25,3 +27,12 @@ def resolve_device(device="cuda") -> torch.device:
             "on the host"
         )
     return dev
+
+
+def device_scope(dev: torch.device):
+    """A context in which CUDA device ``dev`` is current: no context at all
+    when it is already current, so a kernel launch on the current card does
+    not switch devices twice."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -99,6 +99,10 @@
 // the 294,838 lengths on the card costs more than that, so input order is
 // the one scheme kept.
 //
+// The planner queries the card once per device (SM count, shared memory
+// limit, the attribute that opts the shared tier in to it) and keeps each
+// instance's blocks per SM: a plan makes one cudaGetDevice call.
+//
 // Interface: plain C, loaded with ctypes (no PyTorch headers).  The caller
 // passes contiguous device pointers, Mt of A <= S rows, ids checked to lie
 // in [0, A) (so every sync lands on a state of the front), offsets
@@ -107,6 +111,9 @@
 // launch does not synchronize.
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -114,6 +121,7 @@ namespace {
 constexpr int kMemWarps = 8;  // warps per block, shared and global tiers
 constexpr int kRegWarps = 4;  // warps per block, register tier
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 enum Tier { kGlobal = 0, kShared = 1, kRegisters = 2 };
 
@@ -320,6 +328,55 @@ KernelFn pick(int tier, int k) {
   return nullptr;
 }
 
+// What the planner asks the card once per device.
+struct DeviceInfo {
+  bool ready = false;
+  int num_sms = 0;
+  int max_smem = 0;  // dynamic shared memory a block may use
+};
+
+struct Occupancy {
+  int dev, tier, k, smem, per_sm;
+};
+
+std::mutex g_mutex;
+DeviceInfo g_devices[kMaxDevices];
+std::vector<Occupancy> g_occupancy;  // one entry per (device, instance, smem)
+
+cudaError_t device_info(int dev, DeviceInfo* info) {
+  DeviceInfo& d = g_devices[dev];
+  if (!d.ready) {
+    cudaError_t err =
+        cudaDeviceGetAttribute(&d.num_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&d.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(pick(kShared, 0),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d.max_smem);
+    if (err != cudaSuccess) return err;
+    d.ready = true;
+  }
+  *info = d;
+  return cudaSuccess;
+}
+
+cudaError_t blocks_per_sm(int dev, int tier, int k, int threads, int smem,
+                          int* per_sm) {
+  for (const Occupancy& o : g_occupancy)
+    if (o.dev == dev && o.tier == tier && o.k == k && o.smem == smem) {
+      *per_sm = o.per_sm;
+      return cudaSuccess;
+    }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, pick(tier, k), threads, smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  g_occupancy.push_back({dev, tier, k, smem, *per_sm});
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,7 +386,7 @@ extern "C" {
 // K (0 on the other tiers), the grid and threads per block, the dynamic
 // shared-memory bytes and, for the global tier, the scratch floats the
 // caller must allocate (grid * 8 * S).  Returns a cudaError_t.
-int align_dp_plan(long long V, int S, int num_sms, int* tier_out, int* k_out,
+int align_dp_plan(long long V, int S, int* tier_out, int* k_out,
                   int* grid_out, int* threads_out, int* smem_out,
                   long long* scratch_out) {
   *tier_out = -1;
@@ -342,9 +399,10 @@ int align_dp_plan(long long V, int S, int num_sms, int* tier_out, int* k_out,
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_mutex);
+  DeviceInfo info;
+  err = device_info(dev, &info);
   if (err != cudaSuccess) return err;
 
   int tier = kGlobal, k = 0, warps = kMemWarps, smem = 0;
@@ -356,25 +414,17 @@ int align_dp_plan(long long V, int S, int num_sms, int* tier_out, int* k_out,
   } else {
     const long long smem_bytes =
         static_cast<long long>(kMemWarps) * S * static_cast<long long>(sizeof(float));
-    if (smem_bytes <= max_smem) {
+    if (smem_bytes <= info.max_smem) {
       tier = kShared;
       smem = static_cast<int>(smem_bytes);
     }
   }
-  KernelFn kernel = pick(tier, k);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
   const int threads = warps * 32;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
+  err = blocks_per_sm(dev, tier, k, threads, smem, &per_sm);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
 
-  long long grid = static_cast<long long>(num_sms) * per_sm;
+  long long grid = static_cast<long long>(info.num_sms) * per_sm;
   // no block without a variant for each of its warps to start on
   const long long by_variants = (V + warps - 1) / warps;
   if (grid > by_variants) grid = by_variants;

@@ -51,7 +51,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import device_scope, resolve_device
 
 from ..timing import timed_kernel
 
@@ -272,7 +272,7 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.align_dp_plan.argtypes = [
-            ctypes.c_longlong, i, i, ip, ip, ip, ip, ip,
+            ctypes.c_longlong, i, ip, ip, ip, ip, ip,
             ctypes.POINTER(ctypes.c_longlong),
         ]
         lib.align_dp_plan.restype = i
@@ -304,10 +304,9 @@ def launch(ids, offsets, mt, d0, endcost, out) -> None:
     cfg = [ctypes.c_int() for _ in range(5)]
     tier, k, grid, threads, smem = cfg
     scratch_n = ctypes.c_longlong()
-    with torch.cuda.device(dev):
+    with device_scope(dev):
         rc = lib.align_dp_plan(
-            v, s, torch.cuda.get_device_properties(dev).multi_processor_count,
-            *(ctypes.byref(c) for c in cfg), ctypes.byref(scratch_n),
+            v, s, *(ctypes.byref(c) for c in cfg), ctypes.byref(scratch_n),
         )
         if rc != 0:
             _raise(lib, "plan", rc)
@@ -322,7 +321,7 @@ def launch(ids, offsets, mt, d0, endcost, out) -> None:
             out.data_ptr(), counter.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             tier.value, k.value, grid.value, threads.value, smem.value,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         _raise(lib, "launch", rc)

@@ -11,8 +11,8 @@
 // one-hot (BN x BS) tiles summed on the vector unit, accumulated in f32
 // (exact only to 2^24 per segment), over ids padded to a block multiple and
 // segments padded to a tile multiple.  On Hopper a histogram is what
-// atomics are for: the grid strides over the ids, masks the ragged edge
-// itself, and counts in integers.  Nothing is padded.
+// atomics are for: the kernel counts in integers and masks the ragged edge
+// itself.  Nothing is padded.
 //
 // Semantics (held bit for bit against segment_count_plain):
 //   * ids outside [0, S) and rows whose valid byte is 0 are dropped, so no
@@ -25,153 +25,321 @@
 //
 // Bound.  The kernel reads each id once (4 B), the valid byte when there
 // is one (1 B), and writes the int64 output (8*S B).  It does one integer
-// add per id, so it is bound by bytes: at 3.35 TB/s the graph build's
-// 7.2 M ids over S = 600 segments take >= ~8.6 us (~10.7 us with valid).
-// Measured on an H100 at those shapes: ~19% of the bound, and uniform ids
-// run as fast as the log's skewed ones, so hot segments are not what holds
-// it back; the shared-memory atomic rate is the likely limit.  The design
-// keeps the atomics close to the SM:
+// add per id, so it is bound by bytes: at 3.35 TB/s, (4 B x 7,200,010 ids
+// + 8 B x 600 segments) take >= 8.6 us at the graph build's shapes (10.8 us
+// with a valid column).
 //
-//   * shared-memory branch (S * 4 B fits the 227 KB a block may use,
-//     S <= 58,112 on an H100): each block keeps int32 counters for every
-//     segment in dynamic shared memory (opted in above 48 KB with
-//     cudaFuncSetAttribute), counts its slice of the ids there with
-//     shared-memory atomics, and flushes its nonzero bins with one 64-bit
-//     atomicAdd each.  The grid is the SM count times the blocks that fit
-//     on an SM, cut to at most N / S blocks: every block then counts at
-//     least S ids, so zeroing and flushing the bins never cost more than
-//     counting did, and the flush never issues more global atomics than
-//     there are ids (at S = 600, 7.2 M ids: 1,056 blocks of ~6,800 ids);
-//   * global branch (larger S): every id adds straight into the int64
-//     output with a 64-bit atomic; the output stays in the 50 MB L2 up to
-//     S ~ 6 M.
+// What held the first design back (one 4-byte load per thread per step and
+// a shared atomic before the next, 1,056 blocks of 256 threads, each
+// flushing all its nonzero bins): the loads.  Measured with chip_smoke.py
+// on an NVIDIA H100 80GB HBM3 at 700 W, alone on the card after an L2
+// flush: 0.0338 ms at those shapes, 0.85 TB/s, 25% of the bound; uniform
+// ids as fast (0.0344), and every id one activity faster (0.0252), so
+// neither hot bins nor shared atomics set the pace.  2,048 threads x 4 B =
+// 8 KB of loads in flight per SM cannot cover the memory's latency.
+//
+// Design.
+//   * Loads with bytes in flight: the ids are read as 16-byte int4 vectors,
+//     kVec = 4 of them (64 B, 16 ids) issued by a thread before the first
+//     atomic on any of them; 1,024 threads a block, one block per SM (the
+//     occupancy the ~40 registers allow): 64 KB in flight per SM.  A valid
+//     column is read as one 32-bit word per int4 (its byte k masks the
+//     vector's lane k).  A column whose base is not 16-byte aligned (a view
+//     at any 4-byte offset) has up to three head ids before the first
+//     aligned vector; they and the up to three ids after the last whole
+//     vector are counted one by one by the first block.  A valid column
+//     whose bytes for the aligned body do not start on a 4-byte boundary
+//     is read byte by byte.  Each byte is read once, with __ldcs
+//     (ld.global.cs: the kernel never writes the columns, and a line read
+//     once is marked first to evict, so it does not push other lines out
+//     of the L2).  Timed against __ldg in the same build, that was faster
+//     after an L2 flush or a host-to-device copy and slower only when the
+//     previous launch of the same kernel had left the ids in the L2.
+//   * A persistent grid: the SM count times the blocks per SM that the
+//     occupancy query gives, each block counting one contiguous share of
+//     the vectors (equal to within 8 vectors, 128-byte aligned).
+//       - "shared" branch (S * 4 B fit the shared memory a block may use,
+//         S <= 58,112 on an H100): int32 bins for every segment in dynamic
+//         shared memory, shared-memory atomics, then one 64-bit atomicAdd
+//         per nonzero bin.  The flush issues at most grid x S global
+//         atomics (132 x 600 = 79,200 at the graph build's shapes, against
+//         up to 633,600 in the first design).  The grid is cut to at most
+//         N / S blocks, so every block counts at least S ids and zeroing
+//         and flushing never cost more than counting.  One copy of the bins:
+//         one address for every id ran no slower than the log's ids, so
+//         nothing asks for replicated bins;
+//       - "global" branch (larger S): every id adds straight into the
+//         int64 output with a 64-bit atomic; the output stays in the 50 MB
+//         L2 up to S ~ 6 M.
+//     No block is launched without a vector for each of its threads.
+//   * The launcher queries the card once per device (SM count, shared
+//     memory limit, the attribute that opts the shared instances in to
+//     it) and keeps each instance's blocks per SM: a launch makes one
+//     cudaGetDevice call.
+// Result (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W, same shapes):
+// 0.0188 ms after a flush that leaves the L2 dirty (45.6% of the bound),
+// 0.0168 ms after one that leaves it clean (51.1%); PyTorch's own read of
+// the column, torch.amax, takes 0.0245 ms: the read itself is what is left
+// between this kernel and its bound.
 //
 // Interface: plain C, loaded with ctypes (no PyTorch headers).  The caller
-// zeroes `out`, passes contiguous device pointers (valid may be null) and
-// the current stream, and checks the returned cudaError_t; the launch does
-// not synchronize.
+// zeroes `out`, passes device pointers (ids int32 at any 4-byte offset,
+// valid one byte per id or null) and the current stream, and checks the
+// returned cudaError_t; the launch does not synchronize.
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;  // threads per block
+constexpr int kVec = 4;         // int4 vectors a thread loads per step
+constexpr int kLanes = 4;       // ids per int4
+constexpr int kMaxDevices = 64;
 
-template <bool kValid>
-__device__ __forceinline__ bool segment_of(long long i,
-                                           const int32_t* __restrict__ ids,
-                                           const uint8_t* __restrict__ valid,
-                                           int S, int* seg) {
-  if (kValid && !valid[i]) return false;
-  const int s = ids[i];
+// branch codes reported to the wrapper, named by kBranchNames[code]
+constexpr int kBranchGlobal = 0;
+constexpr int kBranchShared = 1;
+constexpr const char* kBranchNames[] = {"global", "shared"};
+
+struct Args {
+  const int32_t* ids;
+  const uint8_t* valid;  // n bytes, nonzero = valid; null: all valid
+  long long n;
+  int S;
+  unsigned long long* out;  // (S,), zeroed by the caller
+};
+
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// bit k set when valid byte p[k] is nonzero, k < kLanes
+__device__ __forceinline__ unsigned valid_bits(const uint8_t* p,
+                                               bool word_aligned) {
+  unsigned w;
+  if (word_aligned) {
+    w = __ldcs(reinterpret_cast<const unsigned*>(p));
+  } else {
+    w = 0;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      w |= static_cast<unsigned>(__ldcs(p + k)) << (8 * k);
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k)
+    bits |= (((w >> (8 * k)) & 0xffu) != 0u ? 1u : 0u) << k;
+  return bits;
+}
+
+// Counts id s: into the block's bins, or straight into the output.
+template <bool kShared>
+__device__ __forceinline__ void add(int s, int S, int* bins,
+                                    unsigned long long* out) {
   // one unsigned compare rejects both negative ids and ids >= S
-  if (static_cast<unsigned>(s) >= static_cast<unsigned>(S)) return false;
-  *seg = s;
-  return true;
+  if (static_cast<unsigned>(s) >= static_cast<unsigned>(S)) return;
+  if (kShared)
+    atomicAdd(&bins[s], 1);
+  else
+    atomicAdd(&out[s], 1ULL);
 }
 
-template <bool kValid>
-__global__ void __launch_bounds__(kThreads) segment_count_smem_kernel(
-    const int32_t* __restrict__ ids, const uint8_t* __restrict__ valid,
-    long long n, int S, unsigned long long* __restrict__ out) {
-  extern __shared__ int bins[];
-  for (int c = threadIdx.x; c < S; c += blockDim.x) bins[c] = 0;
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    int s;
-    if (segment_of<kValid>(i, ids, valid, S, &s)) atomicAdd(&bins[s], 1);
+// First vector of block b's share of nvec vectors: shares are equal to
+// within 8 vectors and start on a 128-byte boundary.
+__device__ __forceinline__ long long share_start(long long nvec, unsigned b) {
+  if (b >= gridDim.x) return nvec;
+  return (nvec * b / gridDim.x) & ~7LL;
+}
+
+template <bool kValid, bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+    segment_count_kernel(const Args a) {
+  extern __shared__ __align__(16) int bins[];
+  if (kShared) {
+    for (int c = threadIdx.x; c < a.S; c += blockDim.x) bins[c] = 0;
+    __syncthreads();
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < S; c += blockDim.x) {
-    const int v = bins[c];
-    if (v) atomicAdd(&out[c], static_cast<unsigned long long>(v));
+  // ids [0, head) lie before the first 16-byte boundary; the body of nvec
+  // int4 vectors follows; ids [tail, n) are what is left after it
+  const long long to_boundary =
+      static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(a.ids) & 15)) &
+                             15) / 4;
+  const long long head = to_boundary < a.n ? to_boundary : a.n;
+  const long long nvec = (a.n - head) / kLanes;
+  const long long tail = head + nvec * kLanes;
+  const int4* body = reinterpret_cast<const int4*>(a.ids + head);
+  const uint8_t* vbody = kValid ? a.valid + head : nullptr;
+  const bool word_aligned = kValid && aligned(vbody, 4);
+
+  const long long lo = share_start(nvec, blockIdx.x);
+  const long long hi = share_start(nvec, blockIdx.x + 1);
+  for (long long v0 = lo + threadIdx.x; v0 < hi;
+       v0 += static_cast<long long>(kVec) * kThreads) {
+    // every load of the step is issued before the first atomic
+    int4 x[kVec];
+    unsigned ok[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const long long v = v0 + static_cast<long long>(k) * kThreads;
+      ok[k] = 0;
+      if (v < hi) {
+        x[k] = __ldcs(body + v);
+        ok[k] = kValid ? valid_bits(vbody + kLanes * v, word_aligned) : 0xfu;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (ok[k] & 1u) add<kShared>(x[k].x, a.S, bins, a.out);
+      if (ok[k] & 2u) add<kShared>(x[k].y, a.S, bins, a.out);
+      if (ok[k] & 4u) add<kShared>(x[k].z, a.S, bins, a.out);
+      if (ok[k] & 8u) add<kShared>(x[k].w, a.S, bins, a.out);
+    }
+  }
+  // the head and tail ids, one each, by the first block's first threads
+  if (blockIdx.x == 0) {
+    const long long t = threadIdx.x;
+    const long long i = t < head ? t : tail + (t - head);
+    if (i < a.n && (!kValid || __ldcs(a.valid + i) != 0))
+      add<kShared>(__ldcs(a.ids + i), a.S, bins, a.out);
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < a.S; c += blockDim.x) {
+      const int v = bins[c];
+      if (v) atomicAdd(&a.out[c], static_cast<unsigned long long>(v));
+    }
   }
 }
 
-template <bool kValid>
-__global__ void __launch_bounds__(kThreads) segment_count_global_kernel(
-    const int32_t* __restrict__ ids, const uint8_t* __restrict__ valid,
-    long long n, int S, unsigned long long* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    int s;
-    if (segment_of<kValid>(i, ids, valid, S, &s)) atomicAdd(&out[s], 1ULL);
+using KernelFn = void (*)(Args);
+
+// [branch: 0 global, 1 shared][valid]
+const KernelFn kKernels[2][2] = {
+    {&segment_count_kernel<false, false>, &segment_count_kernel<true, false>},
+    {&segment_count_kernel<false, true>, &segment_count_kernel<true, true>},
+};
+
+// What the launcher asks the card once per device.
+struct DeviceInfo {
+  bool ready = false;
+  int num_sms = 0;
+  int max_smem = 0;  // dynamic shared memory a block may use
+};
+
+struct Occupancy {
+  int dev, branch, valid, smem, per_sm;
+};
+
+std::mutex g_mutex;
+DeviceInfo g_devices[kMaxDevices];
+std::vector<Occupancy> g_occupancy;  // one entry per (device, instance, smem)
+
+cudaError_t device_info(int dev, DeviceInfo* info) {
+  DeviceInfo& d = g_devices[dev];
+  if (!d.ready) {
+    cudaError_t err =
+        cudaDeviceGetAttribute(&d.num_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&d.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    for (int v = 0; v < 2; ++v) {
+      err = cudaFuncSetAttribute(kKernels[kBranchShared][v],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 d.max_smem);
+      if (err != cudaSuccess) return err;
+    }
+    d.ready = true;
   }
+  *info = d;
+  return cudaSuccess;
 }
 
-using KernelFn = void (*)(const int32_t*, const uint8_t*, long long, int,
-                          unsigned long long*);
+cudaError_t blocks_per_sm(int dev, int branch, int valid, int smem,
+                          int* per_sm) {
+  for (const Occupancy& o : g_occupancy)
+    if (o.dev == dev && o.branch == branch && o.valid == valid &&
+        o.smem == smem) {
+      *per_sm = o.per_sm;
+      return cudaSuccess;
+    }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kKernels[branch][valid], kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  g_occupancy.push_back({dev, branch, valid, smem, *per_sm});
+  return cudaSuccess;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launch one count.  `valid` may be null.  `num_sms` is the card's SM
-// count; the chosen grid, dynamic shared-memory bytes and branch (1 =
-// shared memory, 0 = global) are written back for reports.  Returns the
+// Launch one count.  `valid` may be null.  The launch's configuration is
+// written back for reports into config[0..4]: the grid, the blocks per SM
+// it was cut from, threads per block, dynamic shared-memory bytes and the
+// branch (0 global, 1 shared; -1 when nothing was launched).  Returns the
 // cudaError_t of the launch.
 int segment_count_launch(const void* ids, const void* valid, long long n,
-                         int S, void* out, int num_sms, void* stream,
-                         int* grid_out, int* smem_out, int* branch_out) {
-  *grid_out = 0;
-  *smem_out = 0;
-  *branch_out = -1;
+                         int S, void* out, void* stream, int* config) {
+  for (int c = 0; c < 5; ++c) config[c] = 0;
+  config[4] = -1;
   if (n <= 0 || S <= 0) return 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  const int v = valid != nullptr ? 1 : 0;
 
-  const bool has_valid = valid != nullptr;
-  const long long smem_bytes =
-      static_cast<long long>(S) * static_cast<long long>(sizeof(int));
-  const bool use_smem = smem_bytes <= max_smem;
-  KernelFn kernel;
-  int smem = 0;
-  if (use_smem) {
-    kernel = has_valid ? &segment_count_smem_kernel<true>
-                       : &segment_count_smem_kernel<false>;
-    smem = static_cast<int>(smem_bytes);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
+  long long grid = 0;
+  int per_sm = 0, smem = 0, branch = kBranchGlobal;
+  {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    DeviceInfo info;
+    err = device_info(dev, &info);
+    if (err != cudaSuccess) return err;
+    const long long smem_bytes =
+        static_cast<long long>(S) * static_cast<long long>(sizeof(int));
+    if (smem_bytes <= info.max_smem) {
+      branch = kBranchShared;
+      smem = static_cast<int>(smem_bytes);
     }
-  } else {
-    kernel = has_valid ? &segment_count_global_kernel<true>
-                       : &segment_count_global_kernel<false>;
+    err = blocks_per_sm(dev, branch, v, smem, &per_sm);
+    if (err != cudaSuccess) return err;
+    grid = static_cast<long long>(info.num_sms) * per_sm;
   }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-
-  long long grid = static_cast<long long>(num_sms) * per_sm;
-  // no block without ids to count
-  const long long by_ids = (n + kThreads - 1) / kThreads;
-  if (grid > by_ids) grid = by_ids;
-  // shared-memory branch: every block counts >= S ids
-  if (use_smem && grid > n / S) grid = n / S;
+  // no block without a vector for each of its threads to start on
+  const long long by_vectors = (n / kLanes + kThreads - 1) / kThreads;
+  if (grid > by_vectors) grid = by_vectors;
+  // shared branch: every block counts >= S ids
+  if (branch == kBranchShared && grid > n / S) grid = n / S;
   if (grid < 1) grid = 1;
 
+  Args args;
+  args.ids = static_cast<const int32_t*>(ids);
+  args.valid = static_cast<const uint8_t*>(valid);
+  args.n = n;
+  args.S = S;
+  args.out = static_cast<unsigned long long*>(out);
+  KernelFn kernel = kKernels[branch][v];
   kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), static_cast<const uint8_t*>(valid), n,
-      S, static_cast<unsigned long long*>(out));
-  *grid_out = static_cast<int>(grid);
-  *smem_out = smem;
-  *branch_out = use_smem ? 1 : 0;
+           static_cast<cudaStream_t>(stream)>>>(args);
+  config[0] = static_cast<int>(grid);
+  config[1] = per_sm;
+  config[2] = kThreads;
+  config[3] = smem;
+  config[4] = branch;
   return cudaGetLastError();
+}
+
+// The name of a branch code of segment_count_launch, or null.
+const char* segment_count_branch_name(int code) {
+  return code == kBranchGlobal || code == kBranchShared ? kBranchNames[code]
+                                                        : nullptr;
 }
 
 const char* segment_count_error_string(int err) {

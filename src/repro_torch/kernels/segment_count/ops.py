@@ -21,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ...device import device_scope
 from ..dfg_count.ops import _as_tensor, _valid_mask
 from ..timing import timed_kernel
 
@@ -32,14 +33,22 @@ __all__ = [
     "reset_launch_counts",
     "last_launch",
     "MAX_SEGMENTS",
+    "BRANCHES",
 ]
 
 #: the kernel takes the segment count as a C int
 MAX_SEGMENTS = (1 << 31) - 1
 
+#: the kernel's branches, by the code ``segment_count_launch`` reports
+#: (``kBranchNames`` in ``csrc/segment_count.cu``)
+BRANCHES = ("global", "shared")
+
 #: kernel launches — one per launch, nowhere else
 launch_counts: Dict[str, int] = {"segment_count": 0}
-#: configuration of the most recent launch (grid, smem bytes, branch)
+#: configuration of the most recent launch (branch, grid, the blocks per
+#: SM the card's occupancy allows, threads, smem bytes, and
+#: ``flush_bound``: at most grid × S global atomics flush the shared
+#: branch's bins, 0 on the global branch)
 last_launch: Dict[str, object] = {}
 
 
@@ -63,6 +72,31 @@ def segment_count_plain(ids, valid=None, *, num_segments: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _lib: Optional[ctypes.CDLL] = None
+#: a launch's configuration as the library writes it back: grid, blocks per
+#: SM, threads, dynamic shared-memory bytes, branch code
+_Config = ctypes.c_int * 5
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``segment_count.cu`` and check that its branch names are
+    :data:`BRANCHES`."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.segment_count_launch.argtypes = [
+        p, p, ctypes.c_longlong, i, p, p, ctypes.POINTER(_Config),
+    ]
+    lib.segment_count_launch.restype = i
+    lib.segment_count_branch_name.argtypes = [i]
+    lib.segment_count_branch_name.restype = ctypes.c_char_p
+    lib.segment_count_error_string.argtypes = [i]
+    lib.segment_count_error_string.restype = ctypes.c_char_p
+    names = tuple(
+        lib.segment_count_branch_name(code).decode()
+        for code in range(len(BRANCHES))
+    )
+    if names != BRANCHES or lib.segment_count_branch_name(len(BRANCHES)):
+        raise RuntimeError(f"segment_count library names its branches {names}")
+    return lib
 
 
 def _library() -> ctypes.CDLL:
@@ -70,18 +104,40 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         from ..build import load
 
-        lib = load("segment_count")
-        p = ctypes.c_void_p
-        lib.segment_count_launch.argtypes = [
-            p, p, ctypes.c_longlong, ctypes.c_int, p, ctypes.c_int, p,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.segment_count_launch.restype = ctypes.c_int
-        lib.segment_count_error_string.argtypes = [ctypes.c_int]
-        lib.segment_count_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(load("segment_count"))
     return _lib
+
+
+def _call(
+    lib: ctypes.CDLL,
+    ids: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    out: torch.Tensor,
+    num_segments: int,
+    stream: Optional[int],
+) -> None:
+    """One ``segment_count_launch`` on the tensors' memory through ``lib``."""
+    n = ids.shape[0]
+    if not n:
+        return
+    s = int(num_segments)
+    config = _Config()
+    rc = lib.segment_count_launch(
+        ids.data_ptr(), valid.data_ptr() if valid is not None else None, n, s,
+        out.data_ptr(), stream, config,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"segment_count launch failed: CUDA error {rc} "
+            f"({lib.segment_count_error_string(rc).decode()})"
+        )
+    grid, per_sm, threads, smem, branch = config
+    name = BRANCHES[branch]
+    last_launch.update(
+        ids=n, num_segments=s, valid=valid is not None, grid=grid,
+        blocks_per_sm=per_sm, threads=threads, smem_bytes=smem, branch=name,
+        flush_bound=grid * s if name == "shared" else 0,
+    )
 
 
 def launch(
@@ -90,31 +146,12 @@ def launch(
     out: torch.Tensor,
     num_segments: int,
 ) -> None:
-    """One launch on already-converted device columns (contiguous int32
-    ids, contiguous uint8 valid or ``None``) into a zeroed int64 ``out``.
-    Counts nothing: the public wrapper counts its launches."""
-    n = ids.shape[0]
-    dev = ids.device
-    grid, smem, branch = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.segment_count_launch(
-            ids.data_ptr(), valid.data_ptr() if valid is not None else None,
-            n, int(num_segments), out.data_ptr(),
-            torch.cuda.get_device_properties(dev).multi_processor_count,
-            torch.cuda.current_stream(dev).cuda_stream,
-            ctypes.byref(grid), ctypes.byref(smem), ctypes.byref(branch),
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"segment_count launch failed: CUDA error {rc} "
-            f"({lib.segment_count_error_string(rc).decode()})"
-        )
-    last_launch.update(
-        ids=n, num_segments=int(num_segments), valid=valid is not None,
-        grid=grid.value, threads=256, smem_bytes=smem.value,
-        branch="shared" if branch.value == 1 else "global",
-    )
+    """One launch on already-converted device columns (int32 ids, uint8
+    valid or ``None``, each contiguous, at any offset) into a zeroed int64
+    ``out``.  Counts nothing: the public wrapper counts its launches."""
+    with device_scope(ids.device):
+        _call(_library(), ids, valid, out, num_segments,
+              torch.cuda.current_stream().cuda_stream)
 
 
 def _narrow_ids(ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -13,61 +13,25 @@ builds it and that it runs there (``tests/test_torch_kernels_gpu.py``).
 
 Skips where g++ with C++20 is not on the path."""
 
-import ctypes
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emulation import compile_emulated
 from repro_torch.data import ProcessSpec
 from repro_torch.data.synthetic_log import generate_repository
 from repro_torch.kernels.dfg_count import ops
 
 SOURCE = Path(ops.__file__).parent / "csrc" / "dfg_count.cu"
-SHIM = Path(__file__).parent / "cuda_emulation"
 #: the emulated card's SMs and dense blocks per SM (cudaOccupancy... answer)
 SMS, PER_SM = 3, 2
 
 
-def emulation_source(cuda: str) -> str:
-    """Rewrite the two CUDA constructs g++ cannot parse: a launch
-    ``k<<<grid, block, smem, stream>>>(args)`` and the dynamic
-    shared-memory declaration."""
-    cuda, launches = re.subn(
-        r"(\w+)<<<(.*?)>>>\((.*?)\);", r"emu::launch(\1, \2, \3);", cuda,
-        flags=re.S,
-    )
-    cuda, smem = re.subn(
-        r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?unsigned char\s+"
-        r"(\w+)\[\];",
-        r"unsigned char* \1 = emu::dynamic_smem();", cuda,
-    )
-    assert launches == 1 and smem == 1, (launches, smem)
-    return cuda
-
-
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source for the CPU")
-    tmp = tmp_path_factory.mktemp("dfg_emu")
-    cpp = tmp / "dfg_count_emu.cpp"
-    cpp.write_text(emulation_source(SOURCE.read_text()))
-    so = tmp / "libdfg_count_emu.so"
-    res = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         f"-I{SHIM}", "-o", str(so), str(cpp)],
-        capture_output=True, text=True, timeout=300,
-    )
-    if res.returncode and "barrier" in res.stderr:
-        pytest.skip("needs a g++ with C++20's <barrier>")
-    assert res.returncode == 0, res.stderr
-    lib = ops._bind(ctypes.CDLL(str(so)))
+    lib = ops._bind(compile_emulated(SOURCE, tmp_path_factory.mktemp("dfg_emu")))
     lib.emu_configure(SMS, PER_SM)
     return lib
 

@@ -184,6 +184,40 @@ def test_segment_count_kernel_matches_plain_version_on_the_card():
             want = seg_ops.segment_count_plain(x, num_segments=s)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (s, x.dtype)
+    # either side of the branch boundary (S int32 bins in the card's opt-in
+    # shared memory): int32 views 1-3 elements off the kernel's 16-byte
+    # vectors, valid views beside them, every remainder of N mod 16, and
+    # one hot bin
+    props = torch.cuda.get_device_properties(dev)
+    last_shared = props.shared_memory_per_block_optin // 4
+    for s in (last_shared, last_shared + 1):
+        col = torch.randint(-2, s + 2, (70_000,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        vcol = torch.rand(70_000, generator=gen, device=dev) < 0.7
+        for head in (0, 1, 2, 3):
+            for n in [50_000 + r for r in range(16)] + [5]:
+                ids, valid = col[head:head + n], vcol[head:head + n]
+                for v in (valid, None):
+                    got = seg_ops.segment_count(ids, v, num_segments=s)
+                    want = seg_ops.segment_count_plain(ids, v, num_segments=s)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (s, head, n, v is None)
+                    ll = seg_ops.last_launch
+                    assert ll["branch"] == ("shared" if s <= last_shared
+                                            else "global"), (s, ll)
+                    assert 1 <= ll["blocks_per_sm"] <= (
+                        props.max_threads_per_multi_processor // ll["threads"])
+                    assert 1 <= ll["grid"] <= (
+                        props.multi_processor_count * ll["blocks_per_sm"]), ll
+                    assert ll["flush_bound"] == (
+                        ll["grid"] * s if ll["branch"] == "shared" else 0)
+        hot = torch.full((100_001,), s - 1, dtype=torch.int32, device=dev)
+        for ids in (hot, hot[1:]):
+            got = seg_ops.segment_count(ids, num_segments=s)
+            torch.cuda.synchronize()
+            assert torch.equal(
+                got, seg_ops.segment_count_plain(ids, num_segments=s))
+            assert int(got[s - 1]) == ids.shape[0]
     assert branches == {"shared", "global"}
 
 
