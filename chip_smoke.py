@@ -42,6 +42,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    against the host oracle, alignments' perfect traces against replay's,
    and the cost bounds; with the split of an alignment query, the padded
    (V, L) route timed beside it;
+3d. variant analysis at the same width on a default ``QueryEngine()``:
+   ``variants()`` and ``variants(10)`` against a host oracle that groups
+   traces by their activity-id tuples (no hash); ``top_variants(k).dfg()``
+   (``dfg_count``) for k = 10 and the k of 50% coverage, each moved to the
+   end of its tie run, and the latter over a 30-day window
+   (``dfg_count_diced``); ``activities(keep, relink=True).dfg()`` with the
+   300 most frequent activities, plain and over a 7-day window;
+   ``top_variants(k).alignments()`` (one ``align_dp`` launch, its default
+   model discovered on the filtered log, a 4,096-variant sample against
+   the host DP); an ``AnalystSession`` on the shared default engine whose
+   floored 30-day Ψ equals phase 3's; and the barriers' split on the host
+   clock;
 4. the mining CLI in-process (``repro_torch.launch.mine``);
 5. kernel, plain-version and library times at the main paths' shapes beside
    the bytes or operations bound (``ms``: CUDA events around the host's
@@ -57,8 +69,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``align_dp`` also beside its issue bounds, with its work orders
    compared), and the end-to-end split of the main-path queries.
 
-The line before the last is a JSON ``kernels`` report; the last line is
-``{"ok": true, "device": {...}}``.  Counts are exact integers and the
+The line before the last is a JSON ``kernels`` report (``launches`` from
+the first path that runs the kernel: phase 3, 3b or 3c;
+``launches_by_phase`` each phase's own); the last line
+is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
 has tolerance 0.
 """
@@ -1191,6 +1205,313 @@ def phase_conformance(torch, mlog, repo, model):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d — variant analysis at PAPER_EVAL width
+# ---------------------------------------------------------------------------
+
+
+def _oracle_variants(np, repo):
+    """Each trace's activity-id tuple and the count of each tuple, grouped
+    on the host with no hash (the repository is canonical:
+    trace-contiguous, trace ids in order)."""
+    import collections
+
+    act = repo.event_activity.tolist()
+    lens = np.bincount(repo.event_trace, minlength=repo.num_traces)
+    b = np.zeros(lens.shape[0] + 1, dtype=np.int64)
+    np.cumsum(lens, out=b[1:])
+    b = b.tolist()
+    seqs = [tuple(act[b[t]:b[t + 1]]) for t in range(repo.num_traces)]
+    return seqs, collections.Counter(seqs)
+
+
+def _check_variant_table(np, tv, seqs, counts, what):
+    """The port's table against the host oracle: the same variants with
+    the same counts, in non-increasing count order (ties in any order),
+    and every trace mapped to its own sequence's variant."""
+    v = tv.num_variants
+    ids = tv.variant_activity.tolist()
+    off = tv.variant_offsets.tolist()
+    got = [tuple(ids[off[i]:off[i + 1]]) for i in range(v)]
+    c = tv.counts.tolist()
+    check(v == len(counts) and len(set(got)) == v,
+          f"{what}: {v} variants, the oracle {len(counts)}")
+    check(all(counts[q] == n for q, n in zip(got, c)),
+          f"{what}: a variant's count differs from the oracle's")
+    check(bool((np.diff(tv.counts) <= 0).all()),
+          f"{what}: counts are not in non-increasing order")
+    index = {q: i for i, q in enumerate(got)}
+    check(np.array_equal(tv.trace_variant,
+                         np.asarray([index[q] for q in seqs])),
+          f"{what}: trace_variant maps a trace off its sequence")
+
+
+def _end_of_tie_run(np, desc, k):
+    """The k that keeps every variant counted at least ``desc[k - 1]``, so
+    the kept set needs no tie order."""
+    return int(np.count_nonzero(desc >= desc[k - 1]))
+
+
+def phase_variants(torch, mlog, repo, results, card):
+    """Variants, ``top_variants(k)`` and relink barriers through a default
+    engine on the memmap log, each answer against a host oracle written
+    here (tolerance 0), then the split of the barriers on the host clock.
+    Returns {kernel: launches}."""
+    import numpy as np
+
+    from repro_torch.conformance import alignment_cost_tables
+    from repro_torch.conformance.align import (
+        finish_variant_costs,
+        variant_matrix,
+    )
+    from repro_torch.core import (
+        AccessPolicy,
+        AnalystSession,
+        dfg_numpy,
+        dice_repository,
+        discover_dependency_graph,
+        trace_variants,
+        variant_filtered_repository,
+        variant_table,
+    )
+    from repro_torch.core.views import AccessDenied
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.query import Q, QueryEngine
+
+    a = repo.num_activities
+    names = list(repo.activity_names)
+    t_min = float(mlog.time[0])
+    w7, w30 = (t_min, t_min + 7 * DAY), (t_min, t_min + 30 * DAY)
+    act, trace, ts = repo.event_activity, repo.event_trace, repo.event_time
+    src, dst, valid = repo.df_pairs()
+
+    t0 = time.perf_counter()
+    seqs, counts = _oracle_variants(np, repo)
+    desc = np.sort(np.asarray(list(counts.values()), dtype=np.int64))[::-1]
+    log(f"variants oracle: {len(counts)} distinct activity sequences over "
+        f"{repo.num_traces} traces, grouped by tuple in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    k10 = _end_of_tie_run(np, desc, 10)
+    cum = np.cumsum(desc)
+    least50 = int(np.searchsorted(cum, 0.5 * cum[-1])) + 1
+    k50 = _end_of_tie_run(np, desc, least50)
+    check(k50 < desc.shape[0], "top_variants(k50) would keep every variant")
+    log(f"k = 10 → {k10} and k50 = {least50} → {k50} (ends of tie runs; "
+        f"counts {int(desc[k10 - 1])} and {int(desc[k50 - 1])}, coverage "
+        f"{cum[k10 - 1] / cum[-1]:.4f} and {cum[k50 - 1] / cum[-1]:.4f})")
+    freq = np.bincount(act, minlength=a)
+    keep_ids = np.sort(np.argsort(-freq, kind="stable")[:a // 2])
+    keep = [names[i] for i in keep_ids]
+
+    engine = QueryEngine()
+    q = Q.log(mlog).using(engine)
+    queries = {
+        "variants": lambda: q.variants(),
+        "variants 10": lambda: q.variants(10),
+        f"top_variants({k10}).dfg": lambda: q.top_variants(k10).dfg(),
+        f"top_variants({k50}).dfg": lambda: q.top_variants(k50).dfg(),
+        f"top_variants({k50}).window(30d).dfg":
+            lambda: q.top_variants(k50).window(*w30).dfg(),
+        "relink.dfg": lambda: q.activities(keep, relink=True).dfg(),
+        "relink.window(7d).dfg":
+            lambda: q.activities(keep, relink=True).window(*w7).dfg(),
+        f"top_variants({k50}).alignments":
+            lambda: q.top_variants(k50).alignments(),
+    }
+    ops.reset_launch_counts()
+    seg_ops.reset_launch_counts()
+    dp_ops.reset_launch_counts()
+    res, launched, last = {}, {}, {}
+    for name, fn in queries.items():
+        before = {**ops.launch_counts, **dp_ops.launch_counts}
+        res[name] = fn()
+        after = {**ops.launch_counts, **dp_ops.launch_counts}
+        launched[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        last[name] = dict(dp_ops.last_launch if "align_dp" in launched[name]
+                          else ops.last_launch)
+    counts_3d = {**ops.launch_counts, **seg_ops.launch_counts,
+                 **dp_ops.launch_counts}
+    log(f"variant analysis launches: {counts_3d}")
+    check(counts_3d["dfg_count"] >= 1 and counts_3d["dfg_count_diced"] >= 1
+          and counts_3d["align_dp"] == 1 and counts_3d["segment_count"] == 0,
+          f"phase 3d launch counts {counts_3d}")
+    for name, r in res.items():
+        check(not r.from_cache, f"{name} came from the cache")
+        log(f"  {name}: wall {r.wall_s:.4f} s, launches {launched[name]}, "
+            f"{r.physical.describe()}")
+
+    # 1. the variant table, and its top 10
+    tv = res["variants"].value
+    _check_variant_table(np, tv, seqs, counts, "variants()")
+    top = res["variants 10"].value
+    check(np.array_equal(top.counts, tv.counts[:10])
+          and top.sequences == tv.sequences[:10]
+          and np.array_equal(top.trace_variant, tv.trace_variant),
+          "variants(10) is not the head of variants() with the whole "
+          "trace_variant")
+    check(not launched["variants"] and not launched["variants 10"],
+          "the variants sink launched a kernel")
+    log(f"variants(): {tv.num_variants} variants == the host oracle's "
+        f"(exact grouping; counts, sequences and trace_variant equal up to "
+        f"the order of ties), top count {int(tv.counts[0])}, coverage of "
+        f"the top 10 {tv.coverage(10):.4f}; variants(10) is its head")
+
+    # 2-3. top_variants(k).dfg() and its 30-day window
+    for k in (k10, k50):
+        kept_trace = np.asarray([counts[s] >= desc[k - 1] for s in seqs])
+        kept = kept_trace[trace]
+        for win in (None, w30) if k == k50 else (None,):
+            name = (f"top_variants({k}).dfg" if win is None
+                    else f"top_variants({k}).window(30d).dfg")
+            r = res[name]
+            v = valid & kept[:-1]
+            if win is not None:
+                inw = (ts >= win[0]) & (ts < win[1])
+                v = v & inw[:-1] & inw[1:]
+            want = dfg_numpy(src, dst, v, a)
+            kernel = "dfg_count" if win is None else "dfg_count_diced"
+            ll = last[name]
+            check(launched[name] == {kernel: 1}
+                  and r.physical.backend == "kernel"
+                  and r.physical.fused_dicing == (win is not None)
+                  and ll["pairs"] == int(kept.sum()) - 1,
+                  f"{name}: launches {launched[name]}, "
+                  f"{r.physical.describe()}")
+            check(r.value.dtype == np.int64 and r.names == names
+                  and np.array_equal(r.value, want),
+                  f"{name}: Ψ differs from the host oracle in "
+                  f"{int((r.value != want).sum())} cells")
+            log(f"  {name}: {int(kept_trace.sum())} traces of {k} variants "
+                f"(coverage {tv.coverage(k):.4f}), Ψ total "
+                f"{int(want.sum())} == host oracle ({kernel} on the card, "
+                f"{ll['pairs']} pairs, {ll['branch']} branch)")
+
+    # 4. relink: drop the other half of the vocabulary, re-link, count
+    m = np.isin(act, keep_ids)
+    ak, tk, tsk = act[m], trace[m], ts[m]
+    for win, name in ((None, "relink.dfg"), (w7, "relink.window(7d).dfg")):
+        v = tk[:-1] == tk[1:]
+        if win is not None:
+            inw = (tsk >= win[0]) & (tsk < win[1])
+            v = v & inw[:-1] & inw[1:]
+        want = dfg_numpy(ak[:-1], ak[1:], v, a)
+        r = res[name]
+        kernel = "dfg_count" if win is None else "dfg_count_diced"
+        ll = last[name]
+        check(launched[name] == {kernel: 1}
+              and r.physical.backend == "kernel"
+              and ll["pairs"] == int(m.sum()) - 1,
+              f"{name}: launches {launched[name]}, {r.physical.describe()}")
+        check(np.array_equal(r.value, want),
+              f"{name}: Ψ differs from the host oracle in "
+              f"{int((r.value != want).sum())} cells")
+        log(f"  {name}: {len(keep)} of {a} activities kept, "
+            f"{int(m.sum())} events relinked, Ψ total {int(want.sum())} == "
+            f"host oracle ({kernel} on the card, {ll['pairs']} pairs, "
+            f"{ll['branch']} branch)")
+
+    # 5. top_variants(k50).alignments(): one align_dp launch, its default
+    # model discovered on the filtered log
+    name = f"top_variants({k50}).alignments"
+    r = res[name]
+    ali = r.value
+    ll = last[name]
+    check(launched[name] == {"align_dp": 1}
+          and r.physical.backend == "numpy",
+          f"{name}: launches {launched[name]}, {r.physical.describe()}")
+    filt = variant_filtered_repository(repo, k50)
+    ftv = variant_table(filt.event_activity, filt.event_trace,
+                        filt.num_traces, names)
+    check(ftv.num_variants == k50 and ali.variant_costs.shape == (k50,)
+          and ali.trace_cost.shape == (filt.num_traces,),
+          f"{name}: {ali.variant_costs.shape} variant costs, "
+          f"{ali.trace_cost.shape} traces")
+    fsrc, fdst, fvalid = filt.df_pairs()
+    starts, ends = filt.trace_boundaries()
+    model = discover_dependency_graph(
+        dfg_numpy(fsrc, fdst, fvalid, a), names, starts, ends)
+    mm, d0, end = alignment_cost_tables(model, names)
+    seqs_v, lens = variant_matrix(ftv, names)
+    rng = np.random.default_rng(0)
+    pick = np.sort(rng.choice(k50, min(4096, k50), replace=False))
+    want = finish_variant_costs(
+        dp_ops.align_dp(seqs_v[pick], lens[pick], mm, d0, end,
+                        backend="numpy"), lens[pick])
+    check(np.array_equal(ali.variant_costs[pick], want),
+          f"{name}: align_dp differs from the host oracle on the sample in "
+          f"{int((ali.variant_costs[pick] != want).sum())} variants")
+    fit = q.top_variants(k50).fitness().value
+    tlen = np.bincount(filt.event_trace, minlength=filt.num_traces)
+    cost = ali.trace_cost
+    check(bool((cost >= 0).all()
+               and (cost <= tlen + max(ali.empty_cost, 0)).all())
+          and np.isfinite(ali.trace_fitness).all()
+          and bool(((ali.trace_fitness >= 0)
+                    & (ali.trace_fitness <= 1)).all()),
+          f"{name}: a cost outside [0, len + empty_cost] or a fitness "
+          "outside [0, 1]")
+    check(np.array_equal(cost == 0, fit.trace_fitness >= 1.0 - 1e-12),
+          f"{name}: perfect traces differ from replay's")
+    log(f"  {name}: {cost.shape[0]} traces, {k50} variants ({ll['branch']} "
+        f"tier, {ll['events']} ids), fitness {ali.fitness:.6f}, "
+        f"{ali.perfectly_fitting} perfect == replay's, costs in "
+        f"[0, len + empty_cost]; {pick.shape[0]} sampled variants == host "
+        f"align_dp_numpy on a model discovered here, bit for bit")
+
+    # 6. the access-control session, on the shared default engine (the card)
+    floor = 50
+    sess = AnalystSession(repo, AccessPolicy(min_group_count=floor))
+    before = ops.launch_counts["dfg_count_diced"]
+    psi, snames = sess.dfg(time_window=w30)
+    engine30 = next(r for n, w, r in results if n == "30d").value
+    want = np.where(engine30 >= floor, engine30, 0)
+    check(ops.launch_counts["dfg_count_diced"] == before + 1,
+          "AnalystSession.dfg(time_window) did not launch dfg_count_diced")
+    check(snames == names and np.array_equal(psi, want),
+          "AnalystSession.dfg differs from the engine's 30-day Ψ after the "
+          "floor")
+    try:
+        sess.events()
+        check(False, "AnalystSession.events() returned raw events")
+    except AccessDenied:
+        pass
+    log(f"  AnalystSession(min_group_count={floor}).dfg(30 days): == the "
+        f"engine's dfg_count_diced Ψ after the floor "
+        f"({int((engine30 > 0).sum())} cells, {int((want > 0).sum())} at or "
+        f"above it); events() raises AccessDenied")
+
+    # 7. the host-clock split of the barrier queries
+    dev = torch.device("cuda", 0)
+    split = {}
+
+    def step(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] = time.perf_counter() - t0
+        return out
+
+    step("variant table", lambda: trace_variants(repo))
+    step("top-k filter (variant table + remap)",
+         lambda: variant_filtered_repository(repo, k50))
+    step("relink dice", lambda: dice_repository(repo, activities=keep))
+    log(f"variant analysis split [{card}] (s; host clock, card "
+        "synchronized): " + "  ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    for name, r in res.items():
+        notes = r.trace.notes
+        log(f"  {name}: wall {r.wall_s:.4f}  materialize "
+            f"{notes.get('materialize_s', 0.0):.4f}  barrier "
+            f"{notes.get('barrier_s', 0.0):.4f}  h2d "
+            f"{notes.get('h2d_s', 0.0):.4f}  kernel "
+            f"{notes.get('kernel_s', 0.0):.4f}  d2h "
+            f"{notes.get('d2h_s', 0.0):.4f}")
+    return counts_3d
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 — the CLI
 # ---------------------------------------------------------------------------
 
@@ -1881,6 +2202,10 @@ def main() -> int:
             graph_counts = phase_graph(torch, mlog, repo, results, tmp)
             log("== phase 3c: conformance at PAPER_EVAL width")
             conf_counts, conf = phase_conformance(torch, mlog, repo, model)
+            log("== phase 3d: variant analysis at PAPER_EVAL width")
+            var_counts = phase_variants(torch, mlog, repo, results, card)
+        by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
+                    "3d": var_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")
@@ -1898,6 +2223,8 @@ def main() -> int:
             "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": counts[name],
+            "launches_by_phase": {p: c.get(name, 0)
+                                  for p, c in by_phase.items()},
             "max_abs_err": worst[name],
             "ms": times[name]["ms"],
             "plain_ms": times[name]["plain_ms"],

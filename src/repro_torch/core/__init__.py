@@ -1,12 +1,14 @@
 """GraphPM core — the paper's primary contribution on PyTorch.
 
-Event repositories (Definition 1), Algorithm 1 (DFG) in scatter / one-hot /
-CUDA-kernel formulations, dicing, access-control views, streaming
-(out-of-core) execution, DFG-based discovery, token-replay conformance and
-trace variants.
+Event repositories (Definition 1), soundness (Definition 2), Algorithm 1
+(DFG) in scatter / one-hot / CUDA-kernel formulations, dicing,
+access-control views and analyst sessions, streaming (out-of-core)
+execution, DFG-based discovery and footprints, the in-memory baseline,
+runtime telemetry mining, token-replay conformance and trace variants.
 """
 
 from .repository import EventRepository, GraphRepo, paper_example_repo
+from .soundness import SoundnessReport, check_columnar, check_graph, is_sound
 from .dfg import (
     dfg,
     dfg_algorithm1,
@@ -21,14 +23,17 @@ from .dicing import (
     event_mask_for_window,
     pair_mask_for_window,
 )
-from .views import HIDDEN, ActivityView
+from .views import HIDDEN, AccessPolicy, ActivityView, AnalystSession
 from .discovery import (
     DiscoveredModel,
     dependency_matrix,
     discover_dependency_graph,
     filter_dfg,
+    footprint,
+    footprint_conformance,
     to_dot,
 )
+from .baseline import InMemoryDFGBaseline, dfg_from_rows
 from .conformance import (
     ModelSpec,
     ReplayResult,
@@ -37,7 +42,13 @@ from .conformance import (
     replay_core,
     replay_fitness,
 )
-from .variants import TraceVariants, trace_variants, variant_table
+from .telemetry import EventCollector, StepTimer
+from .variants import (
+    TraceVariants,
+    trace_variants,
+    variant_filtered_repository,
+    variant_table,
+)
 from .streaming import (
     MemmapLog,
     MemmapLogWriter,
@@ -49,16 +60,20 @@ from .streaming import (
 
 __all__ = [
     "EventRepository", "GraphRepo", "paper_example_repo",
+    "SoundnessReport", "check_columnar", "check_graph", "is_sound",
     "dfg", "dfg_algorithm1", "dfg_from_repository", "dfg_numpy",
     "dfg_onehot", "dfg_scatter",
     "dice_repository", "event_mask_for_activities", "event_mask_for_window",
     "pair_mask_for_window",
-    "HIDDEN", "ActivityView",
+    "HIDDEN", "AccessPolicy", "ActivityView", "AnalystSession",
     "DiscoveredModel", "dependency_matrix", "discover_dependency_graph",
-    "filter_dfg", "to_dot",
+    "filter_dfg", "footprint", "footprint_conformance", "to_dot",
+    "InMemoryDFGBaseline", "dfg_from_rows",
     "MemmapLog", "MemmapLogWriter", "MinerState", "StreamingDFGMiner",
     "memmap_log_name", "streaming_dfg",
     "ModelSpec", "ReplayResult", "deviation_census", "model_tables",
     "replay_core", "replay_fitness",
-    "TraceVariants", "trace_variants", "variant_table",
+    "EventCollector", "StepTimer",
+    "TraceVariants", "trace_variants", "variant_filtered_repository",
+    "variant_table",
 ]

@@ -63,25 +63,30 @@ def dice_repository(
     activities: Optional[Sequence[str]] = None,
 ) -> EventRepository:
     """pm4py-style dicing: materialize the filtered repository with events
-    re-linked within traces.  O(E) host-side; used for baseline comparisons
-    and for analysts who explicitly request re-linking semantics."""
+    re-linked within traces.  O(E) array work on the host, no
+    per-event Python; used for baseline comparisons, for analysts who
+    explicitly request re-linking semantics and for the query engine's
+    relink barrier."""
     mask = np.ones(repo.num_events, dtype=bool)
     if time_window is not None:
         mask &= event_mask_for_window(repo, time_window)
     if activities is not None:
         mask &= event_mask_for_activities(repo, activities)
     idx = np.nonzero(mask)[0]
-    kept_traces = np.unique(repo.event_trace[idx])
-    old_to_new = {int(t): i for i, t in enumerate(kept_traces.tolist())}
-    new_trace = np.asarray(
-        [old_to_new[int(t)] for t in repo.event_trace[idx]], dtype=np.int32
-    )
+    # the surviving traces, renumbered in their old order through one index
+    # array (old trace id → new)
+    kept_trace = repo.event_trace[idx]
+    present = np.zeros(repo.num_traces, dtype=bool)
+    present[kept_trace] = True
+    kept_traces = np.nonzero(present)[0]
+    old_to_new = np.cumsum(present) - 1
+    names = repo.trace_names
     return EventRepository(
         event_activity=repo.event_activity[idx].copy(),
-        event_trace=new_trace,
+        event_trace=old_to_new[kept_trace].astype(np.int32),
         event_time=repo.event_time[idx].copy(),
         trace_log=repo.trace_log[kept_traces].copy(),
         activity_names=list(repo.activity_names),
-        trace_names=[repo.trace_names[int(t)] for t in kept_traces],
+        trace_names=[names[t] for t in kept_traces.tolist()],
         log_names=list(repo.log_names),
     )

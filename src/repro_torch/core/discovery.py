@@ -7,6 +7,7 @@ the standard DFG-based discovery stack so the framework is end-to-end:
 
 * frequency filtering (spaghetti-model control, §5.2),
 * heuristics-miner dependency measures and dependency-graph discovery,
+* alpha-miner footprint relations (→, ←, ∥, #) + footprint conformance,
 * DOT export for visualization.
 """
 
@@ -22,6 +23,8 @@ __all__ = [
     "dependency_matrix",
     "DiscoveredModel",
     "discover_dependency_graph",
+    "footprint",
+    "footprint_conformance",
     "to_dot",
 ]
 
@@ -83,6 +86,27 @@ def discover_dependency_graph(
     return DiscoveredModel(
         activities=a_n, edges=edges, start_activities=starts, end_activities=ends
     )
+
+
+def footprint(psi: np.ndarray) -> np.ndarray:
+    """Alpha-miner footprint: 0 = # (never), 1 = a→b, 2 = a←b, 3 = ∥."""
+    fwd = psi > 0
+    bwd = psi.T > 0
+    out = np.zeros(psi.shape, dtype=np.int8)
+    out[fwd & ~bwd] = 1
+    out[~fwd & bwd] = 2
+    out[fwd & bwd] = 3
+    return out
+
+
+def footprint_conformance(f1: np.ndarray, f2: np.ndarray) -> float:
+    """Fraction of matching footprint cells (1.0 = behaviourally identical
+    at the directly-follows abstraction)."""
+    if f1.shape != f2.shape:
+        raise ValueError("footprints must have equal shape")
+    if f1.size == 0:
+        return 1.0
+    return float((f1 == f2).mean())
 
 
 def to_dot(model: DiscoveredModel) -> str:

@@ -19,6 +19,8 @@ The two forms convert losslessly in both directions for sound repositories.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -289,6 +291,15 @@ class EventRepository:
         repo.log_names = [log_name]
         return repo
 
+    # -- paper operators on the columnar form --------------------------------
+    def events_of_activity(self, activity: str) -> np.ndarray:
+        """``•a`` for an attribute node — indices of events executing it."""
+        a = self.activity_names.index(activity)
+        return np.nonzero(self.event_activity == a)[0]
+
+    def trace_of(self, event_index: int) -> str:
+        return self.trace_names[int(self.event_trace[event_index])]
+
     # -- directly-follows pairs (the E×E relation, vectorized) ---------------
     def df_pairs(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Return ``(src_act, dst_act, pair_valid)`` aligned arrays.
@@ -303,6 +314,28 @@ class EventRepository:
             z = np.zeros((0,), dtype=np.int32)
             return z, z, np.zeros((0,), dtype=bool)
         return a[:-1], a[1:], t[:-1] == t[1:]
+
+    def padded_pairs(
+        self, multiple: int
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """df_pairs padded to a length multiple (for sharding / kernels).
+
+        Returns (src, dst, valid, src_time, dst_time), all length
+        ``ceil((E-1)/multiple) * multiple`` (min. one multiple).
+        """
+        src, dst, valid = self.df_pairs()
+        ts = self.event_time
+        st = ts[:-1] if ts.shape[0] >= 2 else np.zeros((0,), np.float64)
+        dt = ts[1:] if ts.shape[0] >= 2 else np.zeros((0,), np.float64)
+        n = src.shape[0]
+        padded = max(multiple, ((n + multiple - 1) // multiple) * multiple)
+        pad = padded - n
+        src = np.pad(src, (0, pad))
+        dst = np.pad(dst, (0, pad))
+        valid = np.pad(valid, (0, pad))
+        st = np.pad(st, (0, pad))
+        dt = np.pad(dt, (0, pad))
+        return src, dst, valid, st, dt
 
     # -- trace boundaries -----------------------------------------------------
     def trace_boundaries(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -339,6 +372,37 @@ class EventRepository:
                 rel.add((ev_names[i], ev_names[i + 1]))
         return GraphRepo(logs=logs, traces=traces, events=events, attributes=attrs, relations=rel)
 
+
+    # -- persistence (two-tier store: see core/streaming.py for memmap tier) --
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "event_activity.npy"), self.event_activity)
+        np.save(os.path.join(path, "event_trace.npy"), self.event_trace)
+        np.save(os.path.join(path, "event_time.npy"), self.event_time)
+        np.save(os.path.join(path, "trace_log.npy"), self.trace_log)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(
+                {
+                    "activity_names": self.activity_names,
+                    "trace_names": self.trace_names,
+                    "log_names": self.log_names,
+                },
+                f,
+            )
+
+    @staticmethod
+    def load(path: str) -> "EventRepository":
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return EventRepository(
+            event_activity=np.load(os.path.join(path, "event_activity.npy")),
+            event_trace=np.load(os.path.join(path, "event_trace.npy")),
+            event_time=np.load(os.path.join(path, "event_time.npy")),
+            trace_log=np.load(os.path.join(path, "trace_log.npy")),
+            activity_names=meta["activity_names"],
+            trace_names=meta["trace_names"],
+            log_names=meta["log_names"],
+        )
 
 def paper_example_repo() -> EventRepository:
     """The worked example of Fig. 3: l1 = {t1: a1,a2,a3 ; t2: a2,a3,a4}."""

@@ -31,7 +31,12 @@ import numpy as np
 
 from .repository import EventRepository
 
-__all__ = ["TraceVariants", "trace_variants", "variant_table"]
+__all__ = [
+    "TraceVariants",
+    "trace_variants",
+    "variant_table",
+    "variant_filtered_repository",
+]
 
 _P1 = np.uint64(1_000_000_007)
 _P2 = np.uint64(0x9E3779B97F4A7C15)
@@ -191,4 +196,31 @@ def trace_variants(repo: EventRepository) -> TraceVariants:
     return variant_table(
         repo.event_activity, repo.event_trace, repo.num_traces,
         repo.activity_names,
+    )
+
+
+def variant_filtered_repository(
+    repo: EventRepository, keep_top: int
+) -> EventRepository:
+    """Keep only traces of the top-k variants (the spaghetti-model remedy:
+    mine the mainstream behaviour, inspect the tail separately).
+
+    Kept traces are renumbered in their old order through one index array
+    (old trace id → new, -1 for a dropped trace), so the remap is O(E)
+    array work with no per-event Python."""
+    tv = trace_variants(repo)
+    keep_tr = np.nonzero(tv.trace_variant < keep_top)[0]
+    old_to_new = np.full(repo.num_traces, -1, dtype=np.int64)
+    old_to_new[keep_tr] = np.arange(keep_tr.shape[0])
+    new_trace = old_to_new[repo.event_trace]
+    idx = np.nonzero(new_trace >= 0)[0]
+    names = repo.trace_names
+    return EventRepository(
+        event_activity=repo.event_activity[idx].copy(),
+        event_trace=new_trace[idx].astype(np.int32),
+        event_time=repo.event_time[idx].copy(),
+        trace_log=repo.trace_log[keep_tr].copy(),
+        activity_names=list(repo.activity_names),
+        trace_names=[names[x] for x in keep_tr.tolist()],
+        log_names=list(repo.log_names),
     )

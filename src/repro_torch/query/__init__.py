@@ -11,6 +11,9 @@ One entry point::
     result.from_cache   # True when served from the plan/result cache
 
     Q.log(repo).using(engine).histogram()          # events per activity
+    Q.log(repo).using(engine).variants(10)         # the trace-variant table
+    Q.log(repo).using(engine).top_variants(10).dfg()             # mainstream Ψ
+    Q.log(repo).using(engine).activities(keep, relink=True).dfg()  # pm4py filter
     Q.log(repo).using(engine).process_map(top=0.2) # significance-filtered map
     Q.log(repo).using(engine).neighborhood("a", k=2, direction="both")
     Q.log(repo).using(engine).fitness(model)       # token-replay fitness
@@ -19,6 +22,11 @@ One entry point::
 ``fitness()`` / ``alignments()`` default to the source's own discovered
 model; the alignment DP runs on the engine's device (the ``align_dp`` CUDA
 kernel on a card).
+
+``top_variants(k)`` and ``activities(keep, relink=True)`` are
+materialization barriers: the engine makes the filtered repository on the
+host, in chain order, and the sink behind them runs on it (a DFG on the
+card, as any other).
 
 Topology sinks route to the event-knowledge graph store
 (:mod:`repro_torch.graph`) once a source has been queried often enough, or
@@ -48,6 +56,8 @@ from .ast import (
     Query,
     QueryPlanError,
     TOPOLOGY_SINKS,
+    TopVariants,
+    VariantsSink,
     Window,
 )
 from .cache import (
@@ -79,8 +89,9 @@ from .planner import (
 
 __all__ = [
     "Q", "Query", "QueryPlanError",
-    "Window", "EMPTY_WINDOW", "Activities", "ApplyView", "DFGSink",
-    "HistogramSink", "ProcessMapSink", "NeighborhoodSink", "TOPOLOGY_SINKS",
+    "Window", "EMPTY_WINDOW", "Activities", "TopVariants", "ApplyView",
+    "DFGSink", "HistogramSink", "VariantsSink", "ProcessMapSink",
+    "NeighborhoodSink", "TOPOLOGY_SINKS",
     "FitnessSink", "AlignmentsSink", "CONFORMANCE_SINKS",
     "LogicalPlan",
     "QueryCache", "fingerprint", "fingerprint_memmap",

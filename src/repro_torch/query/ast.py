@@ -17,19 +17,29 @@ Grammar (this slice of the port)::
     source := EventRepository | MemmapLog
     op     := Window(t0, t1)            -- WHERE t0 <= time < t1, paper
                                            semantics (both pair endpoints)
-            | Activities(keep)          -- keep only these activities (a
-                                           pair predicate, paper semantics)
+            | Activities(keep, relink)  -- keep only these activities;
+                                           relink=False: pair predicate
+                                           (paper semantics), relink=True:
+                                           pm4py re-linking (materializes)
+            | TopVariants(k)            -- keep traces of the top-k variants
+                                           (materializes)
             | ApplyView(mapping)        -- access-control projection (§2.2)
     sink   := DFGSink(backend)          -- Ψ (Algorithm 1)
             | HistogramSink(backend)    -- per-activity event counts
+            | VariantsSink(k)           -- the trace-variant table
             | ProcessMapSink(top, edge_top, backend)
             | NeighborhoodSink(activity, k, direction, backend)
             | FitnessSink(model, backend)     -- token-replay conformance
             | AlignmentsSink(model, backend)  -- optimal DFG alignments
 
+Materializing ops (:func:`is_barrier`: ``TopVariants`` and
+``Activities(relink=True)``) make an intermediate repository in order;
+the predicates after a barrier apply to it.
+
 Conformance sinks apply the chain's ops with **sequence semantics**: a
 filtered-out or hidden event is dropped and its neighbours re-link, a
 window keeps the events inside it, and each surviving trace is scored.
+The variants sink does the same with a window or activity filter.
 
 The reference package's other operators, sinks and sources raise
 :class:`QueryPlanError` naming the ROADMAP item that ports them.
@@ -51,9 +61,13 @@ __all__ = [
     "Window",
     "EMPTY_WINDOW",
     "Activities",
+    "TopVariants",
+    "BARRIER_OPS",
+    "is_barrier",
     "ApplyView",
     "DFGSink",
     "HistogramSink",
+    "VariantsSink",
     "ProcessMapSink",
     "NeighborhoodSink",
     "TOPOLOGY_SINKS",
@@ -116,13 +130,20 @@ EMPTY_WINDOW = Window(0.0, 0.0)
 
 @dataclasses.dataclass(frozen=True)
 class Activities:
-    """Activity filter: a pair counts iff both endpoints execute a kept
-    activity (pure predicate — commutes past counting)."""
+    """Activity filter.  ``relink=False``: a pair counts iff both endpoints
+    execute a kept activity (pure predicate — commutes past counting).
+    ``relink=True``: pm4py semantics — drop events, re-link survivors
+    (materializes a diced repository; a plan barrier)."""
 
     keep: Tuple[str, ...]
-    # always False here (relinking is ROADMAP item 4); the field keeps plan
-    # keys byte-identical to the reference package's
     relink: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TopVariants:
+    """Keep only traces of the ``k`` most frequent variants (materializes)."""
+
+    k: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +169,17 @@ class ApplyView:
         return ActivityView(mapping=dict(self.mapping), default=self.default)
 
 
-Op = Union[Window, Activities, ApplyView]
+Op = Union[Window, Activities, TopVariants, ApplyView]
+
+#: ops that force materializing an intermediate repository — predicates
+#: cannot be pushed across them
+BARRIER_OPS = (TopVariants,)
+
+
+def is_barrier(op: Op) -> bool:
+    return isinstance(op, BARRIER_OPS) or (
+        isinstance(op, Activities) and op.relink
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +203,13 @@ class HistogramSink:
     (windowed: from the graph's time index) instead of rescanning."""
 
     backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantsSink:
+    """Trace-variant table, optionally truncated to the top ``k``."""
+
+    k: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,8 +267,8 @@ class AlignmentsSink:
 
 
 Sink = Union[
-    DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink, FitnessSink,
-    AlignmentsSink,
+    DFGSink, HistogramSink, VariantsSink, ProcessMapSink, NeighborhoodSink,
+    FitnessSink, AlignmentsSink,
 ]
 
 #: sinks answered from the aggregated :DF topology — the graph backend's
@@ -277,6 +315,10 @@ class LogicalPlan:
         blob = json.dumps(self._payload(), sort_keys=True, default=repr)
         return hashlib.sha256(blob.encode()).hexdigest()[:32]
 
+    def has_barrier(self) -> bool:
+        """True when any op materializes an intermediate repository."""
+        return any(is_barrier(op) for op in self.ops)
+
 
 # ---------------------------------------------------------------------------
 # Fluent builder
@@ -285,8 +327,9 @@ class LogicalPlan:
 
 class Query:
     """Immutable fluent chain.  Non-terminal methods return a new Query;
-    terminal methods (:meth:`dfg`, :meth:`histogram`, :meth:`process_map`,
-    :meth:`neighborhood`, :meth:`fitness`, :meth:`alignments`) hand the plan to a
+    terminal methods (:meth:`dfg`, :meth:`histogram`, :meth:`variants`,
+    :meth:`process_map`, :meth:`neighborhood`, :meth:`fitness`,
+    :meth:`alignments`) hand the plan to a
     :class:`repro_torch.query.execute.QueryEngine`."""
 
     def __init__(self, source, ops: Tuple[Op, ...] = (), engine=None):
@@ -303,12 +346,10 @@ class Query:
         return self._with(Window(float(t0), float(t1)))
 
     def activities(self, keep: Sequence[str], relink: bool = False) -> "Query":
-        if relink:
-            raise not_ported("activities(relink=True)", 4)
-        return self._with(Activities(tuple(str(a) for a in keep)))
+        return self._with(Activities(tuple(str(a) for a in keep), relink))
 
     def top_variants(self, k: int) -> "Query":
-        raise not_ported("top_variants()", 4)
+        return self._with(TopVariants(int(k)))
 
     def view(self, view) -> "Query":
         return self._with(ApplyView.from_view(view))
@@ -332,7 +373,7 @@ class Query:
         return self._run(HistogramSink(backend=backend))
 
     def variants(self, k: Optional[int] = None):
-        raise not_ported("the variants sink", 4)
+        return self._run(VariantsSink(k=k))
 
     def process_map(
         self,

@@ -16,6 +16,10 @@ primitives:
 * the event-knowledge graph store (:mod:`repro_torch.graph`), built once
   per source on the engine's device and then answering topology and
   histogram sinks as CSR lookups,
+* materialization barriers (``top_variants`` / ``activities(relink=True)``)
+  applied in order on the host, after which the sink runs on the
+  repository they made — a DFG on the same device path as any other — and
+  the variant table (``variants()``) built on the host,
 * conformance (:mod:`repro_torch.conformance`): token replay on the host
   over the columns, a streaming scan or the graph's event tables, and
   alignments whose per-variant DP runs on the engine's device (the
@@ -47,10 +51,11 @@ from repro_torch.conformance.replay import (
 )
 from repro_torch.core.conformance import ModelSpec
 from repro_torch.core.dfg import dfg_numpy, dfg_onehot, dfg_scatter
-from repro_torch.core.dicing import pair_mask_for_window
+from repro_torch.core.dicing import dice_repository, pair_mask_for_window
 from repro_torch.core.discovery import DiscoveredModel, discover_dependency_graph
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog, StreamingDFGMiner, memmap_log_name
+from repro_torch.core.variants import trace_variants, variant_filtered_repository
 from repro_torch.core.views import HIDDEN
 from repro_torch.device import resolve_device
 from repro_torch.graph.build import EventGraph, csr_from_dense
@@ -74,7 +79,10 @@ from .ast import (
     Query,
     QueryPlanError,
     Sink,
+    TopVariants,
+    VariantsSink,
     Window,
+    is_barrier,
 )
 from .cache import QueryCache, fingerprint
 from .optimize import canonicalize, compose_views
@@ -195,6 +203,7 @@ _MODEL_MEMO_SIZE = 16
 
 @dataclasses.dataclass
 class _Collected:
+    repo: Optional[EventRepository]
     window: Optional[Window] = None
     keep: Optional[Tuple[str, ...]] = None
     view: Optional[ApplyView] = None
@@ -206,14 +215,43 @@ def _validate_keep(keep, names) -> None:
         raise QueryPlanError(f"unknown activities in filter: {sorted(unknown)}")
 
 
-def _collect(logical: LogicalPlan) -> _Collected:
-    """Fold the plan's pure predicates (WHERE clauses evaluated at the
-    sink)."""
-    st = _Collected()
+def _collect(repo: Optional[EventRepository], logical: LogicalPlan) -> _Collected:
+    """Apply materializing ops in order; fold pure predicates.
+
+    Pure predicates (Window / paper-semantics Activities) are WHERE clauses
+    evaluated at the sink; materializing ops (TopVariants, relink dicing)
+    transform the store they are chained on — ``repo`` (``None`` for the
+    paths the planner keeps barrier-free: streaming and the graph store).
+
+    The folding here is not redundant with :func:`canonicalize`: the
+    optimizer fuses predicates only *within* a barrier-free segment, while
+    at execution time predicates from every segment land on the same sink
+    and are intersected — ``window(a,b) → top_variants(k) → window(c,d)``
+    reaches here as two Window ops.
+    """
+    st = _Collected(repo=repo)
     for op in logical.ops:
-        if isinstance(op, Window):
+        if is_barrier(op) and st.view is not None:
+            # naive left-to-right semantics would materialize the
+            # *projected* store; repositories are not relabeled, so ranking
+            # or filtering raw activities instead would change the answer
+            raise QueryPlanError(
+                "view() before a materializing op (top_variants / "
+                "relink) is not supported: apply the view last"
+            )
+        if isinstance(op, TopVariants):
+            st.repo = variant_filtered_repository(st.repo, op.k)
+        elif isinstance(op, Activities) and op.relink:
+            _validate_keep(op.keep, st.repo.activity_names)
+            st.repo = dice_repository(st.repo, activities=list(op.keep))
+        elif isinstance(op, Window):
             st.window = op if st.window is None else st.window.intersect(op)
         elif isinstance(op, Activities):
+            if st.view is not None:
+                raise QueryPlanError(
+                    "activities() after view() is not supported: filters "
+                    "name raw activities; apply them before the view"
+                )
             st.keep = (
                 op.keep if st.keep is None
                 else tuple(sorted(set(st.keep) & set(op.keep)))
@@ -557,6 +595,8 @@ class QueryEngine:
         Counts only topology/conformance cache *misses* — every hit is
         already O(1), so repeats that matter are the ones that would
         rescan."""
+        if logical.has_barrier():
+            return False
         if isinstance(logical.sink, CONFORMANCE_SINKS):
             if not self._conformance_graph_ok(source):
                 return False
@@ -602,40 +642,54 @@ class QueryEngine:
         self, source, logical: LogicalPlan, physical: PhysicalPlan,
         source_fp: Optional[str] = None,
     ):
-        st = _collect(logical)
-        conformance = isinstance(logical.sink, CONFORMANCE_SINKS)
-        if st.window is not None and st.window.empty and not conformance:
-            # an empty window can select no pair or event: zeros of the
-            # right shape, without materializing or scanning anything.
-            # Conformance sinks score an empty selection on their backend.
-            return self._empty_result(source, logical, st)
-        if physical.backend == "graph":
-            return self._execute_graph(source, logical, st, source_fp)
-        if physical.backend == "streaming":
-            return self._execute_streaming(
-                source, logical, physical, st, source_fp
-            )
+        if not logical.has_barrier():
+            # the planner sends barrier plans to neither the graph store
+            # nor a streaming scan
+            st = _collect(None, logical)
+            if (
+                st.window is not None and st.window.empty
+                and isinstance(logical.sink, (HistogramSink,) + TOPOLOGY_SINKS)
+            ):
+                # an empty window can select no pair or event: zeros of
+                # the right shape, without materializing or scanning
+                # anything.  Conformance and variants score an empty
+                # selection on their backend.
+                return self._empty_result(source, logical, st)
+            if physical.backend == "graph":
+                return self._execute_graph(source, logical, st, source_fp)
+            if physical.backend == "streaming":
+                return self._execute_streaming(
+                    source, logical, physical, st, source_fp
+                )
         if logical.source == "memmap":
             t0 = time.perf_counter()
             repo = self._materialize(source, source_fp)
             self._note_seconds("materialize", time.perf_counter() - t0)
         else:
             repo = source
+        t0 = time.perf_counter()
+        st = _collect(repo, logical)
+        if logical.has_barrier():
+            self._note_seconds("barrier", time.perf_counter() - t0)
         # full-scan backends read every event of the materialized repo
         self._note_rows(repo.num_events)
         if st.keep is not None:
-            _validate_keep(st.keep, repo.activity_names)
-        if isinstance(logical.sink, DFGSink):
-            return self._dfg_on_repo(repo, st, physical)
-        if isinstance(logical.sink, HistogramSink):
-            return self._histogram_on_repo(repo, st)
-        if conformance:
+            _validate_keep(st.keep, st.repo.activity_names)
+        sink = logical.sink
+        if isinstance(sink, DFGSink):
+            return self._dfg_on_repo(st, physical)
+        if isinstance(sink, HistogramSink):
+            return self._histogram_on_repo(st)
+        if isinstance(sink, VariantsSink):
+            return self._variants_on_repo(st, sink)
+        if isinstance(sink, CONFORMANCE_SINKS):
+            repo = st.repo
             return self._conformance_from_columns(
                 logical, st, source_fp,
                 repo.event_activity, repo.event_trace, repo.event_time,
                 repo.num_traces, list(repo.activity_names),
             )
-        return self._topology_on_repo(repo, st, logical.sink, physical)
+        return self._topology_on_repo(st, sink, physical)
 
     def _empty_result(self, source, logical: LogicalPlan, st: _Collected):
         names = (
@@ -671,9 +725,8 @@ class QueryEngine:
                     self._repo_memo.popitem(last=False)
         return repo
 
-    def _dfg_on_repo(
-        self, repo: EventRepository, st: _Collected, physical: PhysicalPlan
-    ):
+    def _dfg_on_repo(self, st: _Collected, physical: PhysicalPlan):
+        repo = st.repo
         names = list(repo.activity_names)
         # pairs are (act[i], act[i+1]): the count takes the one activity
         # column and reads src and dst as shifted views of it
@@ -757,7 +810,8 @@ class QueryEngine:
         self._note_seconds("d2h", time.perf_counter() - t2)
         return psi
 
-    def _histogram_on_repo(self, repo: EventRepository, st: _Collected):
+    def _histogram_on_repo(self, st: _Collected):
+        repo = st.repo
         counts = np.bincount(
             _activities_in(repo, st.window), minlength=repo.num_activities
         )
@@ -765,13 +819,42 @@ class QueryEngine:
             counts.astype(np.int64), list(repo.activity_names), st
         )
 
+    def _variants_on_repo(self, st: _Collected, sink: VariantsSink):
+        """The variant table of the (barrier-made) repository.  For a
+        variant table pure predicates must change the *sequences*, so a
+        window or activity filter runs with re-linking semantics here.
+        ``k`` truncates the variants (counts and sequences), never
+        ``trace_variant``."""
+        if st.view is not None:
+            raise QueryPlanError("view() is not supported for variants()")
+        repo = st.repo
+        if st.window is not None or st.keep is not None:
+            repo = dice_repository(
+                repo,
+                time_window=(
+                    (st.window.t0, st.window.t1) if st.window else None
+                ),
+                activities=list(st.keep) if st.keep else None,
+            )
+        tv = trace_variants(repo)
+        if sink.k is not None:
+            n = len(range(tv.num_variants)[: sink.k])
+            off = tv.variant_offsets[: n + 1]
+            tv = dataclasses.replace(
+                tv,
+                counts=tv.counts[:n],
+                variant_offsets=off,
+                variant_activity=tv.variant_activity[: off[-1]],
+            )
+        return tv, None
+
     def _topology_on_repo(
-        self, repo: EventRepository, st: _Collected, sink: Sink,
-        physical: PhysicalPlan,
+        self, st: _Collected, sink: Sink, physical: PhysicalPlan
     ):
         """Columnar path for process map / neighborhood: count Ψ on the
         planned backend (window as pair predicate or fused into the
         kernel), raw node counts alongside, then the shared derivation."""
+        repo = st.repo
         _, _, valid = repo.df_pairs()
         if st.window is not None and not physical.fused_dicing:
             valid = valid & pair_mask_for_window(
@@ -964,13 +1047,17 @@ class QueryEngine:
         return dest, out_names
 
     @staticmethod
-    def _model_key(st: _Collected) -> Tuple:
-        """What the default model depends on besides the data: the *folded*
-        keep/view transform (a view-protected model must not alias the raw
-        one).  Windows are left out on purpose: see :meth:`_resolve_model`.
-        The leading empty tuple holds the reference's barrier ops, which
-        this slice does not carry."""
-        return ((), st.keep, st.view)
+    def _model_key(ops: Tuple, st: _Collected) -> Tuple:
+        """What the default model depends on besides the data: any barrier
+        ops (they change the source the model is discovered from) plus the
+        *folded* keep/view transform (a view-protected model must not alias
+        the raw one).  Windows are left out on purpose: see
+        :meth:`_resolve_model`."""
+        return (
+            tuple(op for op in ops if is_barrier(op)),
+            st.keep,
+            st.view,
+        )
 
     def _resolve_model(
         self, sink, key_tail: Tuple, fp: Optional[str], build
@@ -1061,7 +1148,7 @@ class QueryEngine:
             tacts = dest[acts]
             keep_mask &= tacts >= 0
         model = self._resolve_model(
-            logical.sink, self._model_key(st), source_fp,
+            logical.sink, self._model_key(logical.ops, st), source_fp,
             lambda: self._model_from_arrays(
                 tacts[keep_mask], traces[keep_mask], out_names
             ),
@@ -1117,7 +1204,7 @@ class QueryEngine:
         the variant table and are budget-gated by the planner)."""
         dest, out_names = self._transform_tables(st, names)
         model = self._resolve_model(
-            logical.sink, self._model_key(st), source_fp,
+            logical.sink, self._model_key(logical.ops, st), source_fp,
             lambda: self._streaming_default_model(log, dest, out_names),
         )
         if st.window is not None and st.window.empty:

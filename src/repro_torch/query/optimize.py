@@ -3,7 +3,9 @@
 All rewrites are **count-preserving**: every optimized plan produces counts
 bit-identical to naive left-to-right evaluation of the original chain.
 
-Rules (this slice has no materializing ops, so the chain is one segment):
+Rules, applied per segment between materialization barriers
+(:func:`repro_torch.query.ast.is_barrier` ops fix an intermediate
+repository, so predicates must not cross them):
 
 * **window fusion** — ``Window(a,b) ∧ Window(c,d) → Window(max(a,c),
   min(b,d))`` (pair-endpoint masks AND together, so the intersection is
@@ -11,11 +13,11 @@ Rules (this slice has no materializing ops, so the chain is one segment):
   the one canonical :data:`~repro_torch.query.ast.EMPTY_WINDOW`, so
   equivalent empty queries share a cache key and backends short-circuit to
   zeros;
-* **activity-predicate intersection** — consecutive ``Activities`` filters
-  intersect their keep-sets;
+* **activity-predicate intersection** — consecutive paper-semantics
+  ``Activities`` filters intersect their keep-sets;
 * **view composition** — ``ApplyView ∘ ApplyView`` collapses to one
   projection (group partitions compose; HIDDEN absorbs);
-* **canonical ordering** — the chain is normalized to
+* **canonical ordering** — each segment is normalized to
   ``[Window?, Activities?, ApplyView?]``.  Pure predicates commute with each
   other and with the projection, so reordering is free — and it makes the
   plan key insensitive to the order the analyst happened to chain calls in
@@ -41,8 +43,10 @@ from .ast import (
     Activities,
     ApplyView,
     LogicalPlan,
+    Op,
     QueryPlanError,
     Window,
+    is_barrier,
 )
 
 __all__ = ["canonicalize", "compose_views"]
@@ -69,15 +73,13 @@ def compose_views(first: ApplyView, second: ApplyView) -> ApplyView:
     )
 
 
-def canonicalize(
-    plan: LogicalPlan, activity_names: Optional[Sequence[str]] = None
-) -> Tuple[LogicalPlan, List[str]]:
-    """Return (canonical plan, list of applied rewrites)."""
-    notes: List[str] = []
+def _canonical_segment(
+    seg: List[Op], activity_names: Optional[Sequence[str]], notes: List[str]
+) -> List[Op]:
     window: Optional[Window] = None
     acts: Optional[Tuple[str, ...]] = None
     view: Optional[ApplyView] = None
-    for op in plan.ops:
+    for op in seg:
         if isinstance(op, Window):
             if window is None:
                 window = op
@@ -108,23 +110,43 @@ def canonicalize(
         else:
             raise QueryPlanError(f"unknown op {op!r}")
 
-    ops: List = []
+    out: List[Op] = []
     if window is not None:
         if window.t0 == -math.inf and window.t1 == math.inf:
             notes.append("drop_infinite_window")
         else:
             if window.empty and window != EMPTY_WINDOW:
                 notes.append("normalize_empty_window")
-            ops.append(window.normalized())
+            out.append(window.normalized())
     if acts is not None:
         # drop only an exact keep-everything filter; a superset contains
         # unknown names and must reach the executor's validation
         if activity_names is not None and set(acts) == set(activity_names):
             notes.append("drop_keep_all_filter")
         else:
-            ops.append(Activities(acts))
+            out.append(Activities(acts, relink=False))
     if view is not None:
-        ops.append(view)
+        out.append(view)
+    return out
+
+
+def canonicalize(
+    plan: LogicalPlan, activity_names: Optional[Sequence[str]] = None
+) -> Tuple[LogicalPlan, List[str]]:
+    """Return (canonical plan, list of applied rewrites)."""
+    notes: List[str] = []
+    ops: List[Op] = []
+    seg: List[Op] = []
+    for op in plan.ops:
+        if is_barrier(op):
+            ops.extend(_canonical_segment(seg, activity_names, notes))
+            seg = []
+            ops.append(op)
+            # after a barrier the vocabulary is unchanged (filters keep the
+            # full activity_names list), so the schema stays valid
+        else:
+            seg.append(op)
+    ops.extend(_canonical_segment(seg, activity_names, notes))
     out = LogicalPlan(plan.source, tuple(ops), plan.sink)
     if out.ops != plan.ops:
         notes.append("canonical_order")

@@ -22,7 +22,14 @@ engine on a CUDA card     ``kernel`` — the hand-written CUDA count; a time
 
 Histograms count on the host: ``numpy`` over a repository, a chunked
 ``streaming`` bincount over a memmap log, or the graph store's ``:OF_TYPE``
-degrees when pinned to ``graph``.
+degrees when pinned to ``graph``.  The variants sink builds its table on
+the host (``numpy``; a memmap log is materialized first).
+
+Materializing ops (``top_variants`` / ``activities(relink=True)``, the
+plan's barriers) need a repository: they never stream or read the graph
+store, and an out-of-core memmap log refuses them.  Behind a barrier a DFG
+counts on the same device path as any other, on the repository the
+barrier made.
 
 Conformance sinks (fitness / alignments) plan apart
 (:func:`_plan_conformance`): ``numpy`` replays or aligns the columns (a
@@ -71,7 +78,9 @@ from .ast import (
     NeighborhoodSink,
     ProcessMapSink,
     QueryPlanError,
+    VariantsSink,
     Window,
+    is_barrier,
     not_ported,
 )
 
@@ -148,7 +157,8 @@ _DFG_BACKENDS = {
 #: reference backends that later slices port (ROADMAP Queue A item)
 _LATER_BACKENDS = {"distributed": 6, "sharded-graph": 8}
 #: sinks the planner maps (the reference's other sinks are later items)
-_SINKS = (DFGSink, HistogramSink, ProcessMapSink, NeighborhoodSink)
+_SINKS = (DFGSink, HistogramSink, VariantsSink, ProcessMapSink,
+          NeighborhoodSink)
 #: conformance sinks replay/align sequences — device counting backends do
 #: not apply; "numpy" is the columnar replay, "streaming" the one-pass
 #: replayer, "graph" the stored-event-table walk
@@ -210,11 +220,27 @@ class PhysicalPlan:
         return ", ".join(parts)
 
 
-def _plan_features(plan: LogicalPlan):
-    window = next((o for o in plan.ops if isinstance(o, Window)), None)
-    acts = next((o for o in plan.ops if isinstance(o, Activities)), None)
-    view = next((o for o in plan.ops if isinstance(o, ApplyView)), None)
-    return window, acts, view
+def _segment_features(plan: LogicalPlan):
+    """Ops of the final (post-barrier) segment + whether barriers exist."""
+    has_barrier = any(is_barrier(op) for op in plan.ops)
+    tail = []
+    for op in plan.ops:
+        if is_barrier(op):
+            tail = []
+        else:
+            tail.append(op)
+    window = next((o for o in tail if isinstance(o, Window)), None)
+    acts = next(
+        (o for o in tail if isinstance(o, Activities) and not o.relink), None
+    )
+    view = next((o for o in tail if isinstance(o, ApplyView)), None)
+    return has_barrier, window, acts, view
+
+
+_BARRIER_ON_GRAPH = (
+    "graph backend cannot evaluate materializing ops (top_variants / "
+    "relink); drop them or use another backend"
+)
 
 
 def _device_backend(
@@ -250,7 +276,7 @@ def _plan_conformance(
             f"backend {requested!r} is not a conformance backend; pick one "
             f"of {sorted(_CONFORMANCE_BACKENDS)}"
         )
-    window, _acts, _view = _plan_features(plan)
+    has_barrier, window, _acts, _view = _segment_features(plan)
     notes = []
     if window is not None and window.empty:
         notes.append("empty_window=zeros")
@@ -259,7 +285,11 @@ def _plan_conformance(
         info.kind == "memmap" and info.num_events > memory_budget_events
     )
 
-    if requested == "graph" or (requested == "auto" and graph_available):
+    if requested == "graph" or (
+        requested == "auto" and graph_available and not has_barrier
+    ):
+        if has_barrier:
+            raise QueryPlanError(_BARRIER_ON_GRAPH)
         if out_of_core:
             raise QueryPlanError(
                 "graph conformance replays the stored event tables; this "
@@ -272,12 +302,13 @@ def _plan_conformance(
         )
 
     if info.kind == "memmap":
-        if requested == "streaming" and is_align:
+        if requested == "streaming" and (has_barrier or is_align):
             raise QueryPlanError(
-                "streaming replay cannot evaluate alignments; they need a "
-                "materialized repository"
+                "streaming replay cannot evaluate "
+                + ("materializing ops" if has_barrier else "alignments")
+                + "; they need a materialized repository"
             )
-        if is_align:
+        if has_barrier or is_align:
             if out_of_core:
                 raise QueryPlanError(
                     "alignments / materializing ops on an out-of-core log "
@@ -343,13 +374,13 @@ def plan_physical(
         )
     if not isinstance(plan.sink, _SINKS):
         raise QueryPlanError(f"unknown sink {plan.sink!r}")
-    requested = plan.sink.backend
+    requested = getattr(plan.sink, "backend", "auto")
     if requested in _LATER_BACKENDS:
         raise not_ported(f"backend {requested!r}", _LATER_BACKENDS[requested])
     if requested not in _DFG_BACKENDS:
         hint = " (the port calls it 'kernel')" if requested == "pallas" else ""
         raise QueryPlanError(f"unknown DFG backend {requested!r}{hint}")
-    window, acts, view = _plan_features(plan)
+    has_barrier, window, acts, view = _segment_features(plan)
     windowed = window is not None and not window.empty
     out_of_core = (
         info.kind == "memmap" and info.num_events > memory_budget_events
@@ -359,12 +390,20 @@ def plan_physical(
         # the engine short-circuits to zeros before touching the backend
         notes.append("empty_window=zeros")
 
-    if isinstance(plan.sink, HistogramSink):
+    if isinstance(plan.sink, (HistogramSink, VariantsSink)):
+        # the variant table and any barrier need a repository
+        needs_repo = isinstance(plan.sink, VariantsSink) or has_barrier
         # graph histograms: the stored :OF_TYPE in-degrees answer the
         # un-windowed counts as a lookup; a window reads the graph's time
         # index (event tables required, so out-of-core logs whose graphs
         # are topology-only can't serve windowed counts)
-        if requested == "graph":
+        if requested == "graph" and needs_repo and info.kind == "memmap":
+            raise QueryPlanError(
+                "graph histograms cannot evaluate materializing ops or "
+                "windows over out-of-core logs (topology-only graph) — use "
+                "streaming/auto"
+            )
+        if requested == "graph" and not needs_repo:
             if windowed and out_of_core:
                 raise QueryPlanError(
                     "graph histograms cannot evaluate windows over "
@@ -376,20 +415,32 @@ def plan_physical(
                 activities_as_output_mask=acts is not None,
                 notes=("graph=of_type_counts",) + tuple(notes),
             )
-        if info.kind == "memmap":  # chunked bincount, window → row range
-            return PhysicalPlan(
-                backend="streaming",
-                row_range_window=(window.t0, window.t1) if window else None,
-            )
+        if info.kind == "memmap":
+            if not needs_repo:  # chunked bincount, window → row range
+                return PhysicalPlan(
+                    backend="streaming",
+                    row_range_window=(window.t0, window.t1) if window else None,
+                )
+            if out_of_core:
+                raise QueryPlanError(
+                    "variants / materializing ops on an out-of-core log "
+                    "exceed the memory budget; raise memory_budget_events "
+                    "or pre-dice the log"
+                )
+            return PhysicalPlan(backend="numpy", materialize=True)
         return PhysicalPlan(backend="numpy")
 
     # -- topology sinks (DFG / process map / neighborhood) -------------------
     # graph backend: the aggregated :DF CSR answers un-windowed topology
     # queries as lookups.  A window needs the event-level tables
-    # (out-of-core graphs are topology-only).
+    # (out-of-core graphs are topology-only), and barriers change the
+    # source itself.
     if requested == "graph" or (
         requested == "auto" and graph_available and not windowed
+        and not has_barrier
     ):
+        if has_barrier:
+            raise QueryPlanError(_BARRIER_ON_GRAPH)
         if windowed and out_of_core:
             raise QueryPlanError(
                 "windowed graph queries need event tables; this out-of-core "
@@ -405,6 +456,17 @@ def plan_physical(
         )
 
     if info.kind == "memmap":
+        if has_barrier:
+            if requested == "streaming":
+                raise QueryPlanError(
+                    "streaming cannot evaluate materializing ops "
+                    "(top_variants / relink)"
+                )
+            if out_of_core:
+                raise QueryPlanError(
+                    "materializing ops (top_variants / relink) on an "
+                    "out-of-core log exceed the memory budget"
+                )
         if out_of_core and requested not in ("auto", "streaming"):
             raise QueryPlanError(
                 f"backend {requested!r} would materialize an out-of-core "

@@ -206,8 +206,6 @@ def test_unported_features_name_their_roadmap_item(repos):
         port_query.QueryEngine(device="cpu")
     )
     calls = [
-        lambda: q.variants(), lambda: q.top_variants(3),
-        lambda: q.activities(["act_000"], relink=True),
         lambda: port_query.Q.logs(port_repo, port_repo),
         lambda: q.dfg(backend="distributed"),
         lambda: q.dfg(backend="sharded-graph"),
