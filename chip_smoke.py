@@ -1512,6 +1512,450 @@ def phase_variants(torch, mlog, repo, results, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3e — unions, cross-log compare and delta resume at PAPER_EVAL width
+# ---------------------------------------------------------------------------
+
+#: phase 3e's launches, predicted from the code before its first run on the
+#: card (PERF.md §6, PR 18): one B1 and one B2 per union branch (queries 1
+#: and 2); the repeat-query crossover (GRAPH_REPEAT_CROSSOVER = 3: the DFG,
+#: the 30-day DFG, then compare's fitness replay on each branch) builds each
+#: branch's graph inside query 4, one B1 + one B3 each; one B4 per branch
+#: (query 5, on the graph's event tables); one B1 on the 14.4 M-event
+#: concatenation (query 6); one B1 per FromLogs branch (query 7, new
+#: fingerprints); the delta queries scan on the host
+PREDICTED_3E = {"dfg_count": 7, "dfg_count_diced": 2, "segment_count": 2,
+                "align_dp": 2}
+PREDICTED_3E_QUERIES = {
+    "1 union.dfg": {"dfg_count": 2},
+    "2 union.window(30d).dfg": {"dfg_count_diced": 2},
+    "3 union.activities.view.dfg": {},
+    "4 union.compare": {"dfg_count": 2, "segment_count": 2},
+    "5 union.alignments(model)": {"align_dp": 2},
+    "6 union.top_variants(k).dfg": {"dfg_count": 1},
+    "7 fromlogs.compare": {"dfg_count": 2},
+}
+#: the split of a query's time that its traces record (branch traces
+#: included), in print order
+SPLIT_NOTES = ("materialize", "h2d", "kernel", "d2h", "merge", "concat",
+               "barrier")
+
+
+def _trace_split(tr) -> dict:
+    """A union's phase seconds: its own trace notes plus its branches'."""
+    out = {k: tr.notes.get(f"{k}_s", 0.0) for k in SPLIT_NOTES}
+    for _, sub in tr.branches:
+        for k, v in _trace_split(sub).items():
+            out[k] += v
+    return out
+
+
+def _embed(np, psi, ids, u):
+    out = np.zeros((u, u), dtype=np.int64)
+    out[np.ix_(ids, ids)] = psi
+    return out
+
+
+def phase_union(torch, mlog, repo, results, model, card, tmp):
+    """Unions, compare and the delta path through default engines, at
+    PAPER_EVAL width over two deployments — ``prod`` (phase 3's memmap) and
+    ``canary`` (a second log from seed 1, materialized, 1 activity in 10
+    renamed so the union vocabulary is not the identity) — each answer
+    against host oracles written here (tolerance 0).  Returns
+    {kernel: launches}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import PAPER_EVAL
+    from repro_torch.conformance import alignment_cost_tables
+    from repro_torch.conformance.align import (
+        finish_variant_costs,
+        variant_matrix,
+    )
+    from repro_torch.core import (
+        ActivityView,
+        MemmapLog,
+        concat_repositories,
+        dfg_numpy,
+        discover_dependency_graph,
+        pair_mask_for_window,
+        replay_fitness,
+        variant_table,
+    )
+    from repro_torch.data import ProcessSpec, generate_memmap_log
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.query import (
+        Q,
+        QueryEngine,
+        fingerprint,
+        repository_from_memmap,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = PAPER_EVAL
+    a = mlog.num_activities
+    t_min = float(mlog.time[0])
+    w30 = (t_min, t_min + 30 * DAY)
+    kernel_ops = (ops, seg_ops, dp_ops)
+
+    def counts_now():
+        out = {}
+        for m in kernel_ops:
+            out.update(m.launch_counts)
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- the canary deployment ----------------------------------------------
+    t0 = time.perf_counter()
+    spec = ProcessSpec(num_activities=a, mean_trace_len=cfg.mean_trace_len,
+                       horizon_days=cfg.horizon_days, seed=1)
+    clog = generate_memmap_log(os.path.join(tmp, "canary"),
+                               mlog.num_events, spec, seed=1)
+    canary = repository_from_memmap(clog, "canary")
+    renamed = {i: f"new_{i // 10:03d}" for i in range(0, a, 10)}
+    canary = dataclasses.replace(canary, activity_names=[
+        renamed.get(i, n) for i, n in enumerate(canary.activity_names)
+    ])
+    names_p, names_c = list(repo.activity_names), list(canary.activity_names)
+    union_names = sorted(set(names_p) | set(names_c))
+    u = len(union_names)
+    uidx = {n: i for i, n in enumerate(union_names)}
+    ids_p = np.asarray([uidx[n] for n in names_p])
+    ids_c = np.asarray([uidx[n] for n in names_c])
+    check(u == a + len(renamed) and not np.array_equal(
+        ids_c, np.arange(a)), f"union vocabulary of {u} names")
+    log(f"canary: {canary.num_events} events, {canary.num_traces} traces "
+        f"(seed 1), {len(renamed)} activities renamed new_000..; union "
+        f"vocabulary {u} names; made in {time.perf_counter() - t0:.2f} s "
+        "(host)")
+
+    # -- host oracles: per-branch Ψ embedded on the union axis ---------------
+    def branch_psi(r, w=None):
+        s_, d_, v_ = r.df_pairs()
+        if w is not None:
+            v_ = v_ & pair_mask_for_window(r, w)
+        return dfg_numpy(s_, d_, v_, r.num_activities)
+
+    t0 = time.perf_counter()
+    psi_p = results[0][2].value  # == the host oracle (phase 3)
+    psi_c = branch_psi(canary)
+    want_all = (_embed(np, psi_p, ids_p, u), _embed(np, psi_c, ids_c, u))
+    want_30 = (_embed(np, branch_psi(repo, w30), ids_p, u),
+               _embed(np, branch_psi(canary, w30), ids_c, u))
+    keep = union_names[::2]
+    keep_ids = np.asarray([uidx[n] for n in keep])
+    mapping = {n: f"g{i % 7}" for i, n in enumerate(union_names) if i % 11}
+    view = ActivityView(mapping)
+    masked = want_all[0] + want_all[1]
+    off = np.ones(u, dtype=bool)
+    off[keep_ids] = False
+    masked[off, :] = 0
+    masked[:, off] = 0
+    want_view = view.apply_to_dfg(masked, union_names)
+    # the concatenation (the union's canonical repository) and its variants
+    ucat = concat_repositories([("prod", repo), ("canary", canary)],
+                               activity_vocab=union_names)
+    check(ucat.log_names == ["canary", "prod"], "concatenation log names")
+    seqs, vcounts = _oracle_variants(np, ucat)
+    desc = np.sort(np.asarray(list(vcounts.values()), dtype=np.int64))[::-1]
+    cum = np.cumsum(desc)
+    least50 = int(np.searchsorted(cum, 0.5 * cum[-1])) + 1
+    k50 = _end_of_tie_run(np, desc, least50)
+    kept = np.asarray([vcounts[q] >= desc[k50 - 1] for q in seqs])[
+        ucat.event_trace]
+    s_u, d_u, v_u = ucat.df_pairs()
+    want_top = dfg_numpy(s_u, d_u, v_u & kept[:-1] & kept[1:], u)
+    log(f"union oracles: Ψ on the {u}-name axis, the {ucat.num_events}-event "
+        f"concatenation, {len(vcounts)} exact variants, k50 = {least50} → "
+        f"{k50} (end of its tie run, count {int(desc[k50 - 1])}), in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+
+    # -- queries 1-7 on one fresh default engine ------------------------------
+    engine = QueryEngine()
+    qu = Q.logs((mlog, "prod"), (canary, "canary")).using(engine)
+    queries = {
+        "1 union.dfg": lambda: qu.dfg(),
+        "2 union.window(30d).dfg": lambda: qu.window(*w30).dfg(),
+        "3 union.activities.view.dfg":
+            lambda: qu.activities(keep).view(view).dfg(),
+        "4 union.compare": lambda: qu.compare(),
+        "5 union.alignments(model)": lambda: qu.alignments(model),
+        f"6 union.top_variants(k).dfg":
+            lambda: qu.top_variants(k50).dfg(),
+        "7 fromlogs.compare": lambda: Q.logs(
+            ucat, names=["prod", "canary"]).using(engine).compare(),
+    }
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    res, walls, launched, last = {}, {}, {}, {}
+    for name, fn in queries.items():
+        before = counts_now()
+        res[name], walls[name] = timed(fn)
+        after = counts_now()
+        launched[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        last[name] = dict(ops.last_launch)
+    counts_3e = counts_now()
+    log(f"union launches: {counts_3e} (predicted {PREDICTED_3E})")
+    for name, r in res.items():
+        log(f"  {name}: wall {walls[name]:.4f} s, launches {launched[name]}, "
+            f"{r.physical.describe()}")
+        check(not r.from_cache, f"{name} came from the cache")
+    check(launched == PREDICTED_3E_QUERIES,
+          f"phase 3e per-query launches {launched} differ from the "
+          f"prediction {PREDICTED_3E_QUERIES}")
+    check(counts_3e == PREDICTED_3E,
+          f"phase 3e launches {counts_3e} differ from the prediction "
+          f"{PREDICTED_3E}")
+
+    # 1-3. union Ψ, its 30-day dice, and the merge-side masks
+    r1 = res["1 union.dfg"]
+    check(r1.physical.backend == "union" and r1.physical.notes == (
+        "branch[prod]=kernel", "branch[canary]=kernel"),
+        f"union.dfg: {r1.physical.describe()}")
+    for name, want in (("1 union.dfg", want_all[0] + want_all[1]),
+                       ("2 union.window(30d).dfg", want_30[0] + want_30[1]),
+                       ("3 union.activities.view.dfg", want_view)):
+        r = res[name]
+        check(r.value.dtype == np.int64 and np.array_equal(r.value, want),
+              f"{name}: Ψ differs from the host oracle in "
+              f"{int((r.value != want).sum()) if r.value.shape == want.shape else -1} cells")
+        log(f"  {name}: Ψ total {int(want.sum())} == host oracle "
+            f"({len(r.names)} names)")
+    check(res["1 union.dfg"].names == union_names
+          and res["3 union.activities.view.dfg"].names
+          == view.visible_names(union_names), "union names")
+    for _, sub in res["3 union.activities.view.dfg"].trace.branches:
+        check(sub.from_cache, "a merge-side mask re-ran a branch")
+
+    # 4. compare: per-branch Ψ on the union axis, diffs, replay drift
+    cr = res["4 union.compare"].value
+    s_p, d_p, v_p = repo.df_pairs()
+    m_prod = discover_dependency_graph(
+        dfg_numpy(s_p, d_p, v_p, a), names_p, *repo.trace_boundaries())
+    fit_p = replay_fitness(repo, m_prod)
+    fit_c = replay_fitness(canary, m_prod)
+    check(cr.log_names == ("prod", "canary") and cr.names == union_names
+          and np.array_equal(cr.psis[0], want_all[0])
+          and np.array_equal(cr.psis[1], want_all[1])
+          and np.array_equal(cr.diff, want_all[1] - want_all[0])
+          and not cr.diffs[0].any(), "compare: Ψ or diffs differ")
+    check(cr.fitness == (fit_p.fitness, fit_c.fitness),
+          f"compare: fitness {cr.fitness} != host replay "
+          f"{(fit_p.fitness, fit_c.fitness)}")
+    log(f"  4 union.compare: per-branch Ψ and diff == host oracles; fitness "
+        f"against prod's model: prod {cr.fitness[0]:.6f}, canary "
+        f"{cr.fitness[1]:.6f} == host replay")
+
+    # 5. alignments(model): one align_dp per branch, concatenated
+    ali = res["5 union.alignments(model)"].value
+    rng = np.random.default_rng(0)
+    v_off, t_off, census = 0, 0, {}
+    for bname, r in (("prod", repo), ("canary", canary)):
+        bnames = list(r.activity_names)
+        tv = variant_table(r.event_activity, r.event_trace, r.num_traces,
+                           bnames)
+        vc = ali.variant_costs[v_off:v_off + tv.num_variants]
+        check(np.array_equal(ali.trace_cost[t_off:t_off + r.num_traces],
+                             vc[tv.trace_variant]),
+              f"alignments: {bname}'s trace costs are not its variants'")
+        mm, d0, end = alignment_cost_tables(model, bnames)
+        sv, lens = variant_matrix(tv, bnames)
+        pick = np.sort(rng.choice(tv.num_variants,
+                                  min(4096, tv.num_variants), replace=False))
+        want = finish_variant_costs(
+            dp_ops.align_dp(sv[pick], lens[pick], mm, d0, end,
+                            backend="numpy"), lens[pick])
+        check(np.array_equal(vc[pick], want),
+              f"alignments: {bname} differs from the host DP on the sample "
+              f"in {int((vc[pick] != want).sum())} variants")
+        single = Q.log(mlog if bname == "prod" else canary).using(
+            engine).alignments(model)
+        check(single.from_cache, f"{bname}'s branch alignment is not cached")
+        for e, c in single.value.deviating_edges.items():
+            census[e] = census.get(e, 0) + c
+        log(f"  5 alignments {bname}: {tv.num_variants} variants, "
+            f"{pick.shape[0]} sampled == host align_dp_numpy")
+        v_off += tv.num_variants
+        t_off += r.num_traces
+    check(v_off == ali.variant_costs.shape[0]
+          and t_off == ali.trace_cost.shape[0]
+          and ali.deviating_edges == census,
+          "alignments: the union is not the branches' concatenation / "
+          "census sum")
+    log(f"  5 union.alignments(model): {t_off} traces, fitness "
+        f"{ali.fitness:.6f}, census of {len(census)} edges == the branches' "
+        "summed")
+
+    # 6. top_variants(k50) on the concatenation
+    r6 = res["6 union.top_variants(k).dfg"]
+    check(r6.physical.backend == "concat"
+          and last["6 union.top_variants(k).dfg"]["pairs"]
+          == int(kept.sum()) - 1
+          and r6.names == union_names and np.array_equal(r6.value, want_top),
+          f"top_variants({k50}) on the union: {r6.physical.describe()}")
+    log(f"  6 union.top_variants({k50}).dfg: {int(kept.sum())} events kept "
+        f"of {ucat.num_events}, Ψ total {int(want_top.sum())} == host oracle")
+
+    # 7. FromLogs over the concatenation: the same Ψ and diffs as query 4
+    c7 = res["7 fromlogs.compare"].value
+    split = ucat.split_logs(["prod", "canary"])
+    sp = split["prod"]
+    s_s, d_s, v_s = sp.df_pairs()
+    m_split = discover_dependency_graph(
+        dfg_numpy(s_s, d_s, v_s, u), union_names, *sp.trace_boundaries())
+    check(c7.log_names == ("prod", "canary") and c7.names == cr.names
+          and all(np.array_equal(x, y) for x, y in
+                  zip(c7.psis + c7.diffs, cr.psis + cr.diffs)),
+          "FromLogs compare: Ψ or diffs differ from query 4's")
+    want7 = tuple(replay_fitness(split[n], m_split).fitness
+                  for n in ("prod", "canary"))
+    check(c7.fitness == want7,
+          f"FromLogs compare: fitness {c7.fitness} != host {want7}")
+    log(f"  7 fromlogs.compare: Ψ and diffs == query 4's; fitness "
+        f"{c7.fitness} == host replay")
+    for name, r in res.items():
+        sp_ = _trace_split(r.trace)
+        log(f"  split {name}: wall {walls[name]:.4f}  "
+            + "  ".join(f"{k} {v:.4f}" for k, v in sp_.items()))
+
+    # -- delta resume on a copy of prod, on a second fresh engine ------------
+    # the copy holds prod's rows (phase 3b appended to prod's files after
+    # the ``mlog`` view was opened, so the files hold more)
+    t0 = time.perf_counter()
+    w = MemmapLog.create(os.path.join(tmp, "prod_copy"), mlog.num_events,
+                         a, mlog.num_traces, chunk_rows=mlog.chunk_rows)
+    w.append(np.asarray(mlog.activity), np.asarray(mlog.case),
+             np.asarray(mlog.time))
+    cp = w.close()
+    check(fingerprint(cp) == fingerprint(mlog),
+          "the copy's fingerprint differs from prod's")
+    log(f"delta: copied prod's {cp.num_events} rows in "
+        f"{time.perf_counter() - t0:.2f} s (host), same fingerprint")
+    eng = QueryEngine()
+    rows0 = mlog.num_events
+    dq = {
+        "D1 union.fitness(model)": lambda: Q.logs(
+            (cp, "prod"), (canary, "canary")).using(eng).fitness(model),
+        "D2 dfg(streaming)": lambda: Q.log(cp).using(eng).dfg(
+            backend="streaming"),
+        "D3 fitness(model, streaming)": lambda: Q.log(cp).using(eng).fitness(
+            model, backend="streaming"),
+        "D4 window(30d).dfg(streaming)": lambda: Q.log(cp).using(eng).window(
+            *w30).dfg(backend="streaming"),
+    }
+    dres, dwalls = {}, {}
+    before = counts_now()
+    for name, fn in dq.items():
+        dres[name], dwalls[name] = timed(fn)
+    n_app = mlog.num_events // 100
+    rng = np.random.default_rng(18)
+    last_case = int(np.asarray(mlog.case[-1]))
+    open_cases = np.unique(np.asarray(mlog.case[-n_app:]))
+    n_new = n_app // 4
+    case = np.concatenate([
+        rng.choice(open_cases, n_app - n_new),
+        mlog.num_traces + rng.integers(0, n_new // 4 + 1, n_new),
+    ]).astype(np.int32)
+    rng.shuffle(case)
+    act = rng.integers(0, a, n_app).astype(np.int32)
+    t_last = float(np.asarray(mlog.time[-1]))
+    times = t_last + np.sort(rng.uniform(0.0, DAY, n_app))
+    t0 = time.perf_counter()
+    grown = cp.append(act, case, times)
+    log(f"delta: appended {n_app} rows to a copy of prod "
+        f"({n_app - n_new} continue {open_cases.shape[0]} open cases, last "
+        f"case {last_case}; {n_new} open new ones) in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    stats0 = eng.stats
+    dq2 = {
+        "D5 dfg(streaming)": lambda: Q.log(grown).using(eng).dfg(
+            backend="streaming"),
+        "D6 fitness(model, streaming)": lambda: Q.log(grown).using(
+            eng).fitness(model, backend="streaming"),
+        "D7 window(30d).dfg(streaming)": lambda: Q.log(grown).using(
+            eng).window(*w30).dfg(backend="streaming"),
+        "D8 union.fitness(model)": lambda: Q.logs(
+            (grown, "prod"), (canary, "canary")).using(eng).fitness(model),
+    }
+    steps = {}
+    for name, fn in dq2.items():
+        s_before = eng.stats
+        dres[name], dwalls[name] = timed(fn)
+        s_after = eng.stats
+        steps[name] = (s_after.rows_scanned - s_before.rows_scanned,
+                       s_after.delta_hits - s_before.delta_hits,
+                       s_after.delta_free_hits - s_before.delta_free_hits)
+    check(counts_now() == before, "the delta queries launched a kernel")
+    for name in ("D5 dfg(streaming)", "D6 fitness(model, streaming)"):
+        check(dres[name].physical.backend == "delta"
+              and dres[name].physical.delta_rows == (rows0, rows0 + n_app)
+              and steps[name] == (n_app, 1, 0),
+              f"{name}: {dres[name].physical.describe()}, rows / delta / "
+              f"free {steps[name]}")
+    check(dres["D7 window(30d).dfg(streaming)"].from_cache
+          and steps["D7 window(30d).dfg(streaming)"] == (0, 0, 1),
+          f"D7: {steps['D7 window(30d).dfg(streaming)']}")
+    d8 = dres["D8 union.fitness(model)"]
+    b8 = dict(d8.trace.branches)
+    check(steps["D8 union.fitness(model)"] == (n_app, 1, 0)
+          and b8["canary"].from_cache
+          and b8["prod"].executed_backend == "delta",
+          f"D8: {steps['D8 union.fitness(model)']}, branches "
+          f"{[(n, t.executed_backend) for n, t in d8.trace.branches]}")
+    check(eng.stats.delta_hits - stats0.delta_hits == 3
+          and eng.stats.delta_free_hits - stats0.delta_free_hits == 1,
+          f"delta counters {eng.stats}")
+    # a fresh engine's full scans and the host oracle
+    fresh = QueryEngine()
+    full_dfg, full_dfg_s = timed(
+        lambda: Q.log(grown).using(fresh).dfg(backend="streaming"))
+    full_fit, full_fit_s = timed(lambda: Q.log(grown).using(fresh).fitness(
+        model, backend="streaming"))
+    grepo = repository_from_memmap(grown)
+    want_g = branch_psi(grepo)
+    fit_g = replay_fitness(grepo, model)
+    check(np.array_equal(dres["D5 dfg(streaming)"].value, full_dfg.value)
+          and np.array_equal(full_dfg.value, want_g),
+          "delta Ψ differs from the fresh full scan or the host oracle")
+    f6 = dres["D6 fitness(model, streaming)"].value
+    check(np.array_equal(f6.trace_fitness, full_fit.value.trace_fitness)
+          and np.array_equal(f6.trace_fitness, fit_g.trace_fitness)
+          and f6.fitness == fit_g.fitness
+          and f6.deviating_edges == fit_g.deviating_edges,
+          "delta fitness differs from the fresh full replay or the host's")
+    fit_cm = replay_fitness(canary, model)
+    check(np.array_equal(d8.value.trace_fitness, np.concatenate(
+        [fit_g.trace_fitness, fit_cm.trace_fitness])),
+        "D8: union fitness differs from the host replay of each branch")
+    log(f"delta: Ψ total {int(want_g.sum())} and fitness {f6.fitness:.6f} "
+        f"== a fresh engine's full scans ({full_dfg_s:.4f} s / "
+        f"{full_fit_s:.4f} s) == host oracle")
+    for name, r in dres.items():
+        log(f"  {name}: wall {dwalls[name]:.4f} s, "
+            f"{r.physical.describe()}"
+            + (f", rows / delta / free {steps[name]}" if name in steps
+               else ""))
+    log(f"phase 3e walls [{card}] (s; host clock, card synchronized): "
+        + "  ".join(f"{k.split()[0]} {v:.4f}"
+                    for k, v in {**walls, **dwalls}.items()))
+    total = time.perf_counter() - t_phase
+    queried = sum(walls.values()) + sum(dwalls.values()) + full_dfg_s \
+        + full_fit_s
+    log(f"phase 3e: {total:.1f} s, of which queries {queried:.1f} s and "
+        f"inputs + host oracles + checks {total - queried:.1f} s")
+    return counts_3e
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 — the CLI
 # ---------------------------------------------------------------------------
 
@@ -2204,8 +2648,12 @@ def main() -> int:
             conf_counts, conf = phase_conformance(torch, mlog, repo, model)
             log("== phase 3d: variant analysis at PAPER_EVAL width")
             var_counts = phase_variants(torch, mlog, repo, results, card)
+            log("== phase 3e: unions, compare and delta resume at "
+                "PAPER_EVAL width")
+            union_counts = phase_union(torch, mlog, repo, results, model,
+                                       card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
-                    "3d": var_counts}
+                    "3d": var_counts, "3e": union_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

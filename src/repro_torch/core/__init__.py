@@ -7,7 +7,12 @@ execution, DFG-based discovery and footprints, the in-memory baseline,
 runtime telemetry mining, token-replay conformance and trace variants.
 """
 
-from .repository import EventRepository, GraphRepo, paper_example_repo
+from .repository import (
+    EventRepository,
+    GraphRepo,
+    concat_repositories,
+    paper_example_repo,
+)
 from .soundness import SoundnessReport, check_columnar, check_graph, is_sound
 from .dfg import (
     dfg,
@@ -59,7 +64,8 @@ from .streaming import (
 )
 
 __all__ = [
-    "EventRepository", "GraphRepo", "paper_example_repo",
+    "EventRepository", "GraphRepo", "concat_repositories",
+    "paper_example_repo",
     "SoundnessReport", "check_columnar", "check_graph", "is_sound",
     "dfg", "dfg_algorithm1", "dfg_from_repository", "dfg_numpy",
     "dfg_onehot", "dfg_scatter",

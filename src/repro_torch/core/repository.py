@@ -28,6 +28,7 @@ import numpy as np
 __all__ = [
     "GraphRepo",
     "EventRepository",
+    "concat_repositories",
     "paper_example_repo",
 ]
 
@@ -300,6 +301,84 @@ class EventRepository:
     def trace_of(self, event_index: int) -> str:
         return self.trace_names[int(self.event_trace[event_index])]
 
+    # -- the L×T relation as a dice ------------------------------------------
+    def _log_ids(self, names: Sequence[str]) -> List[int]:
+        ids = []
+        for n in names:
+            if n not in self.log_names:
+                raise ValueError(
+                    f"unknown log {n!r}; repository has {self.log_names}"
+                )
+            ids.append(self.log_names.index(n))
+        return ids
+
+    def _sub_repository(
+        self, keep_trace: np.ndarray, keep_event: np.ndarray,
+        trace_log: np.ndarray, log_names: List[str],
+    ) -> "EventRepository":
+        """The kept whole traces (trace ids renumbered in order), the full
+        activity vocabulary."""
+        new_trace_idx = np.cumsum(keep_trace) - 1  # old trace id -> new
+        return EventRepository(
+            event_activity=self.event_activity[keep_event],
+            event_trace=new_trace_idx[self.event_trace[keep_event]].astype(
+                np.int32
+            ),
+            event_time=self.event_time[keep_event],
+            trace_log=trace_log,
+            activity_names=list(self.activity_names),
+            trace_names=[
+                t for t, k in zip(self.trace_names, keep_trace.tolist()) if k
+            ],
+            log_names=log_names,
+            event_names=(
+                [e for e, k in zip(self.event_names, keep_event.tolist()) if k]
+                if self.event_names is not None
+                else None
+            ),
+        )
+
+    def select_logs(self, names: Sequence[str]) -> "EventRepository":
+        """Sub-repository of the traces belonging to the named logs.
+
+        This is the L×T dice of Definition 1: keep exactly the traces whose
+        ``trace_log`` entry names one of ``names`` (whole traces — the E×E
+        chains are untouched, so canonical invariants are preserved).  The
+        activity vocabulary is kept in full so per-log results from one
+        repository stay aligned on a shared activity axis.
+        """
+        ids = self._log_ids(names)
+        keep_trace = np.isin(self.trace_log, ids)
+        keep_event = keep_trace[self.event_trace]
+        wanted = set(names)
+        sub_log_names = [n for n in self.log_names if n in wanted]
+        # old log id -> its index among the kept logs
+        lut = np.full(max(len(self.log_names), 1), -1, dtype=np.int64)
+        for i, n in enumerate(sub_log_names):
+            lut[self.log_names.index(n)] = i
+        trace_log = lut[self.trace_log[keep_trace]].astype(np.int32)
+        return self._sub_repository(
+            keep_trace, keep_event, trace_log, sub_log_names
+        )
+
+    def split_logs(self, names: Sequence[str]) -> Dict[str, "EventRepository"]:
+        """Multi-way :meth:`select_logs` in one shared pass.
+
+        Splitting a k-log repository branch by branch would gather the
+        per-event log id k times; this computes it once and slices each
+        requested log off it — the per-branch results are exactly
+        ``select_logs([name])``."""
+        ids = dict(zip(names, self._log_ids(names)))
+        event_log = self.trace_log[self.event_trace]  # the shared gather
+        out: Dict[str, EventRepository] = {}
+        for n, lid in ids.items():
+            keep_trace = self.trace_log == lid
+            out[n] = self._sub_repository(
+                keep_trace, event_log == lid,
+                np.zeros(int(keep_trace.sum()), dtype=np.int32), [n],
+            )
+        return out
+
     # -- directly-follows pairs (the E×E relation, vectorized) ---------------
     def df_pairs(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Return ``(src_act, dst_act, pair_valid)`` aligned arrays.
@@ -403,6 +482,93 @@ class EventRepository:
             trace_names=meta["trace_names"],
             log_names=meta["log_names"],
         )
+
+def concat_repositories(
+    named: Sequence[Tuple[str, EventRepository]],
+    activity_vocab: Optional[List[str]] = None,
+) -> EventRepository:
+    """Concatenate named repositories into one canonical multi-log repository.
+
+    The result is exactly what :meth:`EventRepository.from_event_table` would
+    build from the flat union of the branches' event tables:
+
+    * trace names are namespaced ``"<log>/<trace>"`` — traces never merge
+      across branches, so Ψ of the concatenation is the branch-wise sum;
+    * ``log_names`` is the sorted branch-name list, ``trace_log`` records the
+      provenance of every trace (the L×T relation of Definition 1);
+    * the activity vocabulary is the sorted union of the branch vocabularies
+      (or the provided ``activity_vocab``), and events are re-lexsorted into
+      trace-contiguous, time-sorted canonical order with arrival order (=
+      branch order) as the stable tie-break.
+
+    The query engine's non-distributive union plans (variants, barriers)
+    run on this concatenation.
+    """
+    if not named:
+        raise ValueError("concat_repositories needs at least one repository")
+    branch_names = [n for n, _ in named]
+    if len(set(branch_names)) != len(branch_names):
+        raise ValueError(f"duplicate branch names: {branch_names}")
+
+    if activity_vocab is None:
+        activity_vocab = sorted(
+            set().union(*[set(r.activity_names) for _, r in named])
+        )
+    vidx = {a: i for i, a in enumerate(activity_vocab)}
+
+    spaced: List[str] = []
+    for bname, repo in named:
+        spaced.extend(f"{bname}/{t}" for t in repo.trace_names)
+    if len(set(spaced)) != len(spaced):
+        # e.g. branches "a" and "a/x" with traces "x/t" and "t" both
+        # namespace to "a/x/t" — merging them would silently corrupt Ψ
+        raise ValueError(
+            "namespaced trace names collide across branches; rename the "
+            "branches so '<branch>/<trace>' stays unique"
+        )
+    # each namespaced trace's rank in the sorted name list is its new id
+    order = sorted(range(len(spaced)), key=spaced.__getitem__)
+    trace_names = [spaced[i] for i in order]
+    rank = np.empty(len(spaced), dtype=np.int32)
+    rank[np.asarray(order, dtype=np.int64)] = np.arange(
+        len(spaced), dtype=np.int32
+    )
+
+    log_names = sorted(branch_names)
+    lidx = {n: i for i, n in enumerate(log_names)}
+    trace_log = np.zeros(len(trace_names), dtype=np.int32)
+
+    acts, traces, times = [], [], []
+    offset = 0
+    for bname, repo in named:
+        try:
+            actmap = np.asarray(
+                [vidx[a] for a in repo.activity_names], dtype=np.int32
+            )
+        except KeyError as e:
+            raise ValueError(f"activity {e} not in provided vocabulary") from e
+        tmap = rank[offset:offset + len(repo.trace_names)]
+        offset += len(repo.trace_names)
+        trace_log[tmap] = lidx[bname]
+        if repo.num_events:
+            acts.append(actmap[repo.event_activity])
+            traces.append(tmap[repo.event_trace])
+            times.append(repo.event_time)
+
+    a = np.concatenate(acts) if acts else np.zeros((0,), np.int32)
+    t = np.concatenate(traces) if traces else np.zeros((0,), np.int32)
+    ts = np.concatenate(times) if times else np.zeros((0,), np.float64)
+    order_e = np.lexsort((np.arange(a.shape[0]), ts, t))
+    return EventRepository(
+        event_activity=a[order_e].astype(np.int32),
+        event_trace=t[order_e].astype(np.int32),
+        event_time=ts[order_e],
+        trace_log=trace_log,
+        activity_names=list(activity_vocab),
+        trace_names=trace_names,
+        log_names=log_names,
+    )
+
 
 def paper_example_repo() -> EventRepository:
     """The worked example of Fig. 3: l1 = {t1: a1,a2,a3 ; t2: a2,a3,a4}."""

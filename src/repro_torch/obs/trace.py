@@ -10,10 +10,13 @@ text) is computed lazily at read time.
 
 Span vocabulary used by the engine (a query's trace is a chain):
 
-``parse`` → ``cache_probe`` → ``plan`` → ``scan`` → ``sink``
+``parse`` → ``cache_probe`` → [``delta``] → ``plan`` → ``scan`` |
+``merge`` → ``sink``
 
 The device path also records its phases (materialize, host→device copy,
-kernel, device→host copy) as seconds in ``notes``.
+kernel, device→host copy; a union's merge, concatenation and barriers) as
+seconds in ``notes``.  A union query's branch sub-queries are traces of
+their own, chained under the union's (``branches``).
 """
 
 from __future__ import annotations

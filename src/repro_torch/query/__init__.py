@@ -18,10 +18,21 @@ One entry point::
     Q.log(repo).using(engine).neighborhood("a", k=2, direction="both")
     Q.log(repo).using(engine).fitness(model)       # token-replay fitness
     Q.log(repo).using(engine).alignments()         # optimal DFG alignments
+    Q.logs((prod, "prod"), (canary, "canary")).using(engine).dfg()  # union Ψ
+    Q.logs((prod, "prod"), (canary, "canary")).using(engine).compare()
 
 ``fitness()`` / ``alignments()`` default to the source's own discovered
 model; the alignment DP runs on the engine's device (the ``align_dp`` CUDA
 kernel on a card).
+
+``Q.logs`` unions several logs (memmaps, repositories, or the named logs
+of one multi-log repository): each branch runs as its own query (its own
+cache entry and backend, the card's kernels where it plans them) and the
+results merge on the sorted union vocabulary; ``compare()`` keeps the
+branches apart (per-log Ψ, differences against the first log, replay
+fitness against its model).  Re-querying a memmap log after
+``MemmapLog.append`` resumes a cached streaming scan over the appended
+suffix only (the ``delta`` backend) when the cache holds one.
 
 ``top_variants(k)`` and ``activities(keep, relink=True)`` are
 materialization barriers: the engine makes the filtered repository on the
@@ -46,10 +57,14 @@ from .ast import (
     Activities,
     AlignmentsSink,
     ApplyView,
+    CompareSink,
     DFGSink,
     FitnessSink,
+    FromLogs,
     HistogramSink,
     LogicalPlan,
+    LogRef,
+    ModelSpec,
     NeighborhoodSink,
     ProcessMapSink,
     Q,
@@ -57,18 +72,25 @@ from .ast import (
     QueryPlanError,
     TOPOLOGY_SINKS,
     TopVariants,
+    UnionSource,
     VariantsSink,
     Window,
+    union_activity_names,
 )
 from .cache import (
     MemmapFingerprint,
     QueryCache,
+    ResumableState,
     fingerprint,
     fingerprint_memmap,
     fingerprint_repository,
+    fingerprint_union,
     parse_memmap_fingerprint,
+    prefix_digest,
+    split_union_fingerprint,
 )
 from .execute import (
+    CompareResult,
     EngineStats,
     QueryEngine,
     QueryResult,
@@ -76,7 +98,7 @@ from .execute import (
     repository_from_memmap,
     set_default_engine,
 )
-from .optimize import canonicalize
+from .optimize import canonicalize, distribute_over_union
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
     REPLAY_STREAMING_CROSSOVER,
@@ -90,15 +112,18 @@ from .planner import (
 __all__ = [
     "Q", "Query", "QueryPlanError",
     "Window", "EMPTY_WINDOW", "Activities", "TopVariants", "ApplyView",
-    "DFGSink", "HistogramSink", "VariantsSink", "ProcessMapSink",
-    "NeighborhoodSink", "TOPOLOGY_SINKS",
-    "FitnessSink", "AlignmentsSink", "CONFORMANCE_SINKS",
-    "LogicalPlan",
+    "DFGSink", "HistogramSink", "VariantsSink", "CompareSink",
+    "ProcessMapSink", "NeighborhoodSink", "TOPOLOGY_SINKS",
+    "FitnessSink", "AlignmentsSink", "CONFORMANCE_SINKS", "ModelSpec",
+    "LogicalPlan", "LogRef", "FromLogs", "UnionSource",
+    "union_activity_names",
     "QueryCache", "fingerprint", "fingerprint_memmap",
-    "fingerprint_repository", "MemmapFingerprint", "parse_memmap_fingerprint",
-    "QueryEngine", "QueryResult", "EngineStats",
+    "fingerprint_repository", "fingerprint_union", "split_union_fingerprint",
+    "prefix_digest", "MemmapFingerprint", "parse_memmap_fingerprint",
+    "ResumableState",
+    "QueryEngine", "QueryResult", "CompareResult", "EngineStats",
     "default_engine", "set_default_engine", "repository_from_memmap",
-    "canonicalize",
+    "canonicalize", "distribute_over_union",
     "plan_physical", "PhysicalPlan", "SourceInfo", "source_info",
     "device_memory_budget", "GRAPH_REPEAT_CROSSOVER",
     "REPLAY_STREAMING_CROSSOVER",

@@ -11,10 +11,15 @@ that the optimizer rewrites and the engine executes on the backend the cost
 model picks.  Nothing here touches data; plans are frozen, hashable, and
 serialize to a stable key for the plan/result cache.
 
-Grammar (this slice of the port)::
+Grammar::
 
     plan   := source  op*  sink
-    source := EventRepository | MemmapLog
+    source := leaf                      -- EventRepository | MemmapLog
+            | LogRef(leaf, name)        -- a *named* single log
+            | FromLogs(repo, names)     -- the L×T dice: the named logs of a
+                                           multi-log repository
+            | Union(source, ...)        -- multi-source (class UnionSource),
+                                           built via Q.logs(a, b, ...)
     op     := Window(t0, t1)            -- WHERE t0 <= time < t1, paper
                                            semantics (both pair endpoints)
             | Activities(keep, relink)  -- keep only these activities;
@@ -27,6 +32,7 @@ Grammar (this slice of the port)::
     sink   := DFGSink(backend)          -- Ψ (Algorithm 1)
             | HistogramSink(backend)    -- per-activity event counts
             | VariantsSink(k)           -- the trace-variant table
+            | CompareSink(backend)      -- union only: per-log Ψ + drift
             | ProcessMapSink(top, edge_top, backend)
             | NeighborhoodSink(activity, k, direction, backend)
             | FitnessSink(model, backend)     -- token-replay conformance
@@ -41,6 +47,11 @@ filtered-out or hidden event is dropped and its neighbours re-link, a
 window keeps the events inside it, and each surviving trace is scored.
 The variants sink does the same with a window or activity filter.
 
+The source algebra makes "which logs" a plan property instead of a
+pre-filter: predicates distribute into every branch, union sinks merge
+branch results on an aligned activity axis, and :class:`CompareSink` keeps
+branches separate for cross-deployment conformance drift.
+
 The reference package's other operators, sinks and sources raise
 :class:`QueryPlanError` naming the ROADMAP item that ports them.
 """
@@ -50,11 +61,11 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.conformance import ModelSpec
 from repro_torch.core.repository import EventRepository
-from repro_torch.core.streaming import MemmapLog
+from repro_torch.core.streaming import MemmapLog, memmap_log_name
 from repro_torch.core.views import HIDDEN, ActivityView
 
 __all__ = [
@@ -68,12 +79,18 @@ __all__ = [
     "DFGSink",
     "HistogramSink",
     "VariantsSink",
+    "CompareSink",
     "ProcessMapSink",
     "NeighborhoodSink",
     "TOPOLOGY_SINKS",
     "FitnessSink",
     "AlignmentsSink",
     "CONFORMANCE_SINKS",
+    "ModelSpec",
+    "LogRef",
+    "FromLogs",
+    "UnionSource",
+    "union_activity_names",
     "LogicalPlan",
     "Query",
     "Q",
@@ -196,6 +213,19 @@ class DFGSink:
 
 
 @dataclasses.dataclass(frozen=True)
+class CompareSink:
+    """Cross-log comparison (union sources only): per-log Ψ matrices on the
+    aligned union vocabulary, Ψ-difference matrices against the first
+    (reference) branch, and replay-fitness drift
+    (:func:`repro_torch.core.conformance.replay_fitness` of every branch
+    against the dependency graph discovered from the reference branch).
+    ``backend`` pins the per-branch counting operator, like
+    :class:`DFGSink`."""
+
+    backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
 class HistogramSink:
     """Per-activity event counts (the aggregate-only histogram endpoint).
     ``backend`` pins the physical operator like :class:`DFGSink`:
@@ -248,7 +278,8 @@ class FitnessSink:
     dependency graph (whole log, the plan's view/filter applied, windows
     ignored — the "does this slice conform to the overall process" drift
     question; the engine memoizes the discovery per source fingerprint).
-    ``backend`` ∈ auto | numpy | streaming | graph."""
+    Under :meth:`Query.compare` the default is the *reference branch's*
+    model.  ``backend`` ∈ auto | numpy | streaming | graph."""
 
     model: Optional[ModelSpec] = None
     backend: str = "auto"
@@ -267,8 +298,8 @@ class AlignmentsSink:
 
 
 Sink = Union[
-    DFGSink, HistogramSink, VariantsSink, ProcessMapSink, NeighborhoodSink,
-    FitnessSink, AlignmentsSink,
+    DFGSink, HistogramSink, VariantsSink, CompareSink, ProcessMapSink,
+    NeighborhoodSink, FitnessSink, AlignmentsSink,
 ]
 
 #: sinks answered from the aggregated :DF topology — the graph backend's
@@ -282,6 +313,158 @@ CONFORMANCE_SINKS = (FitnessSink, AlignmentsSink)
 
 
 # ---------------------------------------------------------------------------
+# Source algebra
+# ---------------------------------------------------------------------------
+
+
+class LogRef:
+    """A *named* single-log source — the leaf of the source algebra.
+
+    ``name`` is the branch label used for provenance (result ``log_names``,
+    per-branch physical-plan notes, compare axes); ``resolve()`` yields the
+    underlying store the engine executes on."""
+
+    def __init__(self, source, name: str):
+        if not isinstance(source, (EventRepository, MemmapLog)):
+            raise QueryPlanError(
+                f"LogRef wraps a leaf source, got {type(source).__name__}"
+            )
+        self.source = source
+        self.name = str(name)
+
+    def resolve(self):
+        return self.source
+
+    @property
+    def kind(self) -> str:
+        return source_kind(self.source)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"LogRef({self.kind}, name={self.name!r})"
+
+
+class FromLogs:
+    """The L×T dice as a plan node: the traces of the named logs of one
+    multi-log repository (``trace_log`` / ``log_names`` are already
+    materialized — Definition 1).  Resolution (one
+    :meth:`EventRepository.select_logs` call) is lazy and memoized; sibling
+    branches expanded from the same repository by :meth:`Q.logs` share one
+    :meth:`EventRepository.split_logs` pass instead of re-dicing per
+    branch."""
+
+    def __init__(
+        self,
+        repo: EventRepository,
+        names: Sequence[str],
+        name=None,
+        _sibling_split: Optional[Dict[str, EventRepository]] = None,
+        _siblings: Optional[Tuple[str, ...]] = None,
+    ):
+        if not isinstance(repo, EventRepository):
+            raise QueryPlanError("FromLogs requires an EventRepository")
+        self.repo = repo
+        self.names = tuple(str(n) for n in names)
+        if not self.names:
+            raise QueryPlanError("FromLogs needs at least one log name")
+        for n in self.names:
+            if n not in repo.log_names:
+                raise QueryPlanError(
+                    f"unknown log {n!r}; repository has {repo.log_names}"
+                )
+        self.name = str(name) if name is not None else "+".join(self.names)
+        self._resolved: Optional[EventRepository] = None
+        # Q.logs fills this shared dict with one split_logs pass covering
+        # every sibling branch the first time any of them resolves
+        self._sibling_split = _sibling_split
+        self._siblings = _siblings
+
+    def resolve(self) -> EventRepository:
+        if self._resolved is None:
+            if (
+                self._sibling_split is not None
+                and self._siblings is not None
+                and len(self.names) == 1
+            ):
+                if not self._sibling_split:
+                    self._sibling_split.update(
+                        self.repo.split_logs(self._siblings)
+                    )
+                self._resolved = self._sibling_split[self.names[0]]
+            else:
+                self._resolved = self.repo.select_logs(self.names)
+        return self._resolved
+
+    @property
+    def kind(self) -> str:
+        return "repository"
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"FromLogs({self.names!r}, name={self.name!r})"
+
+
+class UnionSource:
+    """An ordered union of named branches (:class:`LogRef` /
+    :class:`FromLogs`).  Branch names are unique; nesting is flattened by
+    the :meth:`Q.logs` builder, so the algebra stays one level deep."""
+
+    def __init__(self, branches: Sequence[object]):
+        branches = tuple(branches)
+        if not branches:
+            raise QueryPlanError("union of zero sources")
+        for b in branches:
+            if isinstance(b, UnionSource):
+                raise QueryPlanError(
+                    "nested unions are not supported; flatten the branches"
+                )
+            if not isinstance(b, (LogRef, FromLogs)):
+                raise QueryPlanError(
+                    f"union branches must be LogRef/FromLogs, got "
+                    f"{type(b).__name__}"
+                )
+        names = [b.name for b in branches]
+        if len(set(names)) != len(names):
+            raise QueryPlanError(f"duplicate branch names in union: {names}")
+        self.branches = branches
+
+    @property
+    def branch_names(self) -> Tuple[str, ...]:
+        return tuple(b.name for b in self.branches)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"UnionSource({', '.join(map(repr, self.branches))})"
+
+
+def union_activity_names(union: UnionSource) -> List[str]:
+    """The aligned union vocabulary — the sorted name union over the
+    branches, derived from *unresolved* branch metadata (``select_logs``
+    preserves its parent's vocabulary, so a FromLogs branch contributes
+    exactly the parent's names).  The engine (cache-hit canonicalization,
+    merge axes) and the planner (:func:`~repro_torch.query.planner.
+    source_info`) both use it, and it equals the vocabulary of the
+    canonical concatenated repository."""
+    names = set()
+    for b in union.branches:
+        if isinstance(b, FromLogs):
+            names |= set(b.repo.activity_names)
+        elif isinstance(b.source, EventRepository):
+            names |= set(b.source.activity_names)
+        else:
+            names |= set(b.source.activity_labels())
+    return sorted(names)
+
+
+def _default_branch_name(source, index: int) -> str:
+    if isinstance(source, MemmapLog):
+        # same rule as repository_from_memmap provenance (core.streaming)
+        return memmap_log_name(source)
+    if isinstance(source, EventRepository):
+        if len(source.log_names) == 1:
+            return source.log_names[0]
+        return "+".join(source.log_names)
+    return f"log{index}"
+
+
+# ---------------------------------------------------------------------------
 # Plan
 # ---------------------------------------------------------------------------
 
@@ -291,10 +474,14 @@ def source_kind(source) -> str:
         return "repository"
     if isinstance(source, MemmapLog):
         return "memmap"
+    if isinstance(source, UnionSource):
+        return "union(" + ",".join(b.kind for b in source.branches) + ")"
+    if isinstance(source, (LogRef, FromLogs)):
+        return source.kind
     raise QueryPlanError(
         f"unsupported query source {type(source).__name__}; expected "
-        "EventRepository or MemmapLog (sharded logs: ROADMAP Queue A item 8; "
-        "multi-log sources: item 5)"
+        "EventRepository, MemmapLog or a source-algebra node (sharded logs: "
+        "ROADMAP Queue A item 8)"
     )
 
 
@@ -333,6 +520,10 @@ class Query:
     :class:`repro_torch.query.execute.QueryEngine`."""
 
     def __init__(self, source, ops: Tuple[Op, ...] = (), engine=None):
+        if isinstance(source, (LogRef, FromLogs)):
+            # a single named/selected source executes as its resolution —
+            # the wrapper only matters inside a UnionSource
+            source = source.resolve()
         self._kind = source_kind(source)
         self.source = source
         self.ops = tuple(ops)
@@ -428,7 +619,9 @@ class Query:
         ))
 
     def compare(self, backend: str = "auto"):
-        raise not_ported("compare() (it needs multi-log sources)", 5)
+        """Cross-log comparison (requires a ``Q.logs(...)`` source): per-log
+        Ψ + difference matrices + replay-fitness drift vs the first log."""
+        return self._run(CompareSink(backend=backend))
 
     # -- introspection -------------------------------------------------------
     def logical_plan(self, sink: Sink) -> LogicalPlan:
@@ -436,7 +629,7 @@ class Query:
 
 
 class Q:
-    """Entry point: ``Q.log(repo_or_memmap)``."""
+    """Entry point: ``Q.log(repo_or_memmap)`` or ``Q.logs(a, b, ...)``."""
 
     @staticmethod
     def log(source) -> Query:
@@ -444,4 +637,80 @@ class Q:
 
     @staticmethod
     def logs(*sources, names: Optional[Sequence[str]] = None) -> Query:
-        raise not_ported("Q.logs() (multi-log union sources)", 5)
+        """Multi-source entry point — builds a :class:`UnionSource`.
+
+        Accepted shapes:
+
+        * ``Q.logs(a, b, ...)`` — each argument an ``EventRepository`` /
+          ``MemmapLog`` (auto-named), a ``(source, name)`` pair, or a
+          prebuilt ``LogRef`` / ``FromLogs`` / ``UnionSource`` (flattened);
+        * ``Q.logs(repo)`` with a *multi-log* repository — one branch per
+          entry of ``repo.log_names`` (cross-deployment compare without
+          pre-splitting);
+        * ``Q.logs(repo, names=["prod", "canary"])`` — ``FromLogs``
+          selection of the named logs, one branch each.
+        """
+        if not sources:
+            raise QueryPlanError("Q.logs() needs at least one source")
+        # (branch, explicitly_named) — explicit duplicates are an error (a
+        # tenant naming the same log twice would silently double-count);
+        # only auto-derived collisions (two memmaps sharing a basename) are
+        # uniquified with a suffix
+        branches: List[Tuple[object, bool]] = []
+        if names is not None or (
+            len(sources) == 1
+            and isinstance(sources[0], EventRepository)
+            and len(sources[0].log_names) > 1
+        ):
+            if names is not None and (
+                len(sources) != 1 or not isinstance(sources[0], EventRepository)
+            ):
+                raise QueryPlanError(
+                    "Q.logs(..., names=...) takes exactly one multi-log "
+                    "repository"
+                )
+            siblings = tuple(
+                str(n) for n in (
+                    names if names is not None else sources[0].log_names
+                )
+            )
+            shared: Dict[str, EventRepository] = {}
+            branches = [
+                (FromLogs(sources[0], (n,), _sibling_split=shared,
+                          _siblings=siblings), True)
+                for n in siblings
+            ]
+        else:
+            for i, s in enumerate(sources):
+                if isinstance(s, UnionSource):
+                    branches.extend((b, True) for b in s.branches)
+                elif isinstance(s, (LogRef, FromLogs)):
+                    branches.append((s, True))
+                elif isinstance(s, tuple) and len(s) == 2:
+                    branches.append((LogRef(s[0], str(s[1])), True))
+                else:
+                    branches.append(
+                        (LogRef(s, _default_branch_name(s, i)), False)
+                    )
+        seen: Dict[str, int] = {}
+        named: List[object] = []
+        for b, explicit in branches:
+            n = seen.get(b.name)
+            if n is None:
+                seen[b.name] = 1
+                named.append(b)
+                continue
+            if explicit:
+                raise QueryPlanError(
+                    f"duplicate branch name {b.name!r}; name each log "
+                    "uniquely (or drop the duplicate)"
+                )
+            fresh = f"{b.name}#{n}"
+            while fresh in seen:  # '#n' may itself be a taken basename
+                n += 1
+                fresh = f"{b.name}#{n}"
+            seen[b.name] = n + 1
+            seen[fresh] = 1
+            # only bare leaves are auto-named, so b is always a LogRef here
+            named.append(LogRef(b.source, fresh))
+        return Query(UnionSource(named))

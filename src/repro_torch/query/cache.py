@@ -13,9 +13,24 @@ key are content hashes:
 * the **plan key** hashes the canonical logical plan, so two differently
   chained but equivalent queries share an entry.
 
+The memmap fingerprint is **prefix-preserving**: it is the pair
+``(prefix_digest(rows 0..n), n)`` rendered as a string, and
+``prefix_digest`` is computable for any ``n`` on any log that still
+contains those rows.  That lets the engine *prove* (up to the sampling the
+fingerprint already accepts) that a changed log is an append-only extension
+of a cached one — the basis of the delta query plans.  A union's
+fingerprint is the list of its branches' own fingerprints, so the proof
+still works per branch.
+
+Entries may carry a :class:`ResumableState` (the streaming miner's Ψ +
+open-case tails, a histogram's raw counts, or the streaming replayer's
+per-case state) so a proven append scans only the new suffix.  A
+per-(source path, plan) hint remembers the newest entry to resume from; the
+hint is only a lookup accelerator — correctness always comes from the
+prefix-digest proof.
+
 Entries are LRU-evicted and returned as copies — a caller mutating a result
-matrix can never corrupt the cache.  (Append-aware delta resume over cached
-streaming state is ROADMAP Queue A item 5.)
+matrix can never corrupt the cache.
 """
 
 from __future__ import annotations
@@ -27,20 +42,25 @@ import json
 import os
 from collections import OrderedDict
 from typing import Optional, Tuple
+from urllib.parse import quote, unquote
 
 import numpy as np
 
 from repro_torch.analysis.lockdep import make_lock
 from repro_torch.core.repository import EventRepository
-from repro_torch.core.streaming import MemmapLog
+from repro_torch.core.streaming import MemmapLog, MinerState
 
 __all__ = [
     "fingerprint",
     "fingerprint_repository",
     "fingerprint_memmap",
+    "fingerprint_union",
+    "split_union_fingerprint",
     "prefix_digest",
+    "realpath_of",
     "MemmapFingerprint",
     "parse_memmap_fingerprint",
+    "ResumableState",
     "QueryCache",
     "CacheStats",
 ]
@@ -106,8 +126,10 @@ def prefix_digest(
 
     The sample positions depend only on ``n`` (head, tail-of-prefix, and a
     stride over ``[0, n)``), so the digest is recomputable on any log that
-    still contains those rows — the basis of the append-only proof the
-    graph store's extension uses (and the delta path will use)."""
+    still contains those rows: ``prefix_digest(grown_log, old_n) ==
+    old_digest`` *proves* — to the same sampling confidence the fingerprint
+    already accepts — that the change was append-only (the delta path and
+    the graph store's extension rely on it)."""
     n = log.num_events if n is None else int(n)
     if not 0 <= n <= log.num_events:
         raise ValueError(f"prefix of {n} rows on a {log.num_events}-row log")
@@ -143,10 +165,30 @@ _fp_memo: "OrderedDict[tuple, str]" = OrderedDict()
 _fp_memo_lock = make_lock("FingerprintMemo")
 
 
+def realpath_of(source) -> Optional[str]:
+    """``os.path.realpath(source.path)``, cached on the source object —
+    resolving symlinks costs one ``lstat`` per path component, and every
+    query on a memmap log asks (fingerprint memo, delta hint)."""
+    path = getattr(source, "path", None)
+    if not path:
+        return None
+    cached = getattr(source, "_realpath_cache", None)
+    if cached is not None and cached[0] == path:
+        return cached[1]
+    real = os.path.realpath(path)
+    try:
+        source._realpath_cache = (path, real)
+    except AttributeError:  # __slots__ sources: resolve every time
+        pass
+    return real
+
+
 def _memmap_stat_key(log: MemmapLog, sample_rows: int):
     """Validator key for the fingerprint memo, or None (no backing files →
     always hash)."""
-    real = os.path.realpath(log.path)
+    real = realpath_of(log)
+    if real is None:
+        return None
     stats = []
     try:
         for name in _FP_COLUMNS:
@@ -196,12 +238,84 @@ def parse_memmap_fingerprint(fp: str) -> Optional[MemmapFingerprint]:
         return None
 
 
+def fingerprint_union(union) -> str:
+    """Composite fingerprint ``union(name=fp_a|name=fp_b|...)``.
+
+    Each component is the branch's own fingerprint — memmap branches keep
+    their **prefix-preserving** ``memmap:<digest>:<rows>:<A>`` form, so the
+    append-only proof (and with it the delta path) still works *per branch*
+    while any branch change invalidates every union-level entry.  Branch
+    names are part of the key: the same bytes relabeled is a different
+    result (compare axes, provenance).  Names are percent-escaped so a
+    caller-supplied name containing ``=`` / ``|`` cannot forge another
+    union's key."""
+    return "union(" + "|".join(
+        f"{quote(b.name, safe='')}={fingerprint(b)}" for b in union.branches
+    ) + ")"
+
+
+def split_union_fingerprint(fp: str):
+    """``union(a=fp1|b=fp2)`` → ``[("a", fp1), ("b", fp2)]`` (None if not a
+    union fingerprint)."""
+    if not (fp.startswith("union(") and fp.endswith(")")):
+        return None
+    out = []
+    for part in fp[len("union("):-1].split("|"):
+        name, _, bfp = part.partition("=")
+        out.append((unquote(name), bfp))
+    return out
+
+
 def fingerprint(source) -> str:
+    # local import: ast.py depends on core only, so no cycle
+    from .ast import FromLogs, LogRef, UnionSource
+
     if isinstance(source, EventRepository):
         return fingerprint_repository(source)
     if isinstance(source, MemmapLog):
         return fingerprint_memmap(source)
+    if isinstance(source, UnionSource):
+        return fingerprint_union(source)
+    if isinstance(source, LogRef):
+        return fingerprint(source.source)
+    if isinstance(source, FromLogs):
+        # derived from the parent's content + the selection — no need to
+        # materialize the O(E) sub-repository just to key the cache
+        h = hashlib.sha256("\x00".join(source.names).encode()).hexdigest()[:8]
+        return f"fromlogs:{h}:{fingerprint_repository(source.repo)}"
     raise TypeError(f"cannot fingerprint {type(source).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Resumable execution state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ResumableState:
+    """State a streaming scan leaves behind when it consumed the log through
+    its last row: resuming it over an appended suffix (including the pairs
+    that straddle the boundary, via the miner's per-case tails) reproduces a
+    full rescan bit for bit.  ``replay`` carries the streaming replayer's
+    per-case tails + fitness accumulators for conformance sinks (only
+    plans whose model is pinned in the sink are resumable — a default
+    model is re-discovered from the grown log and would change under the
+    resumed state's feet)."""
+
+    rows_end: int  # rows [lo, rows_end) are accounted for
+    num_activities: int
+    miner: Optional[MinerState] = None  # DFG sinks
+    counts: Optional[np.ndarray] = None  # histogram sinks (raw, pre-mask/view)
+    replay: Optional[object] = None  # conformance sinks (ReplayState)
+
+    def copy(self) -> "ResumableState":
+        return ResumableState(
+            self.rows_end,
+            self.num_activities,
+            self.miner.copy() if self.miner is not None else None,
+            self.counts.copy() if self.counts is not None else None,
+            self.replay.copy() if self.replay is not None else None,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +328,13 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    invalidations: int = 0
+
+
+@dataclasses.dataclass
+class _Entry:
+    result: object
+    resume: Optional[ResumableState] = None
 
 
 def _copy_result(result):
@@ -239,12 +360,16 @@ def _copy_result(result):
 
 
 class QueryCache:
-    """LRU over (fingerprint, plan_key) → QueryResult.  Thread-safe: the
-    serving layer shares one cache across concurrent tenants."""
+    """LRU over (fingerprint, plan_key) → QueryResult [+ ResumableState].
+    Thread-safe: the serving layer shares one cache across concurrent
+    tenants."""
 
     def __init__(self, max_entries: int = 256):
         self.max_entries = max_entries
-        self._entries: "OrderedDict[Tuple[str, str], object]" = OrderedDict()
+        self._entries: "OrderedDict[Tuple[str, str], _Entry]" = OrderedDict()
+        # (source hint, plan_key) -> fingerprint of the newest entry for it;
+        # lets the engine find a resume candidate after the source changed
+        self._hints: dict = {}
         self.stats = CacheStats()
         self._lock = make_lock("QueryCache")
 
@@ -254,19 +379,96 @@ class QueryCache:
 
     def get(self, key: Tuple[str, str]):
         with self._lock:
-            result = self._entries.get(key)
-            if result is None:
+            entry = self._entries.get(key)
+            if entry is None:
                 self.stats.misses += 1
                 return None
             self._entries.move_to_end(key)
             self.stats.hits += 1
-            return _copy_result(result)
+            return _copy_result(entry.result)
 
-    def put(self, key: Tuple[str, str], result) -> None:
-        entry = _copy_result(result)
+    def probe(self, key: Tuple[str, str]) -> bool:
+        """Non-mutating presence check: no stats, no LRU touch, no copy."""
+        with self._lock:
+            return key in self._entries
+
+    def has_delta_hint(self, source_hint: Optional[str], plan_key: str) -> bool:
+        """Non-mutating: is there a live resume candidate for this
+        (source, plan)?  Like :meth:`probe`, a classification signal only —
+        the engine still proves prefix preservation before trusting it."""
+        if source_hint is None:
+            return False
+        with self._lock:
+            fp = self._hints.get((source_hint, plan_key))
+            return fp is not None and (fp, plan_key) in self._entries
+
+    def put(
+        self,
+        key: Tuple[str, str],
+        result,
+        resume: Optional[ResumableState] = None,
+        source_hint: Optional[str] = None,
+    ) -> None:
+        entry = _Entry(
+            _copy_result(result),
+            resume.copy() if resume is not None else None,
+        )
         with self._lock:
             self._entries[key] = entry
             self._entries.move_to_end(key)
+            if source_hint is not None:
+                self._hints[(source_hint, key[1])] = key[0]
             while len(self._entries) > self.max_entries:
-                self._entries.popitem(last=False)
+                dead_key, _ = self._entries.popitem(last=False)
                 self.stats.evictions += 1
+                self._drop_hints_locked(dead_key)
+
+    # -- delta support -------------------------------------------------------
+    def delta_candidate(self, source_hint: Optional[str], plan_key: str):
+        """Newest (fingerprint, result copy, resume copy) put for this
+        (source, plan) — a *candidate* only: the engine must prove prefix
+        preservation before trusting it."""
+        if source_hint is None:
+            return None
+        with self._lock:
+            fp = self._hints.get((source_hint, plan_key))
+            if fp is None:
+                return None
+            entry = self._entries.get((fp, plan_key))
+            if entry is None:  # evicted since
+                self._hints.pop((source_hint, plan_key), None)
+                return None
+            return (
+                fp,
+                _copy_result(entry.result),
+                entry.resume.copy() if entry.resume is not None else None,
+            )
+
+    def drop_hint(self, source_hint: Optional[str], plan_key: str) -> None:
+        with self._lock:
+            self._hints.pop((source_hint, plan_key), None)
+
+    def _drop_hints_locked(self, key: Tuple[str, str]) -> None:
+        fp, plan_key = key
+        dead = [
+            hk for hk, hfp in self._hints.items()
+            if hfp == fp and hk[1] == plan_key
+        ]
+        for hk in dead:
+            del self._hints[hk]
+
+    # -- maintenance ---------------------------------------------------------
+    def invalidate_source(self, fp: str) -> int:
+        """Drop every entry for one source fingerprint (explicit refresh)."""
+        with self._lock:
+            dead = [k for k in self._entries if k[0] == fp]
+            for k in dead:
+                del self._entries[k]
+                self._drop_hints_locked(k)
+            self.stats.invalidations += len(dead)
+            return len(dead)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._hints.clear()

@@ -1,4 +1,4 @@
-"""Query execution: one engine, the single-log backends.
+"""Query execution: one engine, every physical backend of the port.
 
 ``QueryEngine.run`` takes a fluent :class:`~repro_torch.query.ast.Query`
 plus a sink, canonicalizes the logical plan
@@ -23,7 +23,16 @@ primitives:
 * conformance (:mod:`repro_torch.conformance`): token replay on the host
   over the columns, a streaming scan or the graph's event tables, and
   alignments whose per-variant DP runs on the engine's device (the
-  ``align_dp`` CUDA kernel on a card).
+  ``align_dp`` CUDA kernel on a card),
+* union sources (``Q.logs``): one sub-query per branch through
+  :meth:`QueryEngine.run` itself (so each branch keeps its own cache entry,
+  backend and delta path), merged on the aligned union vocabulary — or,
+  for what does not distribute, the canonical concatenation,
+* the **delta** path: when a memmap source is *proven* (prefix-preserving
+  fingerprint) to be an append-only extension of a cached streaming scan,
+  the cached state resumes over just the appended suffix — or, when the
+  plan's window lies inside the old range, the cached result is served
+  with no scan at all (free rewrite).
 
 Every path produces values bit-identical to the reference package's engine
 on the same source and chain.  The engine runs on ``cuda`` unless it is
@@ -43,17 +52,17 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.lockdep import make_lock
-from repro_torch.conformance.align import align_arrays
+from repro_torch.conformance.align import AlignmentResult, align_arrays
 from repro_torch.conformance.replay import (
     StreamingModelDiscoverer,
     StreamingReplayer,
     replay_fitness_arrays,
 )
-from repro_torch.core.conformance import ModelSpec
+from repro_torch.core.conformance import ModelSpec, ReplayResult
 from repro_torch.core.dfg import dfg_numpy, dfg_onehot, dfg_scatter
 from repro_torch.core.dicing import dice_repository, pair_mask_for_window
 from repro_torch.core.discovery import DiscoveredModel, discover_dependency_graph
-from repro_torch.core.repository import EventRepository
+from repro_torch.core.repository import EventRepository, concat_repositories
 from repro_torch.core.streaming import MemmapLog, StreamingDFGMiner, memmap_log_name
 from repro_torch.core.variants import trace_variants, variant_filtered_repository
 from repro_torch.core.views import HIDDEN
@@ -70,6 +79,7 @@ from .ast import (
     TOPOLOGY_SINKS,
     Activities,
     ApplyView,
+    CompareSink,
     DFGSink,
     FitnessSink,
     HistogramSink,
@@ -80,12 +90,21 @@ from .ast import (
     QueryPlanError,
     Sink,
     TopVariants,
+    UnionSource,
     VariantsSink,
     Window,
     is_barrier,
+    union_activity_names,
 )
-from .cache import QueryCache, fingerprint
-from .optimize import canonicalize, compose_views
+from .cache import (
+    QueryCache,
+    ResumableState,
+    fingerprint,
+    parse_memmap_fingerprint,
+    prefix_digest,
+    realpath_of,
+)
+from .optimize import canonicalize, compose_views, distribute_over_union
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
     MEMORY_BUDGET_EVENTS,
@@ -100,6 +119,7 @@ from .planner import (
 
 __all__ = [
     "QueryResult",
+    "CompareResult",
     "EngineStats",
     "QueryEngine",
     "default_engine",
@@ -144,11 +164,47 @@ class EngineStats:
     in the engine's lock-protected :class:`MetricsRegistry`)."""
 
     queries: int = 0
-    executions: int = 0  # backend runs (cache misses)
+    executions: int = 0  # backend runs (cache misses, incl. delta scans)
     cache_hits: int = 0
+    delta_hits: int = 0  # append-only: resumed cached state over the suffix
+    delta_free_hits: int = 0  # append-only + window inside old range: no scan
     rows_scanned: int = 0  # source rows fed to scans and graph builds
+    union_queries: int = 0  # multi-source (Q.logs) queries, incl. compare
     graph_queries: int = 0  # answered from the CSR event-knowledge graph
     conformance_queries: int = 0  # fitness / alignments sinks
+
+
+@dataclasses.dataclass
+class CompareResult:
+    """What :meth:`Query.compare` returns (as ``QueryResult.value``).
+
+    All matrices share one aligned (visible) activity axis ``names``.
+    ``diffs[i] = psis[i] - psis[0]`` — the Ψ-drift of log ``i`` against the
+    first (reference) log; ``fitness[i]`` is the replay fitness of log
+    ``i``'s traces on the dependency graph discovered from the reference
+    log (out-of-budget memmap branches replay in one streaming scan, so no
+    branch reports None).  Windows/filters/views shape the Ψ matrices;
+    fitness is a whole-log conformance signal.
+    """
+
+    log_names: Tuple[str, ...]
+    names: List[str]
+    psis: Tuple[np.ndarray, ...]
+    diffs: Tuple[np.ndarray, ...]
+    fitness: Tuple[float, ...]
+
+    @property
+    def diff(self) -> np.ndarray:
+        """The two-log drift matrix (``psis[1] - psis[0]``)."""
+        if len(self.psis) != 2:
+            raise ValueError(
+                f"diff is defined for exactly two logs (got "
+                f"{len(self.psis)}); index diffs[] instead"
+            )
+        return self.diffs[1]
+
+    def drift(self, i: int = 0, j: int = 1) -> np.ndarray:
+        return self.psis[j] - self.psis[i]
 
 
 def repository_from_memmap(
@@ -194,6 +250,8 @@ _REPO_MEMO_SIZE = 4
 #: default conformance models an engine keeps (one per source and
 #: transform; a sliding-window dashboard reuses one)
 _MODEL_MEMO_SIZE = 16
+#: compare() fitness tuples an engine keeps (one per union fingerprint)
+_FITNESS_MEMO_SIZE = 16
 
 
 # ---------------------------------------------------------------------------
@@ -417,9 +475,22 @@ class QueryEngine:
         self._c_cache_hits = m.counter(
             "engine_cache_hits_total", "Queries served from the result cache"
         )
+        self._c_delta_hits = m.counter(
+            "engine_delta_hits_total",
+            "Append-only queries resumed over just the suffix",
+        )
+        self._c_delta_free_hits = m.counter(
+            "engine_delta_free_hits_total",
+            "Append-only queries answered without any scan (window predates "
+            "the append)",
+        )
         self._c_rows = m.counter(
             "engine_rows_scanned_total",
             "Source rows fed to scans and graph builds",
+        )
+        self._c_union = m.counter(
+            "engine_union_queries_total",
+            "Multi-source (Q.logs) queries, incl. compare",
         )
         self._c_graph = m.counter(
             "engine_graph_queries_total",
@@ -431,6 +502,10 @@ class QueryEngine:
         )
         self._h_replay_chunk = m.histogram(
             "replay_chunk_seconds", "Streaming-replay chunk wall time"
+        )
+        self._h_delta_fraction = m.histogram(
+            "delta_suffix_fraction",
+            "Fraction of the log rescanned by a delta resume",
         )
         # hot-path memo of query_latency_seconds{sink,backend} histograms
         self._lat_hists: Dict[Tuple[str, str], object] = {}  # guarded by _lock
@@ -458,6 +533,9 @@ class QueryEngine:
         self._repo_memo: "OrderedDict[str, EventRepository]" = OrderedDict()  # guarded by _lock
         # default conformance models keyed by (source fingerprint, transform)
         self._model_memo: "OrderedDict[Tuple, ModelSpec]" = OrderedDict()  # guarded by _lock
+        # compare() fitness per composite union fingerprint (a whole-log
+        # signal: one entry serves every window/filter/view over the union)
+        self._fitness_memo: "OrderedDict[str, Tuple]" = OrderedDict()  # guarded by _lock
         self._lock = make_lock("QueryEngine")
 
     @property
@@ -466,24 +544,56 @@ class QueryEngine:
             queries=self._c_queries.value,
             executions=self._c_executions.value,
             cache_hits=self._c_cache_hits.value,
+            delta_hits=self._c_delta_hits.value,
+            delta_free_hits=self._c_delta_free_hits.value,
             rows_scanned=self._c_rows.value,
+            union_queries=self._c_union.value,
             graph_queries=self._c_graph.value,
             conformance_queries=self._c_conformance.value,
         )
 
     # -- tracing ---------------------------------------------------------------
     def _trace_begin(self, qid: int, sink: Sink, source) -> QueryTrace:
-        kind = "memmap" if isinstance(source, MemmapLog) else "repository"
+        """Open a query's trace on this thread's trace *stack*: a union's
+        branch sub-queries run through :meth:`run` while the union's own
+        trace stays open beneath them, so each level attributes its rows
+        and device phases to itself and branches chain under the union."""
+        if isinstance(source, UnionSource):
+            kind = "union"
+        elif isinstance(source, MemmapLog):
+            kind = "memmap"
+        else:
+            kind = "repository"
         label = type(sink).__name__.lower()
         tr = QueryTrace(qid, label[:-4] if label.endswith("sink") else label, kind)
-        tr.bind_root(mint_context())
-        self._tls.trace = tr
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        if stack and stack[-1].trace_id is not None:
+            tr.bind_child_of(stack[-1].context)
+        else:
+            tr.bind_root(mint_context())
+        stack.append(tr)
         return tr
 
     def _current_trace(self) -> Optional[QueryTrace]:
-        return getattr(self._tls, "trace", None)
+        stack = getattr(self._tls, "stack", None)
+        return stack[-1] if stack else None
+
+    def _trace_abort(self, tr: QueryTrace) -> None:
+        stack = getattr(self._tls, "stack", None)
+        if stack and stack[-1] is tr:
+            stack.pop()
+
+    def _trace_error(self, tr: QueryTrace) -> None:
+        """Error path: pop the trace and close its open spans."""
+        self._trace_abort(tr)
+        tr.finish()
 
     def _note_rows(self, n: int) -> None:
+        """Row-scan accounting: the global counter plus attribution to the
+        query currently executing on this thread (union branches attribute
+        to their own trace; helper scans to the enclosing query)."""
         if n <= 0:
             return
         self._c_rows.inc(n)
@@ -503,7 +613,7 @@ class QueryEngine:
         self._h_replay_chunk.observe(seconds)
 
     def _trace_finish(self, tr: QueryTrace, result: QueryResult) -> None:
-        self._tls.trace = None
+        self._trace_abort(tr)
         tr.finish()
         result.trace = tr
         key = (tr.sink, tr.executed_backend or "unknown")
@@ -521,6 +631,8 @@ class QueryEngine:
 
     # -- public --------------------------------------------------------------
     def run(self, query: Query, sink: Sink) -> QueryResult:
+        if isinstance(query.source, UnionSource):
+            return self._run_union(query, sink)
         qid = self._c_queries.inc()
         if isinstance(sink, CONFORMANCE_SINKS):
             self._c_conformance.inc()
@@ -549,6 +661,16 @@ class QueryEngine:
                 cached.wall_s = tr.total_s
                 return cached
 
+            if logical.source == "memmap":
+                delta = self._try_delta(
+                    query.source, logical, key, tuple(rewrites), tr
+                )
+                if delta is not None:
+                    self._trace_finish(tr, delta)
+                    if delta.from_cache:  # free rewrite: hit-style latency
+                        delta.wall_s = tr.total_s
+                    return delta
+
             s = tr.begin("plan")
             graph_available = self._graph_available(
                 query.source, key[0], logical
@@ -559,7 +681,7 @@ class QueryEngine:
 
             s = tr.begin("scan")
             t0 = time.perf_counter()
-            value, names = self._execute(
+            value, names, resume = self._execute(
                 query.source, logical, physical, source_fp=key[0]
             )
             wall = time.perf_counter() - t0
@@ -573,12 +695,16 @@ class QueryEngine:
                 source_trace_id=tr.trace_id,
             )
             s = tr.begin("sink")
-            self.cache.put(key, result)
+            self.cache.put(
+                key, result, resume=resume,
+                source_hint=self._source_hint(query.source),
+            )
             tr.end(s)
             self._trace_finish(tr, result)
             return result
-        finally:
-            self._tls.trace = None
+        except BaseException:
+            self._trace_error(tr)
+            raise
 
     def _conformance_graph_ok(self, source) -> bool:
         """Conformance can use the graph tier only when the graph carries
@@ -595,7 +721,8 @@ class QueryEngine:
         Counts only topology/conformance cache *misses* — every hit is
         already O(1), so repeats that matter are the ones that would
         rescan."""
-        if logical.has_barrier():
+        if logical.has_barrier() or isinstance(source, UnionSource):
+            # union branches make their own per-source decision
             return False
         if isinstance(logical.sink, CONFORMANCE_SINKS):
             if not self._conformance_graph_ok(source):
@@ -637,11 +764,645 @@ class QueryEngine:
                 self._plans.popitem(last=False)
         return physical
 
+    # -- union / compare (multi-source) --------------------------------------
+    @staticmethod
+    def _branch_names_of(source) -> List[str]:
+        if isinstance(source, EventRepository):
+            return list(source.activity_names)
+        return source.activity_labels()
+
+    @staticmethod
+    def _align_ids(branch_names: List[str], union_names: List[str]) -> np.ndarray:
+        uidx = {n: i for i, n in enumerate(union_names)}
+        return np.asarray([uidx[n] for n in branch_names], dtype=np.int64)
+
+    def _run_union(self, query: Query, sink: Sink) -> QueryResult:
+        """Execute a :class:`UnionSource` plan.
+
+        Distributive sinks (DFG / histogram / topology / compare /
+        conformance) run one sub-query per branch through :meth:`run`
+        itself — so every branch gets its own cache entry, its own
+        cost-model choice (the card's kernels where it plans them), and its
+        own append-aware delta path (an append to one log rescans only that
+        log's suffix; the other branches are plain cache hits).  Branch
+        results are then aligned onto the union activity vocabulary and
+        merged; activity masks and views run once at the merge
+        (:func:`~repro_torch.query.optimize.distribute_over_union`).
+
+        Non-distributive plans (variants sink, materializing ops) run on the
+        canonical concatenated repository instead (budget-gated by the
+        planner).
+        """
+        union: UnionSource = query.source
+        qid = self._c_queries.inc()
+        self._c_union.inc()
+        if isinstance(sink, CONFORMANCE_SINKS):
+            self._c_conformance.inc()
+        tr = self._trace_begin(qid, sink, union)
+        try:
+            s = tr.begin("parse")
+            # derived from unresolved branch metadata: a cache hit must not
+            # pay an O(E) FromLogs materialization
+            union_names = union_activity_names(union)
+            logical, rewrites = canonicalize(
+                query.logical_plan(sink), union_names
+            )
+            fp = fingerprint(union)
+            key = (fp, logical.key())
+            tr.end(s)
+            s = tr.begin("cache_probe")
+            cached = self.cache.get(key)
+            tr.end(s)
+            if cached is not None:
+                cached.from_cache = True
+                self._c_cache_hits.inc()
+                tr.from_cache = True
+                tr.planned_backend = cached.physical.backend
+                tr.executed_backend = "cache"
+                if cached.source_trace_id:
+                    tr.links["produced_by"] = cached.source_trace_id
+                self._trace_finish(tr, cached)
+                cached.wall_s = tr.total_s
+                return cached
+
+            # miss: resolve the branches (FromLogs memoizes its L×T dice)
+            s = tr.begin("plan")
+            info = source_info(union)
+            physical = self._plan_cached(logical, info, False)
+            tr.end(s)
+            tr.planned_backend = physical.backend
+
+            s = tr.begin("merge")
+            t0 = time.perf_counter()
+            if physical.backend == "concat":
+                value, names = self._execute_concat(union, info, logical, fp)
+            else:
+                st = _collect(None, logical)  # planner-guaranteed barrier-free
+                if st.keep is not None:
+                    _validate_keep(st.keep, union_names)
+                empty = st.window is not None and st.window.empty
+                if isinstance(logical.sink, CompareSink):
+                    value, names = self._execute_compare(
+                        union, logical, st, union_names, empty=empty,
+                        union_fp=fp,
+                    )
+                elif isinstance(logical.sink, CONFORMANCE_SINKS):
+                    value, names = self._execute_conformance_union(
+                        union, logical, st, union_names
+                    )
+                else:
+                    value, names = self._execute_union_merge(
+                        union, logical, st, union_names, empty=empty
+                    )
+            wall = time.perf_counter() - t0
+            tr.end(s)
+            self._c_executions.inc()
+            tr.executed_backend = physical.backend
+            tr.actual_cost_s = wall
+            result = QueryResult(
+                value=value, names=names, logical=logical, physical=physical,
+                from_cache=False, wall_s=wall, rewrites=tuple(rewrites),
+                source_trace_id=tr.trace_id,
+            )
+            s = tr.begin("sink")
+            self.cache.put(key, result)
+            tr.end(s)
+            self._trace_finish(tr, result)
+            return result
+        except BaseException:
+            self._trace_error(tr)
+            raise
+
+    def _run_branch(self, branch, src, ops: Tuple, sink: Sink) -> QueryResult:
+        """One branch's sub-query through :meth:`run`, its trace attached to
+        the enclosing (union) trace."""
+        cur = self._current_trace()
+        sub = self.run(Query(src, ops, self), sink)
+        if cur is not None and sub.trace is not None:
+            cur.add_branch(branch.name, sub.trace)
+        return sub
+
+    def _branch_raw(
+        self,
+        union: UnionSource,
+        logical: LogicalPlan,
+        branch_sink: Optional[Sink] = None,
+    ):
+        """Per-branch *raw* sink values (window pushed down, no mask/view),
+        each via a full :meth:`run` so caching + delta apply per branch."""
+        branch_ops, _merge = distribute_over_union(logical)
+        if branch_sink is None:
+            if isinstance(logical.sink, HistogramSink):
+                branch_sink = HistogramSink()
+            else:  # DFG, compare, and topology sinks all count per-branch Ψ
+                branch_sink = DFGSink(backend=logical.sink.backend)
+        out = []
+        for branch in union.branches:
+            src = branch.resolve()
+            sub = self._run_branch(branch, src, branch_ops, branch_sink)
+            out.append((branch, src, sub.value))
+        return out
+
+    def _merged_psi(
+        self, union: UnionSource, logical: LogicalPlan,
+        union_names: List[str], *, empty: bool,
+    ) -> np.ndarray:
+        u = len(union_names)
+        psi = np.zeros((u, u), dtype=np.int64)
+        if not empty:
+            for _branch, src, value in self._branch_raw(union, logical):
+                t0 = time.perf_counter()
+                ids = self._align_ids(self._branch_names_of(src), union_names)
+                psi[np.ix_(ids, ids)] += value
+                self._note_seconds("merge", time.perf_counter() - t0)
+        return psi
+
+    def _merged_counts(
+        self, union: UnionSource, logical: LogicalPlan,
+        union_names: List[str], *, empty: bool,
+    ) -> np.ndarray:
+        counts = np.zeros(len(union_names), dtype=np.int64)
+        if not empty:
+            for _branch, src, value in self._branch_raw(
+                union, logical, HistogramSink()
+            ):
+                ids = self._align_ids(self._branch_names_of(src), union_names)
+                counts[ids] += value
+        return counts
+
+    def _execute_union_merge(
+        self,
+        union: UnionSource,
+        logical: LogicalPlan,
+        st: _Collected,
+        union_names: List[str],
+        *,
+        empty: bool,
+    ):
+        if isinstance(logical.sink, DFGSink):
+            psi = self._merged_psi(union, logical, union_names, empty=empty)
+            return _finish_dfg(psi, union_names, st)
+        if isinstance(logical.sink, (ProcessMapSink, NeighborhoodSink)):
+            # branch Ψ (and, for process maps, branch histograms) merge on
+            # the union vocabulary; the derivation runs once at the merge.
+            # A process map issues two sub-queries per branch (DFG +
+            # histogram): both are plain single-log entries the cache and
+            # the delta path reuse across every sink type
+            psi = self._merged_psi(union, logical, union_names, empty=empty)
+            counts = (
+                self._merged_counts(union, logical, union_names, empty=empty)
+                if isinstance(logical.sink, ProcessMapSink)
+                else np.zeros(len(union_names), dtype=np.int64)
+            )
+            return _finish_topology(psi, counts, union_names, st, logical.sink)
+        counts = self._merged_counts(union, logical, union_names, empty=empty)
+        return _finish_hist(counts, union_names, st)
+
+    @staticmethod
+    def _branch_conformance_ops(
+        ops: Tuple, branch_names: List[str]
+    ) -> Tuple:
+        """Distribute conformance (sequence-semantics) ops into one branch:
+        every op applies per event, but an activity filter may name
+        union-level activities a branch has never seen — intersect it with
+        the branch vocabulary so branch validation passes (the missing
+        names could not have matched any of the branch's events anyway)."""
+        out = []
+        for op in ops:
+            if isinstance(op, Activities):
+                out.append(Activities(
+                    tuple(sorted(set(op.keep) & set(branch_names))),
+                    op.relink,
+                ))
+            else:
+                out.append(op)
+        return tuple(out)
+
+    def _model_for_source(
+        self, sink, ops: Tuple, src, st: _Collected
+    ) -> ModelSpec:
+        """Resolve the (default) model for one concrete source — the union
+        and compare paths' entry into the per-fingerprint model memo.  The
+        memo key carries ``st``'s folded keep/view, so a view-governed
+        resolution never aliases a raw one on the same source."""
+        fp = fingerprint(src)
+
+        def build():
+            if isinstance(src, EventRepository):
+                repo = src
+            elif src.num_events <= self.memory_budget_events:
+                repo = self._materialize(src, fp)
+            else:
+                names = src.activity_labels()
+                dest, out_names = self._transform_tables(st, names)
+                return self._streaming_default_model(src, dest, out_names)
+            names = list(repo.activity_names)
+            dest, out_names = self._transform_tables(st, names)
+            acts = repo.event_activity.astype(np.int64)
+            traces = repo.event_trace
+            if dest is not None:
+                tacts = dest[acts]
+                m = tacts >= 0
+                acts, traces = tacts[m], traces[m]
+            return self._model_from_arrays(acts, traces, out_names)
+
+        return self._resolve_model(sink, self._model_key(ops, st), fp, build)
+
+    def _execute_conformance_union(
+        self,
+        union: UnionSource,
+        logical: LogicalPlan,
+        st: _Collected,
+        union_names: List[str],
+    ):
+        """Fitness/alignments over a union: one shared model (explicit, or
+        the reference branch's discovered model — compare() semantics),
+        then one sub-query per branch through :meth:`run` so each branch
+        keeps its own cache entry and append-aware delta path (an
+        alignment's DP runs per branch, on the card).  Traces never span
+        branches, so the merge concatenates the per-trace arrays in branch
+        order and sums the censuses."""
+        sink = logical.sink
+        spec = (
+            sink.model
+            if sink.model is not None
+            else self._model_for_source(
+                sink, logical.ops, union.branches[0].resolve(), st
+            )
+        )
+        pinned = dataclasses.replace(sink, model=spec)
+        results = []
+        for branch in union.branches:
+            src = branch.resolve()
+            ops = self._branch_conformance_ops(
+                logical.ops, self._branch_names_of(src)
+            )
+            results.append(self._run_branch(branch, src, ops, pinned).value)
+        t0 = time.perf_counter()
+        _dest_u, out_names = self._transform_tables(st, union_names)
+
+        def cat(arrays, dtype):
+            arrays = [a for a in arrays if a.shape[0]]
+            return (
+                np.concatenate(arrays) if arrays
+                else np.zeros((0,), dtype=dtype)
+            )
+
+        census: Dict = {}
+        for r in results:
+            for edge, c in r.deviating_edges.items():
+                census[edge] = census.get(edge, 0) + c
+        if isinstance(sink, FitnessSink):
+            tf = cat([r.trace_fitness for r in results], np.float64)
+            value = ReplayResult(
+                fitness=float(tf.mean()) if tf.shape[0] else 1.0,
+                trace_fitness=tf,
+                perfectly_fitting=sum(r.perfectly_fitting for r in results),
+                deviating_edges=census,
+            )
+        else:
+            fit = cat([r.trace_fitness for r in results], np.float64)
+            value = AlignmentResult(
+                fitness=float(fit.mean()) if fit.shape[0] else 1.0,
+                trace_cost=cat([r.trace_cost for r in results], np.int64),
+                trace_fitness=fit,
+                variant_costs=cat(
+                    [r.variant_costs for r in results], np.int64
+                ),
+                perfectly_fitting=sum(r.perfectly_fitting for r in results),
+                empty_cost=results[0].empty_cost,
+                deviating_edges=census,
+            )
+        self._note_seconds("merge", time.perf_counter() - t0)
+        return value, out_names
+
+    def _execute_compare(
+        self,
+        union: UnionSource,
+        logical: LogicalPlan,
+        st: _Collected,
+        union_names: List[str],
+        *,
+        empty: bool,
+        union_fp: str,
+    ):
+        u = len(union_names)
+        aligned = []
+        if empty:
+            aligned = [np.zeros((u, u), np.int64) for _ in union.branches]
+        else:
+            for _branch, src, value in self._branch_raw(union, logical):
+                t0 = time.perf_counter()
+                psi = np.zeros((u, u), dtype=np.int64)
+                ids = self._align_ids(self._branch_names_of(src), union_names)
+                psi[np.ix_(ids, ids)] += value
+                aligned.append(psi)
+                self._note_seconds("merge", time.perf_counter() - t0)
+
+        vis_names: Optional[List[str]] = None
+        psis = []
+        for psi in aligned:
+            v, names = _finish_dfg(psi, union_names, st)
+            psis.append(v)
+            vis_names = names  # identical per branch: same union axis + view
+        value = CompareResult(
+            log_names=union.branch_names,
+            names=list(vis_names),
+            psis=tuple(psis),
+            diffs=tuple(p - psis[0] for p in psis),
+            # whole-log signal, independent of window/filter/view — served
+            # from the per-fingerprint memo when the data hasn't changed
+            fitness=self._compare_fitness(union, union_fp),
+        )
+        return value, list(vis_names)
+
+    def _compare_fitness(
+        self, union: UnionSource, union_fp: str
+    ) -> Tuple[float, ...]:
+        """Replay-fitness drift: every branch replayed against the dependency
+        graph discovered from the first (reference) branch.
+
+        The value depends only on the union's data (never on the plan's
+        window/filter/view), so it is memoized per composite fingerprint —
+        a dashboard sliding its window re-uses the same tuple."""
+        with self._lock:
+            hit = self._fitness_memo.get(union_fp)
+            if hit is not None:
+                self._fitness_memo.move_to_end(union_fp)
+                return hit
+        fitness = self._compute_compare_fitness(union)
+        with self._lock:
+            self._fitness_memo[union_fp] = fitness
+            while len(self._fitness_memo) > _FITNESS_MEMO_SIZE:
+                self._fitness_memo.popitem(last=False)
+        return fitness
+
+    def _compute_compare_fitness(
+        self, union: UnionSource
+    ) -> Tuple[float, ...]:
+        """Whole-log replay fitness of every branch against the reference
+        branch's discovered model.  The model comes from the per-fingerprint
+        model memo (discovery runs once per data generation), and each
+        branch replays through :meth:`run` — in-budget branches
+        materialize, out-of-budget memmap branches replay in one streaming
+        scan, so no branch ever reports ``None``."""
+        raw = _Collected(repo=None)  # whole-log, untransformed signal
+        spec = self._model_for_source(
+            FitnessSink(), (), union.branches[0].resolve(), raw
+        )
+        pinned = FitnessSink(model=spec)
+        out = []
+        for branch in union.branches:
+            src = branch.resolve()
+            sub = self._run_branch(branch, src, (), pinned)
+            out.append(float(sub.value.fitness))
+        return tuple(out)
+
+    def _execute_concat(
+        self,
+        union: UnionSource,
+        info: SourceInfo,
+        logical: LogicalPlan,
+        fp: str,
+    ):
+        """Non-distributive union plans run on the materialized canonical
+        concatenation (memoized per composite fingerprint ``fp``)."""
+        with self._lock:
+            repo_u = self._repo_memo.get(fp)
+            if repo_u is not None:
+                self._repo_memo.move_to_end(fp)
+        if repo_u is None:
+            named = []
+            for branch in union.branches:
+                src = branch.resolve()
+                if isinstance(src, MemmapLog):
+                    t0 = time.perf_counter()
+                    src = self._materialize(
+                        src, fingerprint(src), branch.name
+                    )
+                    self._note_seconds(
+                        "materialize", time.perf_counter() - t0
+                    )
+                named.append((branch.name, src))
+            t0 = time.perf_counter()
+            repo_u = concat_repositories(
+                named, activity_vocab=list(info.activity_names)
+            )
+            self._note_seconds("concat", time.perf_counter() - t0)
+            with self._lock:
+                self._repo_memo[fp] = repo_u
+                while len(self._repo_memo) > _REPO_MEMO_SIZE:
+                    self._repo_memo.popitem(last=False)
+        # single-source execution on the concatenation, planned on its shape
+        inner = LogicalPlan("repository", logical.ops, logical.sink)
+        physical = self._plan_cached(inner, source_info(repo_u), False)
+        value, names, _resume = self._execute(
+            repo_u, inner, physical, source_fp=fp
+        )
+        return value, names
+
+    # -- delta (append-aware) ------------------------------------------------
+    @staticmethod
+    def _source_hint(source) -> Optional[str]:
+        """Stable identity for delta-candidate lookup.  Only a hint: a path
+        reused for unrelated data fails the prefix-digest proof and falls
+        back to a full execution."""
+        if isinstance(source, MemmapLog):
+            return realpath_of(source)
+        return None
+
+    def _try_delta(
+        self,
+        log: MemmapLog,
+        logical: LogicalPlan,
+        key: Tuple[str, str],
+        rewrites: Tuple[str, ...],
+        tr: QueryTrace,
+    ) -> Optional[QueryResult]:
+        """Append-aware path for a cache miss on a memmap source.
+
+        If the cache holds this plan's result for a *prefix* of ``log`` —
+        proven by recomputing the prefix digest on the current bytes, never
+        assumed from the path hint — then either:
+
+        * the plan's row range lies entirely inside the proven prefix
+          (window over old data): the cached result is the recompute, serve
+          it without any scan; or
+        * resume the cached streaming state (Ψ + per-case tails, histogram
+          counts, or the replayer's per-case state) over just the appended
+          suffix — the carried tails link the pairs that straddle the append
+          boundary, so the result is bit-identical to a full rescan.
+        """
+        fp_new, plan_key = key
+        if logical.has_barrier() or not isinstance(
+            logical.sink, (DFGSink, HistogramSink, FitnessSink)
+        ):
+            return None
+        if (
+            isinstance(logical.sink, FitnessSink)
+            and logical.sink.model is None
+        ):
+            # the default model is re-discovered from the *grown* log; the
+            # cached state replayed against the old model would not be
+            # bit-identical to a recompute — full replay instead
+            return None
+        hint = self._source_hint(log)
+        cand = self.cache.delta_candidate(hint, plan_key)
+        if cand is None:
+            return None
+        s = tr.begin("delta")
+        try:
+            old_fp, old_result, resume = cand
+            old = parse_memmap_fingerprint(old_fp)
+            if old is None or not 0 < old.num_events < log.num_events:
+                return None
+            if old.num_activities > log.num_activities:
+                return None  # vocabulary shrank: not an append-only change
+            if prefix_digest(log, old.num_events) != old.prefix:
+                # rewritten / truncated-and-regrown: stop consulting this
+                # hint
+                self.cache.drop_hint(hint, plan_key)
+                return None
+
+            st = _collect(None, logical)  # barrier-free: no repo needed
+            names = log.activity_labels()
+            if st.keep is not None:
+                _validate_keep(st.keep, names)
+            if st.window is not None and st.window.empty:
+                return None  # the zero-result short-circuit is cheaper
+            lo, hi = (
+                log.rows_for_window(st.window.t0, st.window.t1)
+                if st.window is not None
+                else (0, log.num_events)
+            )
+
+            if (
+                hi <= old.num_events
+                and old.num_activities == log.num_activities
+            ):
+                # free rewrite: every row the plan can touch lies in the
+                # proven prefix, so the cached result *is* the recompute,
+                # bit for bit
+                old_result.from_cache = True
+                self._c_delta_free_hits.inc()
+                tr.from_cache = True
+                tr.planned_backend = "delta"
+                tr.executed_backend = "delta_free"
+                tr.delta_rows = (old.num_events, old.num_events)
+                if old_result.source_trace_id:
+                    tr.links["produced_by"] = old_result.source_trace_id
+                # republish under the new fingerprint: the next run is a
+                # plain hit
+                self.cache.put(
+                    key, old_result, resume=resume, source_hint=hint
+                )
+                return old_result
+
+            if resume is None or resume.rows_end > old.num_events:
+                return None
+            if (
+                isinstance(logical.sink, FitnessSink)
+                and resume.replay is None
+            ):
+                return None
+            start = max(resume.rows_end, lo)
+            tr.planned_backend = "delta"
+            tr.delta_rows = (start, hi)
+            if log.num_events:
+                self._h_delta_fraction.observe(
+                    max(hi - start, 0) / log.num_events
+                )
+            t0 = time.perf_counter()
+            value, out_names, new_resume = self._execute_delta(
+                log, logical, st, resume, start, hi
+            )
+            wall = time.perf_counter() - t0
+            tr.executed_backend = "delta"
+            tr.actual_cost_s = wall
+            physical = PhysicalPlan(
+                backend="delta",
+                row_range_window=(
+                    (st.window.t0, st.window.t1)
+                    if st.window is not None
+                    else None
+                ),
+                activities_as_output_mask=st.keep is not None,
+                delta_rows=(start, hi),
+                notes=(f"resume@{start}", f"suffix_rows={hi - start}"),
+            )
+            self._c_executions.inc()
+            self._c_delta_hits.inc()
+            result = QueryResult(
+                value=value, names=out_names, logical=logical,
+                physical=physical, from_cache=False, wall_s=wall,
+                rewrites=rewrites, source_trace_id=tr.trace_id,
+            )
+            self.cache.put(key, result, resume=new_resume, source_hint=hint)
+            return result
+        finally:
+            tr.end(s)
+
+    def _execute_delta(
+        self,
+        log: MemmapLog,
+        logical: LogicalPlan,
+        st: _Collected,
+        resume: ResumableState,
+        start: int,
+        hi: int,
+    ):
+        """Resume ``resume`` over rows ``[start, hi)``: ``(value, names,
+        new resume)`` — the new state only when the scan reached the log's
+        last row."""
+        names = log.activity_labels()
+        self._note_rows(max(hi - start, 0))
+        a = log.num_activities
+        to_end = hi == log.num_events
+        if isinstance(logical.sink, FitnessSink):
+            dest, out_names = self._transform_tables(st, names)
+            rep = StreamingReplayer.restore(
+                resume.replay, out_names, logical.sink.model,
+                observer=self._observe_replay_chunk,
+            )
+            for c_a, c_c, c_t in log.iter_chunks(row_range=(start, hi)):
+                rep.update(*self._apply_stream_transform(dest, c_a, c_c, c_t))
+            new_resume = (
+                ResumableState(rows_end=hi, num_activities=a,
+                               replay=rep.snapshot())
+                if to_end else None
+            )
+            return rep.finalize(), out_names, new_resume
+        if isinstance(logical.sink, DFGSink):
+            miner = StreamingDFGMiner.restore(resume.miner, num_activities=a)
+            for c_a, c_c, c_t in log.iter_chunks(row_range=(start, hi)):
+                miner.update(c_a, c_c, c_t)
+            new_resume = (
+                ResumableState(rows_end=hi, num_activities=a,
+                               miner=miner.snapshot())
+                if to_end else None
+            )
+            value, out_names = _finish_dfg(miner.finalize(), names, st)
+            return value, out_names, new_resume
+        counts = np.zeros(a, dtype=np.int64)
+        counts[: resume.num_activities] = resume.counts
+        for c_a, _, _ in log.iter_chunks(row_range=(start, hi)):
+            counts += np.bincount(c_a, minlength=a)
+        new_resume = (
+            ResumableState(rows_end=hi, num_activities=a,
+                           counts=counts.copy())
+            if to_end else None
+        )
+        value, out_names = _finish_hist(counts, names, st)
+        return value, out_names, new_resume
+
     # -- execution -----------------------------------------------------------
     def _execute(
         self, source, logical: LogicalPlan, physical: PhysicalPlan,
         source_fp: Optional[str] = None,
     ):
+        """``(value, names, resume)``: ``resume`` is the
+        :class:`ResumableState` a streaming scan leaves when it consumed the
+        log through its last row (None on every other path)."""
         if not logical.has_barrier():
             # the planner sends barrier plans to neither the graph store
             # nor a streaming scan
@@ -654,13 +1415,28 @@ class QueryEngine:
                 # the right shape, without materializing or scanning
                 # anything.  Conformance and variants score an empty
                 # selection on their backend.
-                return self._empty_result(source, logical, st)
+                value, names = self._empty_result(source, logical, st)
+                return value, names, None
             if physical.backend == "graph":
-                return self._execute_graph(source, logical, st, source_fp)
+                value, names = self._execute_graph(
+                    source, logical, st, source_fp
+                )
+                return value, names, None
             if physical.backend == "streaming":
                 return self._execute_streaming(
                     source, logical, physical, st, source_fp
                 )
+        value, names = self._execute_on_repo(
+            source, logical, physical, source_fp
+        )
+        return value, names, None
+
+    def _execute_on_repo(
+        self, source, logical: LogicalPlan, physical: PhysicalPlan,
+        source_fp: Optional[str],
+    ):
+        """The columnar backends: on the repository (a memmap source
+        materialized first), after any barriers."""
         if logical.source == "memmap":
             t0 = time.perf_counter()
             repo = self._materialize(source, source_fp)
@@ -710,14 +1486,23 @@ class QueryEngine:
             return _finish_hist(np.zeros(a, dtype=np.int64), names, st)
         return _finish_dfg(zeros_psi, names, st)
 
-    def _materialize(self, log: MemmapLog, fp: Optional[str]) -> EventRepository:
+    def _materialize(
+        self,
+        log: MemmapLog,
+        fp: Optional[str],
+        log_name: Optional[str] = None,
+    ) -> EventRepository:
         if fp is not None:
             with self._lock:
                 repo = self._repo_memo.get(fp)
                 if repo is not None:
                     self._repo_memo.move_to_end(fp)
+                    if log_name is not None and repo.log_names != [log_name]:
+                        # same bytes, different branch name: share the
+                        # columns, fix the provenance
+                        repo = dataclasses.replace(repo, log_names=[log_name])
                     return repo
-        repo = repository_from_memmap(log)
+        repo = repository_from_memmap(log, log_name)
         if fp is not None:
             with self._lock:
                 self._repo_memo[fp] = repo
@@ -998,11 +1783,21 @@ class QueryEngine:
         self._note_rows(max(rng[1] - rng[0], 0))
         a = log.num_activities
         sink = logical.sink
+        # a DFG or histogram scan that consumed the log through its last row
+        # is resumable across future appends (the miner's per-case tails
+        # link pairs straddling the append boundary)
+        to_end = rng[1] == log.num_events
         if isinstance(sink, HistogramSink):
             counts = np.zeros(a, dtype=np.int64)
             for acts, _, _ in log.iter_chunks(row_range=rng):
                 counts += np.bincount(acts, minlength=a)
-            return _finish_hist(counts, names, st)
+            resume = (
+                ResumableState(rows_end=rng[1], num_activities=a,
+                               counts=counts.copy())
+                if to_end else None
+            )
+            value, out_names = _finish_hist(counts, names, st)
+            return value, out_names, resume
         # one scan accumulates Ψ (and the node counts a topology sink needs)
         topology = not isinstance(sink, DFGSink)
         miner = StreamingDFGMiner(a)
@@ -1012,8 +1807,17 @@ class QueryEngine:
             if topology:
                 counts += np.bincount(acts, minlength=a)
         if topology:
-            return _finish_topology(miner.finalize(), counts, names, st, sink)
-        return _finish_dfg(miner.finalize(), names, st)
+            value, out_names = _finish_topology(
+                miner.finalize(), counts, names, st, sink
+            )
+            return value, out_names, None
+        resume = (
+            ResumableState(rows_end=rng[1], num_activities=a,
+                           miner=miner.snapshot())
+            if to_end else None
+        )
+        value, out_names = _finish_dfg(miner.finalize(), names, st)
+        return value, out_names, resume
 
 
     # -- conformance (fitness / alignments) ----------------------------------
@@ -1221,7 +2025,15 @@ class QueryEngine:
         )
         for a, c, t in log.iter_chunks(row_range=rng):
             rep.update(*self._apply_stream_transform(dest, a, c, t))
-        return rep.finalize(), out_names
+        resume = None
+        if rng[1] == log.num_events and logical.sink.model is not None:
+            # resumable only under a pinned model: a default model is
+            # re-discovered from the grown log, invalidating old state
+            resume = ResumableState(
+                rows_end=rng[1], num_activities=log.num_activities,
+                replay=rep.snapshot(),
+            )
+        return rep.finalize(), out_names, resume
 
 
 # ---------------------------------------------------------------------------

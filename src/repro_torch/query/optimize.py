@@ -25,6 +25,15 @@ repository, so predicates must not cross them):
 * **no-op elimination** — infinite windows and keep-everything filters drop
   (needs the source schema, hence the ``activity_names`` argument).
 
+The same canonical form is count-preserving under the conformance sinks'
+**sequence semantics** (fitness / alignments re-link survivors instead of
+masking pairs): dicing events by two windows in either order keeps exactly
+the events inside the intersection, keep-sets intersect identically, and
+composed views project each event once.
+
+Over a union source, :func:`distribute_over_union` splits the canonical
+plan into the ops each branch runs and the ops the merge runs.
+
 Physical pushdowns (row-range dicing into :class:`MemmapLog`'s chunk time
 index, fused kernel dicing, view-below-count relabeling, activity filters as
 output masks) are decided by :mod:`repro_torch.query.planner` on top of the
@@ -49,7 +58,42 @@ from .ast import (
     is_barrier,
 )
 
-__all__ = ["canonicalize", "compose_views"]
+__all__ = ["canonicalize", "compose_views", "distribute_over_union"]
+
+
+def distribute_over_union(plan: LogicalPlan) -> Tuple[Tuple[Op, ...], Tuple[Op, ...]]:
+    """Split a canonical **barrier-free** plan into ``(branch_ops,
+    merge_ops)`` for a union source.
+
+    The rewrite is count-preserving because every op in scope is either
+
+    * a :class:`Window` — a pair-endpoint predicate.  Pairs never span
+      branches (traces belong to exactly one log), so filtering each branch
+      and summing equals filtering the concatenation: the window is
+      **pushed into every branch** (where it keeps the branch's own
+      row-range / fused-kernel pushdowns);
+    * an :class:`Activities` pair predicate or an :class:`ApplyView`
+      projection — both are *linear* in Ψ (an output mask, resp.
+      ``Gᵀ Ψ G``), so they commute with the union sum and run **once at the
+      merge**, on the aligned union vocabulary.  Branch entries then stay
+      reusable as plain single-log scans.
+
+    Materializing ops (:func:`is_barrier`) do not distribute — top-k
+    variants of a union is not the union of per-branch top-k — and are
+    routed to the materialized-concatenation path by the planner.
+
+    Topology sinks (process map / neighborhood) ride the same split: their
+    branch sub-queries count plain Ψ (plus per-branch histograms for node
+    significance), and the significance filter / BFS runs once at the
+    merge on the aligned union matrix.
+    """
+    if plan.has_barrier():
+        raise QueryPlanError(
+            "materializing ops do not distribute over a union"
+        )
+    branch = tuple(op for op in plan.ops if isinstance(op, Window))
+    merge = tuple(op for op in plan.ops if not isinstance(op, Window))
+    return branch, merge
 
 
 def compose_views(first: ApplyView, second: ApplyView) -> ApplyView:

@@ -20,6 +20,19 @@ engine on a CUDA card     ``kernel`` — the hand-written CUDA count; a time
                           (``dfg_count_diced``)
 ========================  =====================================================
 
+A union source (``Q.logs``) is costed branch by branch (one union may mix
+an out-of-core memmap with in-memory repositories): ``union`` merges the
+branches' own sub-plans on the aligned vocabulary, ``compare`` keeps them
+apart, and ``concat`` materializes the canonical concatenation for what
+does not distribute (the variants sink, materializing ops).  The notes
+record each branch's backend as ``branch[<name>]=<backend>``.
+
+One physical operator is chosen by the *engine*, not here: ``delta``.  When
+a memmap source is proven to be an append-only extension of a cached scan
+(prefix-preserving fingerprint), the engine resumes the cached streaming
+state over just the appended suffix — ``delta_rows`` records the suffix row
+range it scanned.
+
 Histograms count on the host: ``numpy`` over a repository, a chunked
 ``streaming`` bincount over a memmap log, or the graph store's ``:OF_TYPE``
 degrees when pinned to ``graph``.  The variants sink builds its table on
@@ -72,16 +85,20 @@ from .ast import (
     Activities,
     AlignmentsSink,
     ApplyView,
+    CompareSink,
     DFGSink,
     HistogramSink,
     LogicalPlan,
     NeighborhoodSink,
     ProcessMapSink,
     QueryPlanError,
+    UnionSource,
     VariantsSink,
     Window,
     is_barrier,
     not_ported,
+    source_kind,
+    union_activity_names,
 )
 
 __all__ = [
@@ -157,7 +174,7 @@ _DFG_BACKENDS = {
 #: reference backends that later slices port (ROADMAP Queue A item)
 _LATER_BACKENDS = {"distributed": 6, "sharded-graph": 8}
 #: sinks the planner maps (the reference's other sinks are later items)
-_SINKS = (DFGSink, HistogramSink, VariantsSink, ProcessMapSink,
+_SINKS = (DFGSink, HistogramSink, VariantsSink, CompareSink, ProcessMapSink,
           NeighborhoodSink)
 #: conformance sinks replay/align sequences — device counting backends do
 #: not apply; "numpy" is the columnar replay, "streaming" the one-pass
@@ -167,11 +184,15 @@ _CONFORMANCE_BACKENDS = {"auto", "numpy", "streaming", "graph"}
 
 @dataclasses.dataclass(frozen=True)
 class SourceInfo:
-    kind: str  # "repository" | "memmap"
+    kind: str  # "repository" | "memmap" | "union(...)"
     num_events: int
     num_pairs: int
     num_activities: int
     activity_names: Optional[Tuple[str, ...]]
+    # union sources only: per-branch shapes (costed individually — one
+    # union may mix an out-of-core memmap branch with in-memory ones)
+    branches: Optional[Tuple["SourceInfo", ...]] = None
+    branch_names: Optional[Tuple[str, ...]] = None
 
 
 def source_info(source) -> SourceInfo:
@@ -191,17 +212,37 @@ def source_info(source) -> SourceInfo:
             num_activities=source.num_activities,
             activity_names=None,
         )
+    if isinstance(source, UnionSource):
+        infos = tuple(source_info(b.resolve()) for b in source.branches)
+        names = tuple(union_activity_names(source))
+        return SourceInfo(
+            kind=source_kind(source),
+            num_events=sum(i.num_events for i in infos),
+            num_pairs=sum(i.num_pairs for i in infos),
+            num_activities=len(names),
+            activity_names=names,
+            branches=infos,
+            branch_names=source.branch_names,
+        )
     raise QueryPlanError(f"unsupported source {type(source).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
 class PhysicalPlan:
-    backend: str  # numpy | scatter | onehot | kernel | streaming | graph
+    # numpy | scatter | onehot | kernel | streaming | graph | delta
+    #   | union | compare | concat
+    # ("delta" is engine-chosen only: it resumes cached streaming state over
+    # a proven append-only suffix and is never requestable by the analyst;
+    # "union"/"compare" merge per-branch sub-plans — the notes record each
+    # branch's own backend — and "concat" materializes the concatenated
+    # repository for ops that do not distribute)
+    backend: str
     materialize: bool = False  # memmap source loaded into memory first
     row_range_window: Optional[Tuple[float, float]] = None
     fused_dicing: bool = False
     view_pushdown: bool = False
     activities_as_output_mask: bool = False
+    delta_rows: Optional[Tuple[int, int]] = None  # suffix row range scanned
     notes: Tuple[str, ...] = ()
 
     def describe(self) -> str:
@@ -216,6 +257,10 @@ class PhysicalPlan:
             parts.append("pushdown=view_below_count")
         if self.activities_as_output_mask:
             parts.append("rewrite=activity_filter→output_mask")
+        if self.delta_rows is not None:
+            parts.append(
+                f"delta=scan_rows[{self.delta_rows[0]}:{self.delta_rows[1]})"
+            )
         parts.extend(self.notes)
         return ", ".join(parts)
 
@@ -344,6 +389,87 @@ def _plan_conformance(
     return PhysicalPlan(backend="numpy", notes=tuple(notes))
 
 
+def _plan_union(
+    plan: LogicalPlan,
+    info: SourceInfo,
+    *,
+    device_type: str,
+    tiny_pairs: int,
+    memory_budget_events: int,
+    replay_crossover: int,
+) -> PhysicalPlan:
+    """Union costing: every branch is costed on its own shape (one union may
+    mix an out-of-core memmap with tiny in-memory repositories), and the
+    chosen per-branch backends are recorded in the notes."""
+    has_barrier, window, acts, _view = _segment_features(plan)
+    notes = []
+    if window is not None and window.empty:
+        notes.append("empty_window=zeros")
+
+    if isinstance(plan.sink, CompareSink):
+        if len(info.branches) < 2:
+            raise QueryPlanError(
+                "compare() needs at least two logs; got "
+                f"{len(info.branches)}"
+            )
+        if has_barrier:
+            raise QueryPlanError(
+                "materializing ops (top_variants / relink) are not "
+                "supported under compare(): they do not distribute over "
+                "the union"
+            )
+        backend = "compare"
+    elif has_barrier or isinstance(plan.sink, VariantsSink):
+        # non-distributive: materialize the canonical concatenation
+        if info.num_events > memory_budget_events:
+            raise QueryPlanError(
+                "variants / materializing ops on a union concatenate the "
+                "branches in memory; the union exceeds the memory budget"
+            )
+        return PhysicalPlan(
+            backend="concat",
+            materialize=True,
+            notes=("union=materialize_concatenation",) + tuple(notes),
+        )
+    else:
+        backend = "union"
+
+    # per-branch sub-plans: the window distributes into each branch, the
+    # rest (activity mask / view) runs once at the merge.  Conformance
+    # sinks distribute *every* op (sequence predicates transform each
+    # branch's traces — traces never span branches) and keep their own
+    # sink so each branch is costed as a replay, not a count.
+    if isinstance(plan.sink, CONFORMANCE_SINKS):
+        branch_ops = plan.ops
+        branch_sink = plan.sink
+    else:
+        branch_ops = (window,) if window is not None else ()
+        branch_sink = (
+            HistogramSink()
+            if isinstance(plan.sink, HistogramSink)
+            else DFGSink(backend=plan.sink.backend)
+        )
+    for name, binfo in zip(info.branch_names, info.branches):
+        bplan = LogicalPlan(binfo.kind, branch_ops, branch_sink)
+        bphys = plan_physical(
+            bplan, binfo,
+            device_type=device_type, tiny_pairs=tiny_pairs,
+            memory_budget_events=memory_budget_events,
+            replay_crossover=replay_crossover,
+        )
+        notes.append(f"branch[{name}]={bphys.backend}")
+    return PhysicalPlan(
+        backend=backend,
+        row_range_window=(
+            (window.t0, window.t1)
+            if window is not None and not window.empty
+            else None
+        ),
+        activities_as_output_mask=acts is not None,
+        notes=tuple(notes),
+    )
+
+
 def plan_physical(
     plan: LogicalPlan,
     info: SourceInfo,
@@ -364,7 +490,35 @@ def plan_physical(
     With it, un-windowed topology sinks route to the ``graph`` backend —
     CSR lookups instead of an O(E) recount — and conformance sinks replay
     the graph's stored event tables.  ``replay_crossover`` is the memmap
-    size above which ``auto`` replays in one streaming scan."""
+    size above which ``auto`` replays in one streaming scan.  A union source
+    (``info.branches``) plans each branch on its own shape
+    (:func:`_plan_union`)."""
+    if not isinstance(plan.sink, CONFORMANCE_SINKS):
+        if not isinstance(plan.sink, _SINKS):
+            raise QueryPlanError(f"unknown sink {plan.sink!r}")
+        requested = getattr(plan.sink, "backend", "auto")
+        if requested in _LATER_BACKENDS:
+            raise not_ported(
+                f"backend {requested!r}", _LATER_BACKENDS[requested]
+            )
+        if requested not in _DFG_BACKENDS:
+            hint = (
+                " (the port calls it 'kernel')" if requested == "pallas"
+                else ""
+            )
+            raise QueryPlanError(f"unknown DFG backend {requested!r}{hint}")
+    if info.branches is not None:
+        return _plan_union(
+            plan, info,
+            device_type=device_type, tiny_pairs=tiny_pairs,
+            memory_budget_events=memory_budget_events,
+            replay_crossover=replay_crossover,
+        )
+    if isinstance(plan.sink, CompareSink):
+        raise QueryPlanError(
+            "compare() requires a multi-log source — build one with "
+            "Q.logs(a, b, ...)"
+        )
     if isinstance(plan.sink, CONFORMANCE_SINKS):
         return _plan_conformance(
             plan, info,
@@ -372,14 +526,6 @@ def plan_physical(
             replay_crossover=replay_crossover,
             graph_available=graph_available,
         )
-    if not isinstance(plan.sink, _SINKS):
-        raise QueryPlanError(f"unknown sink {plan.sink!r}")
-    requested = getattr(plan.sink, "backend", "auto")
-    if requested in _LATER_BACKENDS:
-        raise not_ported(f"backend {requested!r}", _LATER_BACKENDS[requested])
-    if requested not in _DFG_BACKENDS:
-        hint = " (the port calls it 'kernel')" if requested == "pallas" else ""
-        raise QueryPlanError(f"unknown DFG backend {requested!r}{hint}")
     has_barrier, window, acts, view = _segment_features(plan)
     windowed = window is not None and not window.empty
     out_of_core = (

@@ -39,7 +39,13 @@ from repro_torch.core.dfg import dfg_numpy
 from repro_torch.core.repository import EventRepository as PortRepository
 from repro_torch.core.streaming import MemmapLog as PortMemmapLog
 from repro_torch.core.views import ActivityView
-from torch_parity import port_backend, ref_backend
+from torch_parity import (
+    assert_no_collision,
+    collides,
+    port_backend,
+    ref_backend,
+    ref_repository,
+)
 
 DAY = 86400.0
 A = 10
@@ -63,42 +69,14 @@ PAPER_EVAL_COLLISION = (
 # ---------------------------------------------------------------------------
 
 
-def _ref_of(repo: PortRepository) -> RefRepository:
-    """The reference's repository of the same columns and names."""
-    return RefRepository(
-        event_activity=repo.event_activity.copy(),
-        event_trace=repo.event_trace.copy(),
-        event_time=repo.event_time.copy(),
-        trace_log=repo.trace_log.copy(),
-        activity_names=list(repo.activity_names),
-        trace_names=list(repo.trace_names),
-        log_names=list(repo.log_names),
-    )
-
-
-def _exact_variants(repo) -> collections.Counter:
-    """Traces grouped by the tuple of their activity ids, with no hash."""
-    seqs = collections.defaultdict(list)
-    for t, a in zip(repo.event_trace.tolist(), repo.event_activity.tolist()):
-        seqs[t].append(a)
-    return collections.Counter(tuple(s) for s in seqs.values())
-
-
-def _collides(repo) -> bool:
-    """True when the reference's hash merges two distinct sequences."""
-    ref = ref_variants.trace_variants(_ref_of(repo))
-    return ref.num_variants != len(_exact_variants(repo))
-
-
-def _assert_no_collision(repo):
-    """Neither the log nor the selections the tests below align (the
-    relinked keep-set, a window's events) holds a hash collision."""
-    for r in (
+def _selections(repo):
+    """The log and the selections the tests below align: the relinked
+    keep-set and a window's events."""
+    return (
         repo,
         port_dicing.dice_repository(repo, activities=KEEP),
         port_dicing.dice_repository(repo, time_window=(5 * DAY, 60 * DAY)),
-    ):
-        assert not _collides(r)
+    )
 
 
 def _same_repo(port, ref):
@@ -233,7 +211,7 @@ def repos():
         400, ref_synth.ProcessSpec(**SPEC), seed=0
     )
     _same_repo(port, ref)
-    _assert_no_collision(port)
+    assert_no_collision(*_selections(port))
     counts = port_variants.trace_variants(port).counts
     assert counts[0] == counts[1], "the log should open on a tie"
     return port, ref
@@ -246,7 +224,9 @@ def memmap(tmp_path_factory):
         path, 3000, port_synth.ProcessSpec(**SPEC), seed=6, batch_traces=60,
     )
     port, ref = PortMemmapLog.open(path), RefMemmapLog.open(path)
-    _assert_no_collision(port_query.repository_from_memmap(port))
+    assert_no_collision(
+        *_selections(port_query.repository_from_memmap(port))
+    )
     return port, ref
 
 
@@ -671,7 +651,7 @@ def test_variant_filtered_repository_matches_reference(logs, k):
     port, ref = logs
     got = port_variants.variant_filtered_repository(port, k)
     _same_repo(got, _filtered_by_loop(port, port_variants.trace_variants(port), k))
-    if not _collides(port):
+    if not collides(port):
         _same_repo(got, ref_variants.variant_filtered_repository(ref, k))
     if k <= 0:
         assert got.num_events == 0 and got.num_traces == 0
@@ -696,5 +676,5 @@ def test_variants_property_counts(traces):
     )
     assert int(tv.counts.sum()) == len(traces)
     assert sorted(map(tuple, tv.sequences)) == sorted(exact)
-    if not _collides(port):
-        _same_variants(tv, ref_variants.trace_variants(_ref_of(port)))
+    if not collides(port):
+        _same_variants(tv, ref_variants.trace_variants(ref_repository(port)))
