@@ -54,7 +54,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    the host DP); an ``AnalystSession`` on the shared default engine whose
    floored 30-day Ψ equals phase 3's; and the barriers' split on the host
    clock;
-4. the mining CLI in-process (``repro_torch.launch.mine``);
+3e. unions, cross-log compare and delta resume at the same width (two
+   deployments), each answer against host oracles, launch counts against
+   ``PREDICTED_3E``;
+3f. the case-sharded graph tier and the distributed DFG at the same width:
+   phase 3's log partitioned into 4 case shards (``case % 4``); on a fresh
+   default engine the sharded DFG (one ``dfg_count`` + one
+   ``segment_count`` per shard graph build), histogram, 30-day DFG, process
+   map and neighborhood against the single log's host oracles; an append of
+   72,000 rows on the cases of one residue that rescans only the owning
+   shard; an engine with a mesh of the card (``distributed``: one
+   ``dfg_count`` per mesh position) and ``distributed_dfg`` with
+   hierarchical and flat reductions; two gloo ranks spawned on the card,
+   each counting half of the pairs with ``dfg_count``, one (A, A) int64
+   all-reduce per mesh axis, and the mesh merge of the 4 shard Ψ; launch
+   counts against ``PREDICTED_3F``;
+4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
+   and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
    the bytes or operations bound (``ms``: CUDA events around the host's
    call and the launch; ``device_ms``: the same launch enqueued behind a
@@ -80,6 +96,7 @@ has tolerance 0.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -1956,6 +1973,373 @@ def phase_union(torch, mlog, repo, results, model, card, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f — the case-sharded graph tier and the distributed DFG
+# ---------------------------------------------------------------------------
+
+#: phase 3f's launches, predicted from the code before its first run on the
+#: card (PERF.md §6): the sharded DFG builds each shard's graph on the
+#: card (one B1 + one B3 per shard); the histogram, 30-day DFG, process map
+#: and neighborhood are served by those graphs (their sub-queries are graph
+#: lookups, window indexes and cache hits), and the append extends shard 2's
+#: graph on the host; the mesh engine counts on its one position (one B1 per
+#: DFG, the window masked before the count), ``distributed_dfg`` launches one
+#: B1 per call, and each of the two ranks one B1 (counted in the ranks)
+PREDICTED_3F = {"dfg_count": 10, "dfg_count_diced": 0, "segment_count": 4,
+                "align_dp": 0}
+PREDICTED_3F_QUERIES = {
+    "S1 sharded.dfg": {"dfg_count": 4, "segment_count": 4},
+    "S2 sharded.histogram": {},
+    "S3 sharded.window(30d).dfg": {},
+    "S4 sharded.process_map": {},
+    "S5 sharded.neighborhood": {},
+    "S6 grown.dfg": {},
+    "D1 mesh.dfg": {"dfg_count": 1},
+    "D2 mesh.window(30d).dfg": {"dfg_count": 1},
+    "D3 distributed_dfg(hierarchical)": {"dfg_count": 1},
+    "D4 distributed_dfg(flat)": {"dfg_count": 1},
+    "R two ranks": {"dfg_count": 2},
+}
+#: case shards of the sharded deployment and ranks of the rank check
+SHARDS, RANKS = 4, 2
+#: seconds the rank check may take, spawn and rendezvous included
+RANK_TIMEOUT_S = 180
+#: the device both ranks count on (gloo: NCCL refuses two ranks on one card)
+RANK_DEVICE = "cuda:0"
+
+
+def _rank_worker(rank, world, tmp, a, device):
+    """One gloo rank on ``device`` (spawned): counts its half of phase 3's
+    pairs with ``distributed_dfg`` (one B1), sums over the ranks, then
+    merges the shard Ψ on the two-position mesh; saves its answers,
+    reductions and launches under ``tmp``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.kernels.dfg_count import ops
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+    )
+    try:
+        mesh = make_mesh((world,), ("data",), devices=[device] * world)
+        act = np.load(os.path.join(tmp, "act.npy"))
+        valid = np.load(os.path.join(tmp, "valid.npy"))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psi = D.distributed_dfg(mesh, act[:-1], act[1:], valid, a)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        reductions = [[c.op, list(c.axes), list(c.shape), c.dtype]
+                      for c in D.last_reductions]
+        launches = {k: v for k, v in ops.launch_counts.items() if v}
+        with np.load(os.path.join(tmp, "shard_psis.npz")) as z:
+            psis = [z[f"psi{k}"] for k in range(SHARDS)]
+            maps = [z[f"ids{k}"] for k in range(SHARDS)]
+        merged = D.merge_shard_psis(psis, maps, a, mesh=mesh)
+        merge_reductions = [list(c.axes) for c in D.last_reductions]
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), psi=psi,
+                 merged=merged)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"seconds": seconds, "reductions": reductions,
+                       "merge_reductions": merge_reductions,
+                       "launches": launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(tmp, a):
+    """Spawn the ranks, wait for them under the time limit, kill any that
+    outlives it; fails unless every rank exits 0."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_worker,
+                         args=(r, RANKS, tmp, a, RANK_DEVICE))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    codes = []
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+        if p.is_alive():
+            p.kill()
+            p.join()
+        codes.append(p.exitcode)
+    check(codes == [0] * RANKS, f"rank exit codes {codes}")
+
+
+def phase_sharded(torch, mlog, repo, results, card, tmp):
+    """The case-sharded graph tier and the distributed DFG through default
+    engines at PAPER_EVAL width, each answer against host oracles written
+    here (tolerance 0).  Returns {kernel: launches}."""
+    import numpy as np
+
+    from repro_torch.core import dfg_numpy, pair_mask_for_window
+    from repro_torch.core import distributed as D
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.graph import (
+        csr_from_dense,
+        derive_neighborhood,
+        derive_process_map,
+        partition_memmap_log,
+    )
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.query import (
+        NeighborhoodSink,
+        ProcessMapSink,
+        Q,
+        QueryEngine,
+        fingerprint,
+    )
+    from repro_torch.query.cache import split_sharded_fingerprint
+
+    t_phase = time.perf_counter()
+    a = mlog.num_activities
+    names = list(repo.activity_names)
+    t_min = float(mlog.time[0])
+    w30 = (t_min, t_min + 30 * DAY)
+    kernel_ops = (ops, seg_ops, dp_ops)
+
+    def counts_now():
+        out = {}
+        for m in kernel_ops:
+            out.update(m.launch_counts)
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- the sharded deployment -----------------------------------------------
+    t0 = time.perf_counter()
+    sh = partition_memmap_log(mlog, SHARDS, os.path.join(tmp, "prod_sharded"))
+    sizes = [s.num_events for _, s in sh.present_shards()]
+    check(len(sizes) == SHARDS and sum(sizes) == mlog.num_events,
+          f"shard sizes {sizes}")
+    log(f"sharded: partitioned prod's {mlog.num_events} events into {SHARDS} "
+        f"case shards {sizes} in {time.perf_counter() - t0:.2f} s (host)")
+
+    # -- host oracles on the single log ---------------------------------------
+    src, dst, valid = repo.df_pairs()
+    psi_all = results[0][2].value  # == the host oracle (phase 3)
+    psi_30 = dfg_numpy(src, dst, valid & pair_mask_for_window(repo, w30), a)
+    hist = np.bincount(repo.event_activity, minlength=a).astype(np.int64)
+    center = names[int(np.argmax(hist))]
+    pm_sink, nb_sink = ProcessMapSink(), NeighborhoodSink(center, k=2)
+    adj = csr_from_dense(psi_all)
+    want_pm = derive_process_map(adj, hist, names, pm_sink.top,
+                                 pm_sink.edge_top)
+    want_nb = derive_neighborhood(adj, adj.transpose(), names, center,
+                                  nb_sink.k, nb_sink.direction)
+
+    engine = QueryEngine()
+    qs = Q.log(sh).using(engine)
+    queries = {
+        "S1 sharded.dfg": lambda: qs.dfg(),
+        "S2 sharded.histogram": lambda: qs.histogram(),
+        "S3 sharded.window(30d).dfg": lambda: qs.window(*w30).dfg(),
+        "S4 sharded.process_map": lambda: qs.process_map(),
+        "S5 sharded.neighborhood": lambda: qs.neighborhood(center, k=2),
+    }
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    res, walls, launched = {}, {}, {}
+
+    def run(name, fn):
+        before = counts_now()
+        res[name], walls[name] = timed(fn)
+        after = counts_now()
+        launched[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+
+    for name, fn in queries.items():
+        run(name, fn)
+    for name in queries:
+        r = res[name]
+        check(r.physical.backend == "sharded-graph" and not r.from_cache,
+              f"{name}: {r.physical.describe()}")
+        check({n for n, _ in r.trace.branches}
+              == {f"shard{k}" for k in range(SHARDS)},
+              f"{name}: shard sub-queries {r.trace.branches}")
+    for name, got, want in (("S1 sharded.dfg", res["S1 sharded.dfg"].value,
+                             psi_all),
+                            ("S2 sharded.histogram",
+                             res["S2 sharded.histogram"].value, hist),
+                            ("S3 sharded.window(30d).dfg",
+                             res["S3 sharded.window(30d).dfg"].value, psi_30)):
+        check(got.dtype == np.int64 and np.array_equal(got, want),
+              f"{name} differs from the single log's host oracle")
+    check(_same_process_map(np, res["S4 sharded.process_map"].value, want_pm),
+          "S4: the process map differs from the host oracle's")
+    nb = res["S5 sharded.neighborhood"].value
+    check(nb == want_nb, "S5: the neighborhood differs from the host oracle's")
+    log(f"  S1-S5: Ψ total {int(psi_all.sum())}, histogram, 30-day Ψ total "
+        f"{int(psi_30.sum())}, process map ({len(want_pm.activities)} "
+        f"activities) and neighborhood of {center} == the single log's "
+        "host oracles")
+
+    # -- S6: an append on the cases of one residue -----------------------------
+    n_app = mlog.num_events // 100
+    rng = np.random.default_rng(20)
+    owner = 2
+    shard = sh.shards[owner]
+    open_cases = np.unique(np.asarray(shard.case[-n_app:]))
+    n_new = n_app // 4
+    first_new = (mlog.num_traces // SHARDS + 1) * SHARDS + owner
+    case = np.concatenate([
+        rng.choice(open_cases, n_app - n_new),
+        first_new + SHARDS * rng.integers(0, n_new // 4 + 1, n_new),
+    ]).astype(np.int32)
+    rng.shuffle(case)
+    act = rng.integers(0, a, n_app).astype(np.int32)
+    times = float(mlog.time[-1]) + np.sort(rng.uniform(0.0, DAY, n_app))
+    t0 = time.perf_counter()
+    grown = sh.append(act, case, times)
+    append_s = time.perf_counter() - t0
+    slots0 = split_sharded_fingerprint(fingerprint(sh))
+    slots1 = split_sharded_fingerprint(fingerprint(grown))
+    check([i for i in range(SHARDS) if slots0[i] != slots1[i]] == [owner],
+          "the append moved another shard's fingerprint slot")
+    rows0 = engine.stats.rows_scanned
+    run("S6 grown.dfg", lambda: Q.log(grown).using(engine).dfg())
+    r6 = res["S6 grown.dfg"]
+    rescanned = engine.stats.rows_scanned - rows0
+    hits = {n: t.from_cache for n, t in r6.trace.branches}
+    check(rescanned == n_app, f"S6 rescanned {rescanned} rows, not {n_app}")
+    check(hits == {f"shard{k}": k != owner for k in range(SHARDS)},
+          f"S6 shard sub-queries from the cache: {hits}")
+    t0 = time.perf_counter()
+    ga = np.concatenate([np.asarray(mlog.activity), act])
+    gc = np.concatenate([np.asarray(mlog.case), case])
+    gt = np.concatenate([np.asarray(mlog.time), times])
+    order = np.lexsort((np.arange(ga.shape[0]), gt, gc))
+    ga, gc = ga[order], gc[order]
+    want_grown = dfg_numpy(ga[:-1], ga[1:], gc[:-1] == gc[1:], a)
+    oracle_s = time.perf_counter() - t0
+    check(np.array_equal(r6.value, want_grown),
+          "S6: Ψ of the grown log differs from the host oracle")
+    log(f"  S6: appended {n_app} rows on {np.unique(case).shape[0]} cases of "
+        f"residue {owner} in {append_s:.2f} s; only shard{owner} rescanned "
+        f"({rescanned} rows, its graph extended), the others cache hits; Ψ "
+        f"total {int(want_grown.sum())} == host oracle ({oracle_s:.2f} s)")
+
+    # -- D1-D4: an engine with a mesh of the card, distributed_dfg ---------------
+    mesh = make_mesh((1,), ("data",))
+    meng = QueryEngine(mesh=mesh)
+    run("D1 mesh.dfg", lambda: Q.log(mlog).using(meng).dfg())
+    run("D2 mesh.window(30d).dfg",
+        lambda: Q.log(mlog).using(meng).window(*w30).dfg())
+    reductions = {}
+    for name, hier in (("D3 distributed_dfg(hierarchical)", True),
+                       ("D4 distributed_dfg(flat)", False)):
+        run(name, lambda: D.distributed_dfg(mesh, src, dst, valid, a,
+                                            hierarchical=hier))
+        reductions[name] = [(c.axes, c.shape, c.dtype)
+                            for c in D.last_reductions]
+    for name, want in (("D1 mesh.dfg", psi_all),
+                       ("D2 mesh.window(30d).dfg", psi_30)):
+        r = res[name]
+        check(r.physical.backend == "distributed"
+              and np.array_equal(r.value, want),
+              f"{name}: {r.physical.describe()}, Ψ == oracle "
+              f"{np.array_equal(r.value, want)}")
+    for name in reductions:
+        check(np.array_equal(res[name], psi_all), f"{name}: Ψ differs")
+        check(reductions[name] == [(("data",), (a, a), "int64")],
+              f"{name}: reductions {reductions[name]}")
+    log("  D1-D4: the mesh engine planned distributed; Ψ and 30-day Ψ == "
+        "phase 3's; hierarchical and flat reductions agree")
+
+    # -- R: two gloo ranks on the card ----------------------------------------
+    rtmp = os.path.join(tmp, "ranks")
+    os.makedirs(rtmp)
+    np.save(os.path.join(rtmp, "act.npy"), repo.event_activity)
+    np.save(os.path.join(rtmp, "valid.npy"), valid)
+    shard_psis, shard_ids = {}, {}
+    for k, s in sh.present_shards():
+        sub = Q.log(s).using(engine).dfg(backend="graph")
+        check(sub.from_cache, f"shard{k}'s Ψ is not cached")
+        shard_psis[f"psi{k}"] = sub.value
+        shard_ids[f"ids{k}"] = np.arange(s.num_activities)
+    np.savez(os.path.join(rtmp, "shard_psis.npz"), **shard_psis, **shard_ids)
+    want_merged = np.sum(list(shard_psis.values()), axis=0, dtype=np.int64)
+    _, walls["R two ranks"] = timed(lambda: _run_ranks(rtmp, a))
+    rank_launches, rank_s = {}, []
+    for r in range(RANKS):
+        with np.load(os.path.join(rtmp, f"rank{r}.npz")) as z:
+            psi_r, merged_r = z["psi"], z["merged"]
+        with open(os.path.join(rtmp, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        check(np.array_equal(psi_r, psi_all),
+              f"rank {r}: Ψ differs from the host oracle")
+        check(rec["reductions"] == [["all_reduce", ["data"], [a, a], "int64"]],
+              f"rank {r}: reductions {rec['reductions']}")
+        check(np.array_equal(merged_r, want_merged)
+              and rec["merge_reductions"] == [["data"]],
+              f"rank {r}: the mesh merge of the shard Ψ differs")
+        for k, v in rec["launches"].items():
+            rank_launches[k] = rank_launches.get(k, 0) + v
+        rank_s.append(rec["seconds"])
+    launched["R two ranks"] = rank_launches
+    check(np.array_equal(want_merged, psi_all),
+          "the numpy sum of the shard Ψ differs from the single log's")
+    log(f"  R: {RANKS} gloo ranks on {RANK_DEVICE}, each counted half of the "
+        f"{src.shape[0]} pairs with dfg_count ("
+        + " / ".join(f"{x:.4f}" for x in rank_s)
+        + " s incl. the all_reduce); every Ψ == host oracle; one "
+        f"({a}, {a}) int64 all_reduce per mesh axis crossed ranks; the mesh "
+        f"merge of the {SHARDS} shard Ψ == the numpy sum; "
+        f"{walls['R two ranks']:.1f} s with the spawn")
+
+    counts_3f = counts_now()
+    for k, v in rank_launches.items():
+        counts_3f[k] = counts_3f.get(k, 0) + v
+    log(f"sharded / distributed launches: {counts_3f} (predicted "
+        f"{PREDICTED_3F})")
+    for name in res:
+        r = res[name]
+        desc = spans = ""
+        if hasattr(r, "physical"):  # a QueryResult, not distributed_dfg's Ψ
+            desc = f", {r.physical.describe()}"
+            notes = r.trace.notes
+            spans = "  " + "  ".join(
+                f"{k} {notes.get(f'{k}_s', 0.0):.4f}"
+                for k in ("materialize", "h2d", "kernel", "d2h",
+                          "distributed")
+            ) + f"  shard_merge {r.trace.span_seconds('shard_merge'):.4f}"
+        log(f"  {name}: wall {walls[name]:.4f} s, launches "
+            f"{launched[name]}{desc}{spans}")
+    log(f"  R two ranks: wall {walls['R two ranks']:.4f} s, launches "
+        f"{launched['R two ranks']}")
+    check(launched == PREDICTED_3F_QUERIES,
+          f"phase 3f per-query launches {launched} differ from the "
+          f"prediction {PREDICTED_3F_QUERIES}")
+    check(counts_3f == PREDICTED_3F,
+          f"phase 3f launches {counts_3f} differ from the prediction "
+          f"{PREDICTED_3F}")
+    log(f"phase 3f walls [{card}] (s; host clock, card synchronized): "
+        + "  ".join(f"{k.split()[0]} {v:.4f}" for k, v in walls.items()))
+    total = time.perf_counter() - t_phase
+    log(f"phase 3f: {total:.1f} s, of which queries "
+        f"{sum(walls.values()):.1f} s")
+    return counts_3f
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 — the CLI
 # ---------------------------------------------------------------------------
 
@@ -1964,15 +2348,24 @@ def phase_cli():
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.launch import mine
 
-    summary = mine.main(
-        ["--events", "4000000", "--activities", "32", "--dice-days", "30"]
-    )
+    args = ["--events", "4000000", "--activities", "32"]
+    summary = mine.main(args + ["--dice-days", "30"])
     check(summary["mode"] == "kernel", f"mine ran on {summary['mode']}")
     check("fused_kernel_dicing" in summary["plan"], "mine did not fuse the dice")
     check(ops.last_launch.get("branch") == "shared",
           f"mine's count took the {ops.last_launch.get('branch')} branch")
     log(f"cli: mode={summary['mode']} branch={ops.last_launch['branch']} "
         f"grid={ops.last_launch['grid']}")
+    plain = mine.main(args)
+    dist = mine.main(args + ["--distributed"])
+    check(plain["mode"] == "kernel" and dist["mode"] == "distributed(1)",
+          f"mine modes {plain['mode']} / {dist['mode']}")
+    check(dist["total_pairs"] == plain["total_pairs"],
+          f"mine --distributed total_pairs {dist['total_pairs']} != "
+          f"{plain['total_pairs']}")
+    log(f"cli --distributed: mode={dist['mode']}, total_pairs "
+        f"{dist['total_pairs']} == plain run ({plain['mode']}), dfg "
+        f"{dist['dfg_s']} s / {plain['dfg_s']} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2652,8 +3045,12 @@ def main() -> int:
                 "PAPER_EVAL width")
             union_counts = phase_union(torch, mlog, repo, results, model,
                                        card, tmp)
+            log("== phase 3f: sharded graph tier and distributed DFG at "
+                "PAPER_EVAL width")
+            shard_counts = phase_sharded(torch, mlog, repo, results, card,
+                                         tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
-                    "3d": var_counts, "3e": union_counts}
+                    "3d": var_counts, "3e": union_counts, "3f": shard_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

@@ -2,9 +2,10 @@
 
 Event repositories (Definition 1), soundness (Definition 2), Algorithm 1
 (DFG) in scatter / one-hot / CUDA-kernel formulations, dicing,
-access-control views and analyst sessions, streaming (out-of-core)
-execution, DFG-based discovery and footprints, the in-memory baseline,
-runtime telemetry mining, token-replay conformance and trace variants.
+access-control views and analyst sessions, distributed (mesh) and
+streaming (out-of-core) execution, DFG-based discovery and footprints, the
+in-memory baseline, runtime telemetry mining, token-replay conformance and
+trace variants.
 """
 
 from .repository import (
@@ -29,6 +30,7 @@ from .dicing import (
     pair_mask_for_window,
 )
 from .views import HIDDEN, AccessPolicy, ActivityView, AnalystSession
+from .distributed import distributed_dfg, lower_distributed_dfg, shard_pairs
 from .discovery import (
     DiscoveredModel,
     dependency_matrix,
@@ -72,6 +74,7 @@ __all__ = [
     "dice_repository", "event_mask_for_activities", "event_mask_for_window",
     "pair_mask_for_window",
     "HIDDEN", "AccessPolicy", "ActivityView", "AnalystSession",
+    "distributed_dfg", "lower_distributed_dfg", "shard_pairs",
     "DiscoveredModel", "dependency_matrix", "discover_dependency_graph",
     "filter_dfg", "footprint", "footprint_conformance", "to_dot",
     "InMemoryDFGBaseline", "dfg_from_rows",

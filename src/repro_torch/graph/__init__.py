@@ -19,6 +19,12 @@ same store as the ``graph`` physical backend (``Q.log(...).process_map()``,
 :class:`~repro_torch.graph.store.GraphStore` keeps built graphs keyed by
 source fingerprint and extends them in place over proven append-only
 suffixes.
+
+The **sharded graph tier** (:mod:`repro_torch.graph.shard`) scales the same
+store case-wise: :func:`partition_memmap_log` splits a memmap log into K
+case-partitioned shards (``case % K`` — cases never span shards), each an
+independently fingerprinted CSR snapshot, and the engine's
+``sharded-graph`` backend merges per-shard Ψ with a pure aligned sum.
 """
 
 from .build import (
@@ -29,6 +35,12 @@ from .build import (
     build_window_index,
     csr_from_dense,
     dense_from_csr,
+)
+from .shard import (
+    ShardedLog,
+    open_sharded_log,
+    partition_memmap_log,
+    sharded_log_name,
 )
 from .store import (
     GraphStore,
@@ -56,4 +68,6 @@ __all__ = [
     "Neighborhood", "ProcessMap", "dfg_from_graph", "neighborhood",
     "derive_neighborhood", "path_frequencies", "process_map",
     "derive_process_map",
+    "ShardedLog", "open_sharded_log", "partition_memmap_log",
+    "sharded_log_name",
 ]

@@ -1,13 +1,16 @@
 """Process-mining CLI — the paper's pipeline end to end, through the
 declarative query engine (``repro_torch.query``): the CLI states *what* to
 mine (log, dice, sink) and the engine's cost model picks the physical path
-(streaming scan or the CUDA kernel).
+(streaming scan, the CUDA kernel, or the distributed count over a mesh).
 
     # generate a synthetic BPI-like log and mine it on the card
     PYTHONPATH=src python -m repro_torch.launch.mine --events 500000 --dice-days 30
 
     # the same on the host
     PYTHONPATH=src python -m repro_torch.launch.mine --events 20000 --device cpu
+
+    # distributed DFG over a 1-D mesh of every visible card
+    PYTHONPATH=src python -m repro_torch.launch.mine --events 500000 --distributed
 """
 
 from __future__ import annotations
@@ -31,23 +34,32 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where counting runs (default: the CUDA card)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-card DFG (not ported yet: ROADMAP Queue A "
-                         "item 6)")
+                    help="distributed DFG over a 1-D mesh of every visible "
+                         "card (of the host with --device cpu)")
     ap.add_argument("--min-count", type=int, default=10)
     ap.add_argument("--dot-out", default=None)
     args = ap.parse_args(argv)
 
-    if args.distributed:
-        raise SystemExit(
-            "--distributed is not ported to repro_torch yet (ROADMAP Queue A "
-            "item 6)"
-        )
-
     from repro_torch.core import to_dot
+    from repro_torch.core.compat import make_mesh, visible_cards
+    from repro_torch.device import resolve_device
     from repro_torch.query import QueryEngine
 
     # fail on a missing card before spending time on the log
-    engine = QueryEngine(device=args.device, memory_budget_events=1 << 22)
+    device = resolve_device(args.device)
+    mesh = None
+    if args.distributed:
+        devices = visible_cards() if device.type == "cuda" else (device,)
+        mesh = make_mesh((len(devices),), ("data",), devices=devices)
+    engine = QueryEngine(
+        device=device,
+        mesh=mesh,
+        # --distributed pins the device path: lift the out-of-core budget so
+        # the pairs materialize onto the mesh instead of streaming host-side
+        memory_budget_events=(
+            max(args.events + 1, 1 << 22) if mesh is not None else 1 << 22
+        ),
+    )
     with tempfile.TemporaryDirectory(prefix="graphpm_mine_") as tmp:
         summary, model = _mine(engine, args, os.path.join(tmp, "log"))
     print(json.dumps(summary, indent=1))
@@ -82,6 +94,9 @@ def _mine(engine, args, path: str):
     t0 = time.perf_counter()
     res = q.dfg(backend=args.backend)
     psi = res.value
+    mode = res.physical.backend
+    if mode == "distributed":
+        mode += f"({'x'.join(str(s) for s in engine.mesh.devices.shape)})"
     dfg_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -96,7 +111,7 @@ def _mine(engine, args, path: str):
 
     summary = {
         "events": log.num_events,
-        "mode": res.physical.backend,
+        "mode": mode,
         "device": str(engine.device),
         "plan": res.physical.describe(),
         "diced": window is not None,

@@ -102,6 +102,7 @@ from .optimize import canonicalize, distribute_over_union
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
     REPLAY_STREAMING_CROSSOVER,
+    SHARDED_SINGLE_CROSSOVER,
     PhysicalPlan,
     SourceInfo,
     device_memory_budget,
@@ -126,5 +127,5 @@ __all__ = [
     "canonicalize", "distribute_over_union",
     "plan_physical", "PhysicalPlan", "SourceInfo", "source_info",
     "device_memory_budget", "GRAPH_REPEAT_CROSSOVER",
-    "REPLAY_STREAMING_CROSSOVER",
+    "REPLAY_STREAMING_CROSSOVER", "SHARDED_SINGLE_CROSSOVER",
 ]

@@ -15,6 +15,7 @@ Grammar::
 
     plan   := source  op*  sink
     source := leaf                      -- EventRepository | MemmapLog
+                                           | ShardedLog
             | LogRef(leaf, name)        -- a *named* single log
             | FromLogs(repo, names)     -- the L×T dice: the named logs of a
                                            multi-log repository
@@ -325,7 +326,9 @@ class LogRef:
     underlying store the engine executes on."""
 
     def __init__(self, source, name: str):
-        if not isinstance(source, (EventRepository, MemmapLog)):
+        from repro_torch.graph.shard import ShardedLog
+
+        if not isinstance(source, (EventRepository, MemmapLog, ShardedLog)):
             raise QueryPlanError(
                 f"LogRef wraps a leaf source, got {type(source).__name__}"
             )
@@ -454,9 +457,13 @@ def union_activity_names(union: UnionSource) -> List[str]:
 
 
 def _default_branch_name(source, index: int) -> str:
+    from repro_torch.graph.shard import ShardedLog, sharded_log_name
+
     if isinstance(source, MemmapLog):
         # same rule as repository_from_memmap provenance (core.streaming)
         return memmap_log_name(source)
+    if isinstance(source, ShardedLog):
+        return sharded_log_name(source)
     if isinstance(source, EventRepository):
         if len(source.log_names) == 1:
             return source.log_names[0]
@@ -470,24 +477,29 @@ def _default_branch_name(source, index: int) -> str:
 
 
 def source_kind(source) -> str:
+    # local import: graph.shard depends on core + sharding only — no cycle
+    from repro_torch.graph.shard import ShardedLog
+
     if isinstance(source, EventRepository):
         return "repository"
     if isinstance(source, MemmapLog):
         return "memmap"
+    if isinstance(source, ShardedLog):
+        return "sharded"
     if isinstance(source, UnionSource):
         return "union(" + ",".join(b.kind for b in source.branches) + ")"
     if isinstance(source, (LogRef, FromLogs)):
         return source.kind
     raise QueryPlanError(
-        f"unsupported query source {type(source).__name__}; expected "
-        "EventRepository, MemmapLog or a source-algebra node (sharded logs: "
-        "ROADMAP Queue A item 8)"
+        f"unsupported query source {type(source).__name__}; "
+        "expected EventRepository, MemmapLog, ShardedLog, or a "
+        "source-algebra node"
     )
 
 
 @dataclasses.dataclass(frozen=True)
 class LogicalPlan:
-    source: str  # "repository" | "memmap"
+    source: str  # "repository" | "memmap" | "sharded" | "union(...)"
     ops: Tuple[Op, ...]
     sink: Sink
 
@@ -626,6 +638,12 @@ class Query:
     # -- introspection -------------------------------------------------------
     def logical_plan(self, sink: Sink) -> LogicalPlan:
         return LogicalPlan(self._kind, self.ops, sink)
+
+    def explain(self, sink: Optional[Sink] = None, after=None) -> str:
+        """The reference's planner explanation (``QueryEngine.explain``,
+        with its recorded-trace diff) comes with the serving and
+        observability tier."""
+        raise not_ported("Query.explain", 10)
 
 
 class Q:

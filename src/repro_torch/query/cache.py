@@ -56,6 +56,8 @@ __all__ = [
     "fingerprint_memmap",
     "fingerprint_union",
     "split_union_fingerprint",
+    "fingerprint_sharded",
+    "split_sharded_fingerprint",
     "prefix_digest",
     "realpath_of",
     "MemmapFingerprint",
@@ -266,14 +268,43 @@ def split_union_fingerprint(fp: str):
     return out
 
 
+def fingerprint_sharded(sharded) -> str:
+    """Composite fingerprint ``sharded(fp0|fp1|...)``, one slot per residue
+    class in shard order (``-`` marks a residue with no shard yet, so the
+    slot count pins K).  Each present slot is the shard's own
+    **prefix-preserving** ``memmap:<digest>:<rows>:<A>`` fingerprint: an
+    append changes only the owning shards' slots, which is exactly what lets
+    the engine keep per-shard cache entries (and delta resume) alive for
+    every untouched shard while any change still invalidates sharded-level
+    entries."""
+    return "sharded(" + "|".join(
+        "-" if s is None else fingerprint_memmap(s) for s in sharded.shards
+    ) + ")"
+
+
+def split_sharded_fingerprint(fp: str):
+    """``sharded(fp0|fp1|...)`` → ``[fp0_or_None, fp1_or_None, ...]`` (None
+    for absent shards; returns None if not a sharded fingerprint)."""
+    if not (fp.startswith("sharded(") and fp.endswith(")")):
+        return None
+    return [
+        None if part == "-" else part
+        for part in fp[len("sharded("):-1].split("|")
+    ]
+
+
 def fingerprint(source) -> str:
-    # local import: ast.py depends on core only, so no cycle
+    # local imports: ast.py / graph.shard depend on core only, so no cycle
+    from repro_torch.graph.shard import ShardedLog
+
     from .ast import FromLogs, LogRef, UnionSource
 
     if isinstance(source, EventRepository):
         return fingerprint_repository(source)
     if isinstance(source, MemmapLog):
         return fingerprint_memmap(source)
+    if isinstance(source, ShardedLog):
+        return fingerprint_sharded(source)
     if isinstance(source, UnionSource):
         return fingerprint_union(source)
     if isinstance(source, LogRef):

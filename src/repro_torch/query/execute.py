@@ -24,6 +24,13 @@ primitives:
   over the columns, a streaming scan or the graph's event tables, and
   alignments whose per-variant DP runs on the engine's device (the
   ``align_dp`` CUDA kernel on a card),
+* ``distributed_dfg`` over a :class:`~repro_torch.core.compat.Mesh` (one
+  ``dfg_count`` launch per mesh position, the partials summed over the
+  mesh's axes, or ``all_reduce`` across ranks of a process group),
+* a case-sharded log (:class:`~repro_torch.graph.shard.ShardedLog`): one
+  graph-pinned sub-query per shard through :meth:`QueryEngine.run`, merged
+  by an aligned pure sum (``sharded-graph``), or one concatenated
+  repository below the sharded-vs-single-host crossover,
 * union sources (``Q.logs``): one sub-query per branch through
   :meth:`QueryEngine.run` itself (so each branch keeps its own cache entry,
   backend and delta path), merged on the aligned union vocabulary — or,
@@ -61,6 +68,11 @@ from repro_torch.conformance.replay import (
 from repro_torch.core.conformance import ModelSpec, ReplayResult
 from repro_torch.core.dfg import dfg_numpy, dfg_onehot, dfg_scatter
 from repro_torch.core.dicing import dice_repository, pair_mask_for_window
+from repro_torch.core.distributed import (
+    distributed_dfg,
+    merge_shard_counts,
+    merge_shard_psis,
+)
 from repro_torch.core.discovery import DiscoveredModel, discover_dependency_graph
 from repro_torch.core.repository import EventRepository, concat_repositories
 from repro_torch.core.streaming import MemmapLog, StreamingDFGMiner, memmap_log_name
@@ -68,6 +80,7 @@ from repro_torch.core.variants import trace_variants, variant_filtered_repositor
 from repro_torch.core.views import HIDDEN
 from repro_torch.device import resolve_device
 from repro_torch.graph.build import EventGraph, csr_from_dense
+from repro_torch.graph.shard import ShardedLog, sharded_log_name
 from repro_torch.graph.store import GraphStore
 from repro_torch.graph.traverse import derive_neighborhood, derive_process_map
 from repro_torch.kernels.dfg_count import ops as _ops
@@ -109,6 +122,7 @@ from .planner import (
     GRAPH_REPEAT_CROSSOVER,
     MEMORY_BUDGET_EVENTS,
     REPLAY_STREAMING_CROSSOVER,
+    SHARDED_SINGLE_CROSSOVER,
     TINY_PAIRS,
     PhysicalPlan,
     SourceInfo,
@@ -172,6 +186,7 @@ class EngineStats:
     union_queries: int = 0  # multi-source (Q.logs) queries, incl. compare
     graph_queries: int = 0  # answered from the CSR event-knowledge graph
     conformance_queries: int = 0  # fitness / alignments sinks
+    shard_queries: int = 0  # answered by the sharded-graph merge backend
 
 
 @dataclasses.dataclass
@@ -219,12 +234,23 @@ def repository_from_memmap(
 
     ``log_name`` (default: derived from the memmap path) becomes the
     repository's single ``log_names`` entry.
+
+    A :class:`ShardedLog` materializes as the concatenation of its shards;
+    the canonical lexsort restores the global trace-contiguous, time-sorted
+    order (cases never span shards, so no case is ever split by it).
     """
+    if isinstance(log, ShardedLog):
+        parts = [s for _, s in log.present_shards()]
+        default_name = sharded_log_name(log)
+    else:
+        parts = [log]
+        default_name = memmap_log_name(log)
     acts, cases, times = [], [], []
-    for a, c, t in log.iter_chunks():
-        acts.append(a)
-        cases.append(c)
-        times.append(t)
+    for part in parts:
+        for a, c, t in part.iter_chunks():
+            acts.append(a)
+            cases.append(c)
+            times.append(t)
     a = np.concatenate(acts) if acts else np.zeros((0,), np.int32)
     c = np.concatenate(cases) if cases else np.zeros((0,), np.int32)
     t = np.concatenate(times) if times else np.zeros((0,), np.float64)
@@ -240,7 +266,7 @@ def repository_from_memmap(
         trace_log=np.zeros(uniq_cases.shape[0], dtype=np.int32),
         activity_names=list(log.activity_labels()),
         trace_names=[f"case_{int(x)}" for x in uniq_cases],
-        log_names=[log_name or memmap_log_name(log)],
+        log_names=[log_name or default_name],
     )
 
 
@@ -434,20 +460,31 @@ class QueryEngine:
     engine's :class:`~repro_torch.graph.GraphStore`.  ``replay_crossover``
     (default :data:`~repro_torch.query.planner.REPLAY_STREAMING_CROSSOVER`)
     is the memmap size above which ``auto`` fitness replays in one
-    streaming scan instead of materializing."""
+    streaming scan instead of materializing.
+
+    ``mesh`` (a :class:`~repro_torch.core.compat.Mesh`) sends in-memory
+    counts above ``tiny_pairs`` to the ``distributed`` backend: each mesh
+    position counts its shard of the pairs and the (A, A) partials are
+    summed over the mesh.  ``sharded_crossover`` (default
+    :data:`~repro_torch.query.planner.SHARDED_SINGLE_CROSSOVER`) is the
+    sharded-log size at or below which ``auto`` counts the concatenation on
+    one host instead of merging per-shard graphs."""
 
     def __init__(
         self,
         *,
         device="cuda",
+        mesh=None,
         tiny_pairs: int = TINY_PAIRS,
         memory_budget_events: Optional[int] = None,
         graph_crossover: int = GRAPH_REPEAT_CROSSOVER,
         max_graphs: int = 8,
         graph_spill_dir: Optional[str] = None,
         replay_crossover: Optional[int] = None,
+        sharded_crossover: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.tiny_pairs = tiny_pairs
         if memory_budget_events is None:
             if self.device.type == "cuda":
@@ -463,6 +500,11 @@ class QueryEngine:
             REPLAY_STREAMING_CROSSOVER
             if replay_crossover is None
             else int(replay_crossover)
+        )
+        self.sharded_crossover = (
+            SHARDED_SINGLE_CROSSOVER
+            if sharded_crossover is None
+            else int(sharded_crossover)
         )
         self.metrics = MetricsRegistry()
         m = self.metrics
@@ -499,6 +541,10 @@ class QueryEngine:
         self._c_conformance = m.counter(
             "engine_conformance_queries_total",
             "Conformance (fitness / alignments) queries",
+        )
+        self._c_shard = m.counter(
+            "engine_shard_queries_total",
+            "Queries answered by the sharded-graph merge backend",
         )
         self._h_replay_chunk = m.histogram(
             "replay_chunk_seconds", "Streaming-replay chunk wall time"
@@ -550,6 +596,7 @@ class QueryEngine:
             union_queries=self._c_union.value,
             graph_queries=self._c_graph.value,
             conformance_queries=self._c_conformance.value,
+            shard_queries=self._c_shard.value,
         )
 
     # -- tracing ---------------------------------------------------------------
@@ -560,6 +607,8 @@ class QueryEngine:
         and device phases to itself and branches chain under the union."""
         if isinstance(source, UnionSource):
             kind = "union"
+        elif isinstance(source, ShardedLog):
+            kind = "sharded"
         elif isinstance(source, MemmapLog):
             kind = "memmap"
         else:
@@ -729,7 +778,13 @@ class QueryEngine:
                 return False
         elif not isinstance(logical.sink, TOPOLOGY_SINKS):
             return False
-        if self.graphs.peek(fp) or self.graphs.has_extendable(source):
+        if isinstance(source, ShardedLog):
+            # warm when every present shard's CSR is registered (either
+            # tier) — then the K-way merge serves without any shard scan,
+            # so even a below-crossover log should stay on sharded-graph
+            if self._shards_warm(source):
+                return True
+        elif self.graphs.peek(fp) or self.graphs.has_extendable(source):
             return True
         with self._lock:
             n = self._topo_seen.get(fp, 0) + 1
@@ -738,6 +793,15 @@ class QueryEngine:
             while len(self._topo_seen) > self._max_topo_seen:
                 self._topo_seen.popitem(last=False)
         return n >= self.graph_crossover
+
+    def _shards_warm(self, sharded: ShardedLog) -> bool:
+        """Every present shard has a registered graph (memory or disk
+        tier) built from the shard's current — or an appendable earlier —
+        state."""
+        shards = sharded.present_shards()
+        return bool(shards) and all(
+            self.graphs.has_extendable(s) for _, s in shards
+        )
 
     def _plan_cached(
         self, logical: LogicalPlan, info: SourceInfo, graph_available: bool
@@ -752,11 +816,13 @@ class QueryEngine:
                 return physical
         physical = plan_physical(
             logical, info,
+            mesh=self.mesh,
             device_type=self.device.type,
             tiny_pairs=self.tiny_pairs,
             memory_budget_events=self.memory_budget_events,
             graph_available=graph_available,
             replay_crossover=self.replay_crossover,
+            sharded_crossover=self.sharded_crossover,
         )
         with self._lock:
             self._plans[plan_key] = physical
@@ -1175,7 +1241,7 @@ class QueryEngine:
             named = []
             for branch in union.branches:
                 src = branch.resolve()
-                if isinstance(src, MemmapLog):
+                if isinstance(src, (MemmapLog, ShardedLog)):
                     t0 = time.perf_counter()
                     src = self._materialize(
                         src, fingerprint(src), branch.name
@@ -1207,7 +1273,7 @@ class QueryEngine:
         """Stable identity for delta-candidate lookup.  Only a hint: a path
         reused for unrelated data fails the prefix-digest proof and falls
         back to a full execution."""
-        if isinstance(source, MemmapLog):
+        if isinstance(source, (MemmapLog, ShardedLog)):
             return realpath_of(source)
         return None
 
@@ -1417,6 +1483,9 @@ class QueryEngine:
                 # selection on their backend.
                 value, names = self._empty_result(source, logical, st)
                 return value, names, None
+            if physical.backend == "sharded-graph":
+                value, names = self._execute_sharded(source, logical, st)
+                return value, names, None
             if physical.backend == "graph":
                 value, names = self._execute_graph(
                     source, logical, st, source_fp
@@ -1436,8 +1505,9 @@ class QueryEngine:
         source_fp: Optional[str],
     ):
         """The columnar backends: on the repository (a memmap source
-        materialized first), after any barriers."""
-        if logical.source == "memmap":
+        materialized first — a sharded log as its shards' concatenation),
+        after any barriers."""
+        if logical.source in ("memmap", "sharded"):
             t0 = time.perf_counter()
             repo = self._materialize(source, source_fp)
             self._note_seconds("materialize", time.perf_counter() - t0)
@@ -1470,7 +1540,7 @@ class QueryEngine:
     def _empty_result(self, source, logical: LogicalPlan, st: _Collected):
         names = (
             list(source.activity_labels())
-            if logical.source == "memmap"
+            if logical.source in ("memmap", "sharded")
             else list(source.activity_names)
         )
         if st.keep is not None:
@@ -1560,6 +1630,17 @@ class QueryEngine:
         if backend == "numpy":
             act = np.asarray(act)
             return dfg_numpy(act[:-1], act[1:], np.asarray(valid), a_count)
+        if backend == "distributed":
+            # each mesh position uploads and counts its own shard; only the
+            # (A, A) aggregate comes back
+            act = np.asarray(act)
+            t0 = time.perf_counter()
+            psi = distributed_dfg(
+                self.mesh, act[:-1], act[1:], np.asarray(valid, bool),
+                a_count,
+            )
+            self._note_seconds("distributed", time.perf_counter() - t0)
+            return psi
         dev = self.device
         t0 = time.perf_counter()
         act_d = torch.from_numpy(np.ascontiguousarray(act, np.int32)).to(dev)
@@ -1655,6 +1736,91 @@ class QueryEngine:
         return _finish_topology(
             psi, counts.astype(np.int64), list(repo.activity_names), st, sink
         )
+
+    # -- sharded graph (case-partitioned shard merge) ------------------------
+    def _shard_raw(
+        self,
+        sharded: ShardedLog,
+        branch_ops: Tuple,
+        sub_sink: Sink,
+        union_names: List[str],
+    ):
+        """Per-shard raw sink values + alignment maps, each through a full
+        :meth:`run` — so every shard keeps its own cache entry, its own
+        CSR snapshot in the graph store (built on the engine's device), and
+        its own append-aware path (an append touches only the owning shards'
+        fingerprints; the other shards answer as plain cache hits with zero
+        rows scanned).  Sub-traces ride the enclosing trace as ``shard<k>``
+        branches, like union branches."""
+        vals, maps = [], []
+        cur = self._current_trace()
+        for k, shard in sharded.present_shards():
+            sub = self.run(Query(shard, branch_ops, self), sub_sink)
+            if cur is not None and sub.trace is not None:
+                cur.add_branch(f"shard{k}", sub.trace)
+            vals.append(sub.value)
+            maps.append(self._align_ids(shard.activity_labels(), union_names))
+        return vals, maps
+
+    def _execute_sharded(
+        self, sharded: ShardedLog, logical: LogicalPlan, st: _Collected
+    ):
+        """Topology/histogram sinks over a case-partitioned sharded log.
+
+        Cases never span shards under the ``case % K`` partition, so every
+        DF pair is counted by exactly one shard and the global Ψ is a *pure
+        sum* of the per-shard Ψ matrices on the aligned union vocabulary
+        (:func:`~repro_torch.core.distributed.merge_shard_psis` — the same
+        contract as the distributed backend; with a mesh the sum runs on
+        the mesh's devices).  Each shard answers through the graph tier
+        (pinned ``backend="graph"`` sub-query), so repeated queries hit
+        resident CSR snapshots and never rescan the log; masks and views
+        run once at the merge, exactly like union branches.  The merge is
+        the ``shard_merge`` span of the trace."""
+        self._c_shard.inc()
+        names = list(sharded.activity_labels())
+        if st.keep is not None:
+            _validate_keep(st.keep, names)
+        branch_ops, _merge = distribute_over_union(logical)
+        tr = self._current_trace()
+        sink = logical.sink
+
+        if isinstance(sink, HistogramSink):
+            vals, maps = self._shard_raw(
+                sharded, branch_ops, HistogramSink(backend="graph"), names
+            )
+            s = tr.begin("shard_merge") if tr is not None else None
+            counts = merge_shard_counts(vals, maps, len(names))
+            value = _finish_hist(counts, names, st)
+            if s is not None:
+                tr.end(s)
+            return value
+
+        psis, maps = self._shard_raw(
+            sharded, branch_ops, DFGSink(backend="graph"), names
+        )
+        counts_vals = cmaps = None
+        if isinstance(sink, ProcessMapSink):
+            # node weights need a second, histogram sub-query per shard —
+            # both sub-results stay plain single-log cache entries every
+            # sink type reuses
+            counts_vals, cmaps = self._shard_raw(
+                sharded, branch_ops, HistogramSink(backend="graph"), names
+            )
+        s = tr.begin("shard_merge") if tr is not None else None
+        psi = merge_shard_psis(psis, maps, len(names), mesh=self.mesh)
+        if isinstance(sink, DFGSink):
+            value = _finish_dfg(psi, names, st)
+        else:
+            counts = (
+                merge_shard_counts(counts_vals, cmaps, len(names))
+                if counts_vals is not None
+                else np.zeros(len(names), dtype=np.int64)
+            )
+            value = _finish_topology(psi, counts, names, st, sink)
+        if s is not None:
+            tr.end(s)
+        return value
 
     # -- graph (event-knowledge-graph store) ---------------------------------
     def _execute_graph(

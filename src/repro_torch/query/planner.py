@@ -14,10 +14,15 @@ memmap log > budget       ``streaming`` scan (O(A²+chunk) memory), window
 memmap log ≤ budget       materialize once, then the device path below
 tiny input (≤ tiny_pairs) ``numpy`` scatter-add on the host — beats a device
                           round trip at this size
+engine with a mesh        ``distributed`` — each mesh position counts its
+                          shard of the pairs, the (A, A) partials are summed
+                          over the mesh's axes
 engine on the CPU         ``scatter`` (torch ``index_put_``)
 engine on a CUDA card     ``kernel`` — the hand-written CUDA count; a time
                           window fuses into the kernel's WHERE clause
                           (``dfg_count_diced``)
+sharded log               ``sharded-graph`` — per-shard CSR snapshots merged
+                          by an aligned pure sum (:func:`_plan_sharded`)
 ========================  =====================================================
 
 A union source (``Q.logs``) is costed branch by branch (one union may mix
@@ -78,6 +83,7 @@ from typing import Optional, Tuple
 
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog
+from repro_torch.graph.shard import ShardedLog
 from repro_torch.kernels.dfg_count.ops import MAX_ACTIVITIES, MAX_PAIRS
 
 from .ast import (
@@ -96,7 +102,6 @@ from .ast import (
     VariantsSink,
     Window,
     is_barrier,
-    not_ported,
     source_kind,
     union_activity_names,
 )
@@ -110,6 +115,7 @@ __all__ = [
     "MEMORY_BUDGET_EVENTS",
     "GRAPH_REPEAT_CROSSOVER",
     "REPLAY_STREAMING_CROSSOVER",
+    "SHARDED_SINGLE_CROSSOVER",
     "device_memory_budget",
 ]
 
@@ -128,6 +134,16 @@ GRAPH_REPEAT_CROSSOVER = 3
 #: value (a CUDA engine's measured budget is larger, and the crossover is
 #: then what sends large logs to the streaming replayer)
 REPLAY_STREAMING_CROSSOVER = MEMORY_BUDGET_EVENTS
+#: sharded-log events above which the sharded-graph backend (per-shard CSR
+#: snapshots + aligned merge) beats concatenate-and-materialize on a single
+#: host.  The reference's static default; it reads a measured value from its
+#: calibration record (``sharded_single_crossover``), which the port does not
+#: read, so an engine takes this constant unless ``sharded_crossover`` is set
+SHARDED_SINGLE_CROSSOVER = 1 << 18
+#: the reference's cost prior of a graph serve (dispatch seconds, events per
+#: second) that a sharded plan's per-shard notes quote
+_GRAPH_DISPATCH_S = 5e-5
+_GRAPH_EVENTS_PER_S = 4e8
 
 #: device bytes per event that ``QueryEngine._count`` uploads: the int32
 #: activity column (4 B), the bool valid column (1 B) and, for a fused
@@ -169,10 +185,9 @@ def device_memory_budget(device_free_bytes: int, host_free_bytes: int) -> int:
 
 
 _DFG_BACKENDS = {
-    "auto", "numpy", "scatter", "onehot", "kernel", "streaming", "graph",
+    "auto", "numpy", "scatter", "onehot", "kernel", "streaming",
+    "distributed", "graph", "sharded-graph",
 }
-#: reference backends that later slices port (ROADMAP Queue A item)
-_LATER_BACKENDS = {"distributed": 6, "sharded-graph": 8}
 #: sinks the planner maps (the reference's other sinks are later items)
 _SINKS = (DFGSink, HistogramSink, VariantsSink, CompareSink, ProcessMapSink,
           NeighborhoodSink)
@@ -184,7 +199,7 @@ _CONFORMANCE_BACKENDS = {"auto", "numpy", "streaming", "graph"}
 
 @dataclasses.dataclass(frozen=True)
 class SourceInfo:
-    kind: str  # "repository" | "memmap" | "union(...)"
+    kind: str  # "repository" | "memmap" | "sharded" | "union(...)"
     num_events: int
     num_pairs: int
     num_activities: int
@@ -193,6 +208,10 @@ class SourceInfo:
     # union may mix an out-of-core memmap branch with in-memory ones)
     branches: Optional[Tuple["SourceInfo", ...]] = None
     branch_names: Optional[Tuple[str, ...]] = None
+    # sharded sources only: per-shard shapes (each shard is costed as an
+    # independent memmap — windowed serves need every shard in budget)
+    shards: Optional[Tuple["SourceInfo", ...]] = None
+    shard_names: Optional[Tuple[str, ...]] = None
 
 
 def source_info(source) -> SourceInfo:
@@ -212,6 +231,18 @@ def source_info(source) -> SourceInfo:
             num_activities=source.num_activities,
             activity_names=None,
         )
+    if isinstance(source, ShardedLog):
+        present = source.present_shards()
+        infos = tuple(source_info(s) for _, s in present)
+        return SourceInfo(
+            kind="sharded",
+            num_events=sum(i.num_events for i in infos),
+            num_pairs=sum(i.num_pairs for i in infos),
+            num_activities=source.num_activities,
+            activity_names=tuple(source.activity_labels()),
+            shards=infos,
+            shard_names=tuple(f"shard{k}" for k, _ in present),
+        )
     if isinstance(source, UnionSource):
         infos = tuple(source_info(b.resolve()) for b in source.branches)
         names = tuple(union_activity_names(source))
@@ -229,13 +260,14 @@ def source_info(source) -> SourceInfo:
 
 @dataclasses.dataclass(frozen=True)
 class PhysicalPlan:
-    # numpy | scatter | onehot | kernel | streaming | graph | delta
-    #   | union | compare | concat
+    # numpy | scatter | onehot | kernel | streaming | distributed | graph
+    #   | delta | union | compare | concat | sharded-graph
     # ("delta" is engine-chosen only: it resumes cached streaming state over
     # a proven append-only suffix and is never requestable by the analyst;
     # "union"/"compare" merge per-branch sub-plans — the notes record each
-    # branch's own backend — and "concat" materializes the concatenated
-    # repository for ops that do not distribute)
+    # branch's own backend — "concat" materializes the concatenated
+    # repository for ops that do not distribute, and "sharded-graph" merges
+    # per-shard graph serves)
     backend: str
     materialize: bool = False  # memmap source loaded into memory first
     row_range_window: Optional[Tuple[float, float]] = None
@@ -289,10 +321,13 @@ _BARRIER_ON_GRAPH = (
 
 
 def _device_backend(
-    num_pairs: int, *, device_type: str, tiny_pairs: int, requested: str
+    num_pairs: int, *, mesh, device_type: str, tiny_pairs: int,
+    requested: str,
 ) -> str:
     if requested != "auto":
         return requested
+    if mesh is not None and num_pairs > tiny_pairs:
+        return "distributed"
     if num_pairs <= tiny_pairs:
         return "numpy"
     if device_type == "cpu":
@@ -393,6 +428,7 @@ def _plan_union(
     plan: LogicalPlan,
     info: SourceInfo,
     *,
+    mesh,
     device_type: str,
     tiny_pairs: int,
     memory_budget_events: int,
@@ -453,7 +489,7 @@ def _plan_union(
         bplan = LogicalPlan(binfo.kind, branch_ops, branch_sink)
         bphys = plan_physical(
             bplan, binfo,
-            device_type=device_type, tiny_pairs=tiny_pairs,
+            mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
             memory_budget_events=memory_budget_events,
             replay_crossover=replay_crossover,
         )
@@ -470,15 +506,137 @@ def _plan_union(
     )
 
 
+def _plan_sharded(
+    plan: LogicalPlan,
+    info: SourceInfo,
+    *,
+    mesh,
+    device_type: str,
+    tiny_pairs: int,
+    memory_budget_events: int,
+    graph_available: bool,
+    sharded_crossover: int,
+) -> PhysicalPlan:
+    """Physical plan for a case-partitioned :class:`ShardedLog`.
+
+    The ``sharded-graph`` backend serves topology/histogram sinks from K
+    per-shard CSR snapshots merged by an aligned pure sum (cases never span
+    shards).  Below the sharded-vs-single-host crossover — and when the
+    shard graphs are not already warm — a one-host concatenate-and-
+    materialize count wins (the K-way merge constant dominates tiny logs),
+    so ``auto`` falls back to it.
+    """
+    has_barrier, window, acts, view = _segment_features(plan)
+    windowed = window is not None and not window.empty
+    notes = []
+    if window is not None and window.empty:
+        notes.append("empty_window=zeros")
+
+    if isinstance(plan.sink, CompareSink):
+        raise QueryPlanError(
+            "compare() requires a multi-log source — build one with "
+            "Q.logs(a, b, ...)"
+        )
+    if isinstance(plan.sink, CONFORMANCE_SINKS):
+        raise QueryPlanError(
+            "conformance sinks are not implemented for sharded logs; "
+            "query one shard directly or materialize a dicing first"
+        )
+    requested = getattr(plan.sink, "backend", "auto")
+    if requested not in ("auto", "sharded-graph"):
+        raise QueryPlanError(
+            f"backend {requested!r} is not available on a sharded log; "
+            "use 'sharded-graph' or 'auto'"
+        )
+
+    if has_barrier or isinstance(plan.sink, VariantsSink):
+        if requested == "sharded-graph":
+            raise QueryPlanError(
+                "sharded-graph cannot evaluate variants / materializing ops "
+                "(top_variants / relink): they need the global trace table; "
+                "drop them or use auto"
+            )
+        if info.num_events > memory_budget_events:
+            raise QueryPlanError(
+                "variants / materializing ops on a sharded log concatenate "
+                "the shards in memory; the log exceeds the memory budget"
+            )
+        return PhysicalPlan(
+            backend="numpy",
+            materialize=True,
+            notes=("sharded=materialize_concatenation",) + tuple(notes),
+        )
+
+    single_host = (
+        requested == "auto"
+        and not graph_available
+        and info.num_events <= min(sharded_crossover, memory_budget_events)
+    )
+    if single_host:
+        notes.append(
+            f"sharded=single_host_below_crossover"
+            f"({info.num_events}≤{sharded_crossover})"
+        )
+        if isinstance(plan.sink, HistogramSink):
+            return PhysicalPlan(
+                backend="numpy", materialize=True, notes=tuple(notes)
+            )
+        backend = _device_backend(
+            info.num_pairs, mesh=mesh, device_type=device_type,
+            tiny_pairs=tiny_pairs, requested="auto",
+        )
+        view_pushdown = False
+        if view is not None and info.activity_names is not None:
+            labels = view.to_view().visible_labels(info.activity_names)
+            if len(labels) < info.num_activities:
+                view_pushdown = True
+                notes.append(
+                    f"count_space=G×G ({len(labels)}<{info.num_activities})"
+                )
+        return PhysicalPlan(
+            backend=backend,
+            materialize=True,
+            fused_dicing=backend == "kernel" and windowed,
+            view_pushdown=view_pushdown,
+            activities_as_output_mask=acts is not None and not view_pushdown,
+            notes=tuple(notes),
+        )
+
+    if windowed:
+        for name, sinfo in zip(info.shard_names, info.shards):
+            if sinfo.num_events > memory_budget_events:
+                raise QueryPlanError(
+                    "windowed sharded-graph queries serve from per-shard "
+                    f"event tables; {name} exceeds the memory budget — "
+                    "repartition into more shards"
+                )
+    notes.append(
+        "sharded=tables_window_merge" if windowed
+        else "sharded=csr_psum_merge"
+    )
+    # per-shard cost estimates: each shard is an independent graph serve
+    for name, sinfo in zip(info.shard_names, info.shards):
+        cost = _GRAPH_DISPATCH_S + sinfo.num_events / _GRAPH_EVENTS_PER_S
+        notes.append(f"shard[{name}]=graph cost≈{cost:.1e}s")
+    return PhysicalPlan(
+        backend="sharded-graph",
+        row_range_window=(window.t0, window.t1) if windowed else None,
+        activities_as_output_mask=acts is not None,
+        notes=tuple(notes),
+    )
+
+
 def plan_physical(
     plan: LogicalPlan,
     info: SourceInfo,
     *,
+    mesh=None,
     device_type: str = "cuda",
     tiny_pairs: int = TINY_PAIRS,
     memory_budget_events: int = MEMORY_BUDGET_EVENTS,
     graph_available: bool = False,
     replay_crossover: int = REPLAY_STREAMING_CROSSOVER,
+    sharded_crossover: int = SHARDED_SINGLE_CROSSOVER,
 ) -> PhysicalPlan:
     """Map a canonical logical plan to a physical one.  ``plan`` must be the
     output of :func:`repro_torch.query.optimize.canonicalize`;
@@ -492,27 +650,40 @@ def plan_physical(
     the graph's stored event tables.  ``replay_crossover`` is the memmap
     size above which ``auto`` replays in one streaming scan.  A union source
     (``info.branches``) plans each branch on its own shape
-    (:func:`_plan_union`)."""
+    (:func:`_plan_union`); a sharded source (``info.shards``) plans the
+    shard merge or, below ``sharded_crossover`` events, one host
+    (:func:`_plan_sharded`).  With a ``mesh`` (a
+    :class:`~repro_torch.core.compat.Mesh`), ``auto`` counts above
+    ``tiny_pairs`` on the ``distributed`` backend."""
     if not isinstance(plan.sink, CONFORMANCE_SINKS):
         if not isinstance(plan.sink, _SINKS):
             raise QueryPlanError(f"unknown sink {plan.sink!r}")
         requested = getattr(plan.sink, "backend", "auto")
-        if requested in _LATER_BACKENDS:
-            raise not_ported(
-                f"backend {requested!r}", _LATER_BACKENDS[requested]
-            )
         if requested not in _DFG_BACKENDS:
             hint = (
                 " (the port calls it 'kernel')" if requested == "pallas"
                 else ""
             )
             raise QueryPlanError(f"unknown DFG backend {requested!r}{hint}")
+        if requested == "sharded-graph" and info.shards is None:
+            raise QueryPlanError(
+                "backend 'sharded-graph' requires a ShardedLog source — "
+                "partition one with repro_torch.graph.partition_memmap_log"
+            )
     if info.branches is not None:
         return _plan_union(
             plan, info,
-            device_type=device_type, tiny_pairs=tiny_pairs,
+            mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
             memory_budget_events=memory_budget_events,
             replay_crossover=replay_crossover,
+        )
+    if info.shards is not None:
+        return _plan_sharded(
+            plan, info,
+            mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
+            memory_budget_events=memory_budget_events,
+            graph_available=graph_available,
+            sharded_crossover=sharded_crossover,
         )
     if isinstance(plan.sink, CompareSink):
         raise QueryPlanError(
@@ -635,9 +806,11 @@ def plan_physical(
             )
         materialize = False
     backend = _device_backend(
-        info.num_pairs, device_type=device_type, tiny_pairs=tiny_pairs,
-        requested=requested,
+        info.num_pairs, mesh=mesh, device_type=device_type,
+        tiny_pairs=tiny_pairs, requested=requested,
     )
+    if backend == "distributed" and mesh is None:
+        raise QueryPlanError("distributed backend requires a mesh")
 
     view_pushdown = False
     if view is not None and info.activity_names is not None:

@@ -58,7 +58,7 @@ from repro_torch.core.repository import paper_example_repo
 from repro_torch.data import generate_repository
 from repro_torch.query import Q, QueryEngine
 import repro_torch.launch.mine, repro_torch.configs
-import repro_torch.graph
+import repro_torch.graph, repro_torch.sharding, repro_torch.core.distributed
 
 engine = QueryEngine(device="cpu", tiny_pairs=8)
 repo = generate_repository(60, seed=1)

@@ -205,15 +205,16 @@ def test_unported_features_name_their_roadmap_item(repos):
     q = port_query.Q.log(port_repo).using(
         port_query.QueryEngine(device="cpu")
     )
-    calls = [
-        lambda: q.dfg(backend="distributed"),
-        lambda: q.dfg(backend="sharded-graph"),
-    ]
-    for call in calls:
-        with pytest.raises(port_query.QueryPlanError, match="ROADMAP"):
-            call()
+    with pytest.raises(port_query.QueryPlanError, match="item 10"):
+        q.explain()
     with pytest.raises(port_query.QueryPlanError, match="kernel"):
         q.dfg(backend="pallas")
+    # items 6 and 8 are ported: their backends plan, or refuse with the
+    # reference's reasons
+    with pytest.raises(port_query.QueryPlanError, match="requires a mesh"):
+        q.dfg(backend="distributed")
+    with pytest.raises(port_query.QueryPlanError, match="ShardedLog"):
+        q.dfg(backend="sharded-graph")
 
 
 def test_mine_cli_on_cpu_matches_reference(monkeypatch, capsys):
