@@ -69,6 +69,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    each counting half of the pairs with ``dfg_count``, one (A, A) int64
    all-reduce per mesh axis, and the mesh merge of the 4 shard Ψ; launch
    counts against ``PREDICTED_3F``;
+3g. the query service at the same width: one ``QueryService`` on a default
+   engine of the card with a ``TraceStore``, serving ``prod`` (phase 3's
+   log under a k-anonymity floor of 5), ``canary`` (phase 3e) and phase
+   3f's sharded log: DFGs, a 30-day dice, process maps, a neighborhood,
+   fitness, alignments, a union DFG and compare, the metrics, forensics
+   and SLO sinks, and appends of 72,000 rows to a copy of ``prod`` and to
+   the sharded log, each payload against the host oracle (floored) and the
+   direct engine result, each probe against what ran, launches against
+   ``PREDICTED_3G``; the trace store mined back, ``planner_drift_total``
+   and the tracing overhead (warm dices on a trace-on and a trace-off
+   engine);
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -1969,7 +1980,7 @@ def phase_union(torch, mlog, repo, results, model, card, tmp):
         + full_fit_s
     log(f"phase 3e: {total:.1f} s, of which queries {queried:.1f} s and "
         f"inputs + host oracles + checks {total - queried:.1f} s")
-    return counts_3e
+    return counts_3e, canary
 
 
 # ---------------------------------------------------------------------------
@@ -2336,7 +2347,578 @@ def phase_sharded(torch, mlog, repo, results, card, tmp):
     total = time.perf_counter() - t_phase
     log(f"phase 3f: {total:.1f} s, of which queries "
         f"{sum(walls.values()):.1f} s")
-    return counts_3f
+    return counts_3f, grown
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g — the query service at PAPER_EVAL width
+# ---------------------------------------------------------------------------
+
+#: phase 3g's launches per request, predicted from the code before its first
+#: run on the card (PERF.md §6): the cold DFG counts prod with one B1 and
+#: its repeat is a cache hit; the 30-day DFG fuses its window into one B2;
+#: the first process map is prod's third topology miss (after the two DFG
+#: misses), so it crosses GRAPH_REPEAT_CROSSOVER and builds prod's graph
+#: (one B1 + one B3), and every later topology and conformance request on
+#: prod reads that graph; alignments runs one B4 on the graph's event
+#: tables; the union DFG counts canary with one B1 (prod's branch is the
+#: cache hit of G1); compare's per-branch Ψ are cache hits and its replays
+#: run on the host (prod's graph, canary's columns: canary's second miss);
+#: the introspection sinks mine a few hundred span events on the host; the
+#: streaming DFG, the append and its delta resume scan on the host; the
+#: sharded DFG builds each of the 4 shard graphs (one B1 + one B3 each) and
+#: after the append extends the owning shard's graph on the host; each warm
+#: 30-day dice of the tracing-overhead measurement is one B2, on either
+#: engine
+PREDICTED_3G_QUERIES = {
+    "G1 prod.dfg": {"dfg_count": 1},
+    "G1b prod.dfg (again)": {},
+    "G2 prod.window(30d).dfg": {"dfg_count_diced": 1},
+    "G3 prod.process_map(0.2)": {"dfg_count": 1, "segment_count": 1},
+    "G3b prod.process_map(0.5)": {},
+    "G3c prod.process_map(0.1)": {},
+    "G4 prod.neighborhood": {},
+    "G5 prod.fitness": {},
+    "G5b prod.alignments": {"align_dp": 1},
+    "G6 union.dfg": {"dfg_count": 1},
+    "G6b union.compare": {},
+    "G7 metrics(prometheus)": {},
+    "G7b forensics": {},
+    "G7c slo": {},
+    "G8 live.dfg(streaming)": {},
+    "G8a live append": {},
+    "G8b live.dfg(streaming) (delta)": {},
+    "G9 sharded.dfg": {"dfg_count": 4, "segment_count": 4},
+    "G9a sharded append": {},
+    "G9b sharded.dfg (after append)": {},
+    "O trace-on dices": {"dfg_count_diced": 50},
+    "O trace-off dices": {"dfg_count_diced": 50},
+}
+PREDICTED_3G = {"dfg_count": 7, "dfg_count_diced": 101, "segment_count": 5,
+                "align_dp": 1}
+#: the k-anonymity floor of prod's access policy
+PROD_FLOOR = 5
+#: warm dices per engine in the tracing-overhead measurement
+OVERHEAD_DICES = 50
+#: payload keys a run measures or mints for itself
+VOLATILE = ("wall_s", "trace_id", "trace")
+
+
+def _floor(np, a, floor):
+    return np.where(a >= floor, a, 0)
+
+
+def _pm_payload(pm, floor):
+    """A process map as the service must expose it under ``floor``: nodes
+    below it vanish, with every edge below it or touching a vanished
+    node."""
+    keep = {a for a, c in zip(pm.activities, pm.node_counts) if int(c) >= floor}
+    edges = [[s, d, int(c)] for s, d, c in pm.edges
+             if s in keep and d in keep and int(c) >= floor]
+    return {
+        "activities": [a for a in pm.activities if a in keep],
+        "node_counts": [int(c) for a, c in zip(pm.activities, pm.node_counts)
+                        if a in keep],
+        "edges": edges, "top": pm.top, "edge_top": pm.edge_top,
+        "dropped_activities": pm.dropped_activities + len(pm.activities)
+        - len(keep),
+        "dropped_edges": pm.dropped_edges + len(pm.edges) - len(edges),
+    }
+
+
+def _nb_payload(nb, floor):
+    edges = [[s, d, int(c)] for s, d, c in nb.edges if int(c) >= floor]
+    touched = {nb.center} | {e[0] for e in edges} | {e[1] for e in edges}
+    acts = [a for a in nb.activities if a in touched]
+    return {"center": nb.center, "k": nb.k, "direction": nb.direction,
+            "activities": acts, "hops": {a: nb.hops[a] for a in acts},
+            "edges": edges}
+
+
+def _census(deviating_edges, floor):
+    out = [{"edge": [s, d], "count": int(c)}
+           for (s, d), c in deviating_edges.items() if int(c) >= floor]
+    out.sort(key=lambda e: (-e["count"], e["edge"]))
+    return out
+
+
+def _conf_payload(value, floor, alignments):
+    if not alignments:
+        return {"fitness": value.fitness,
+                "perfect_traces": value.perfectly_fitting,
+                "total_traces": int(value.trace_fitness.shape[0]),
+                "deviations": _census(value.deviating_edges, floor)}
+    n = int(value.trace_cost.shape[0])
+    return {"fitness": value.fitness,
+            "perfect_traces": value.perfectly_fitting, "total_traces": n,
+            "mean_cost": float(value.trace_cost.mean()) if n else 0.0,
+            "empty_cost": value.empty_cost,
+            "deviations": _census(value.deviating_edges, floor)}
+
+
+def _compare_payload(np, names, log_names, psis, fitness, floor):
+    fl = [_floor(np, p, floor) for p in psis]
+    return {"names": names,
+            "psi": {n: p.tolist() for n, p in zip(log_names, fl)},
+            "diff": {n: (p - fl[0]).tolist() for n, p in zip(log_names, fl)},
+            "fitness": dict(zip(log_names, fitness))}
+
+
+def _value_part(out):
+    """A service payload without its envelope (the request's names, the
+    disposition and what the run measured)."""
+    skip = set(VOLATILE) | {"log", "logs", "sink", "from_cache", "backend"}
+    return {k: v for k, v in out.items() if k not in skip}
+
+
+def _canonical_psi(np, parts, a):
+    """Ψ of event columns in the canonical order (trace-contiguous,
+    time-sorted, stable), from the (activity, case, time) chunks given."""
+    ga = np.concatenate([p[0] for p in parts])
+    gc = np.concatenate([p[1] for p in parts])
+    gt = np.concatenate([p[2] for p in parts])
+    order = np.lexsort((np.arange(ga.shape[0]), gt, gc))
+    ga, gc = ga[order], gc[order]
+    from repro_torch.core import dfg_numpy
+
+    return dfg_numpy(ga[:-1], ga[1:], gc[:-1] == gc[1:], a)
+
+
+def phase_service(torch, mlog, repo, results, canary, sharded, conf, card,
+                  tmp):
+    """The query service through one ``QueryService`` on a default engine of
+    the card with a trace store, at PAPER_EVAL width: each request's
+    payload against the host oracle (floored as prod's policy says) and the
+    direct engine result, the probe's prediction against what ran, launch
+    counts against ``PREDICTED_3G``, the trace store mined back, the
+    planner's drift counter and the tracing overhead.  Returns {kernel:
+    launches}."""
+    import numpy as np
+
+    from repro_torch.core import (
+        AccessPolicy,
+        MemmapLog,
+        dfg_numpy,
+        discover_dependency_graph,
+        pair_mask_for_window,
+        replay_fitness,
+    )
+    from repro_torch.graph import (
+        csr_from_dense,
+        derive_neighborhood,
+        derive_process_map,
+        open_sharded_log,
+    )
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.obs import TraceStore
+    from repro_torch.query import Q, QueryEngine, fingerprint
+    from repro_torch.serve import QueryService
+
+    t_phase = time.perf_counter()
+    a = mlog.num_activities
+    names = list(repo.activity_names)
+    t_min = float(mlog.time[0])
+    w30 = (t_min, t_min + 30 * DAY)
+    kernel_ops = (ops, seg_ops, dp_ops)
+
+    def counts_now():
+        out = {}
+        for m in kernel_ops:
+            out.update(m.launch_counts)
+        return out
+
+    # -- host oracles -----------------------------------------------------
+    t0 = time.perf_counter()
+    src, dst, valid = repo.df_pairs()
+    psi_all = results[0][2].value  # == the host oracle (phase 3)
+    psi_30 = dfg_numpy(src, dst, valid & pair_mask_for_window(repo, w30), a)
+    hist = np.bincount(repo.event_activity, minlength=a).astype(np.int64)
+    center = names[int(np.argmax(hist))]
+    adj = csr_from_dense(psi_all)
+    tops = (0.2, 0.5, 0.1)
+    want_pm = {t: derive_process_map(adj, hist, names, t, None) for t in tops}
+    want_nb = derive_neighborhood(adj, adj.transpose(), names, center, 2,
+                                  "out")
+    m_prod = discover_dependency_graph(psi_all, names,
+                                       *repo.trace_boundaries())
+    fit_p = replay_fitness(repo, m_prod)
+    fit_c = replay_fitness(canary, m_prod)
+    names_c = list(canary.activity_names)
+    union_names = sorted(set(names) | set(names_c))
+    u = len(union_names)
+    uidx = {n: i for i, n in enumerate(union_names)}
+    s_c, d_c, v_c = canary.df_pairs()
+    psis_u = (_embed(np, psi_all, [uidx[n] for n in names], u),
+              _embed(np, dfg_numpy(s_c, d_c, v_c, len(names_c)),
+                     [uidx[n] for n in names_c], u))
+    ali_3c = conf["results"]["alignments"].value
+    fl = PROD_FLOOR
+    oracle = {
+        "G1 prod.dfg": {"psi": _floor(np, psi_all, fl).tolist(),
+                        "names": names},
+        "G2 prod.window(30d).dfg": {"psi": _floor(np, psi_30, fl).tolist(),
+                                    "names": names},
+        "G4 prod.neighborhood": _nb_payload(want_nb, fl),
+        "G5 prod.fitness": _conf_payload(fit_p, fl, False),
+        "G5b prod.alignments": _conf_payload(ali_3c, fl, True),
+        "G6 union.dfg": {"psi": _floor(np, psis_u[0] + psis_u[1], fl)
+                         .tolist(), "names": union_names},
+        "G6b union.compare": _compare_payload(
+            np, union_names, ("prod", "canary"), psis_u,
+            (fit_p.fitness, fit_c.fitness), fl),
+    }
+    oracle["G1b prod.dfg (again)"] = oracle["G1 prod.dfg"]
+    for t, name in zip(tops, ("G3 prod.process_map(0.2)",
+                              "G3b prod.process_map(0.5)",
+                              "G3c prod.process_map(0.1)")):
+        oracle[name] = _pm_payload(want_pm[t], fl)
+    check(_conf_payload(conf["results"]["fitness numpy"].value, fl, False)
+          == oracle["G5 prod.fitness"],
+          "prod's default model is not the discovered dependency graph")
+    log(f"service oracles: Ψ, 30-day Ψ, 3 process maps, the neighborhood of "
+        f"{center}, replay of prod and canary against prod's model, the "
+        f"{u}-name union axis, in {time.perf_counter() - t0:.2f} s (host)")
+
+    # -- a copy of prod for the live append ------------------------------
+    t0 = time.perf_counter()
+    w = MemmapLog.create(os.path.join(tmp, "prod_live"), mlog.num_events,
+                         a, mlog.num_traces, chunk_rows=mlog.chunk_rows)
+    w.append(np.asarray(mlog.activity), np.asarray(mlog.case),
+             np.asarray(mlog.time))
+    live = w.close()
+    check(fingerprint(live) == fingerprint(mlog),
+          "the live copy's fingerprint differs from prod's")
+    log(f"service: copied prod's {live.num_events} rows for the live log in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+
+    # -- the service --------------------------------------------------------
+    store = TraceStore(os.path.join(tmp, "traces"))
+    engine = QueryEngine(trace_store=store)
+    svc = QueryService(engine)
+    policy = AccessPolicy(min_group_count=PROD_FLOOR)
+    svc.register("prod", mlog, policy)
+    svc.register("canary", canary)
+    svc.register("live", live, policy)
+    svc.register("sharded", sharded)
+
+    n_app = mlog.num_events // 100
+    rng = np.random.default_rng(21)
+    open_cases = np.unique(np.asarray(mlog.case[-n_app:]))
+    n_new = n_app // 4
+    live_rows = (
+        rng.integers(0, a, n_app).astype(np.int32),
+        rng.permutation(np.concatenate([
+            rng.choice(open_cases, n_app - n_new),
+            mlog.num_traces + rng.integers(0, n_new // 4 + 1, n_new),
+        ])).astype(np.int32),
+        float(np.asarray(mlog.time[-1])) + np.sort(
+            rng.uniform(0.0, DAY, n_app)),
+    )
+    owner = 1
+    shard = sharded.shards[owner]
+    s_open = np.unique(np.asarray(shard.case[-n_app:]))
+    first_new = (int(max(np.asarray(s.case).max() for _, s in
+                         sharded.present_shards())) // SHARDS + 1) * SHARDS \
+        + owner
+    t_shard = max(float(np.asarray(s.time[-1]))
+                  for _, s in sharded.present_shards())
+    shard_rows = (
+        rng.integers(0, a, n_app).astype(np.int32),
+        rng.permutation(np.concatenate([
+            rng.choice(s_open, n_app - n_new),
+            first_new + SHARDS * rng.integers(0, n_new // 4 + 1, n_new),
+        ])).astype(np.int32),
+        t_shard + np.sort(rng.uniform(0.0, DAY, n_app)),
+    )
+
+    def append_req(log_name, rows):
+        return {"log": log_name, "activity": rows[0].tolist(),
+                "case": rows[1].tolist(), "time": rows[2].tolist()}
+
+    requests = [
+        ("G1 prod.dfg", {"log": "prod", "sink": "dfg", "trace": True}),
+        ("G1b prod.dfg (again)", {"log": "prod", "sink": "dfg"}),
+        ("G2 prod.window(30d).dfg",
+         {"log": "prod", "sink": "dfg", "window": list(w30)}),
+        ("G3 prod.process_map(0.2)",
+         {"log": "prod", "sink": "process_map", "top": 0.2}),
+        ("G3b prod.process_map(0.5)",
+         {"log": "prod", "sink": "process_map", "top": 0.5}),
+        ("G3c prod.process_map(0.1)",
+         {"log": "prod", "sink": "process_map", "top": 0.1}),
+        ("G4 prod.neighborhood", {"log": "prod", "sink": "neighborhood",
+                                  "activity": center, "k": 2}),
+        ("G5 prod.fitness", {"log": "prod", "sink": "fitness"}),
+        ("G5b prod.alignments", {"log": "prod", "sink": "alignments"}),
+        ("G6 union.dfg", {"logs": ["prod", "canary"], "sink": "dfg"}),
+        ("G6b union.compare", {"logs": ["prod", "canary"],
+                               "sink": "compare"}),
+        ("G7 metrics(prometheus)", {"sink": "metrics",
+                                    "format": "prometheus"}),
+        ("G7b forensics", {"sink": "forensics"}),
+        ("G7c slo", {"sink": "slo"}),
+        ("G8 live.dfg(streaming)",
+         {"log": "live", "sink": "dfg", "backend": "streaming"}),
+        ("G8a live append", append_req("live", live_rows)),
+        ("G8b live.dfg(streaming) (delta)",
+         {"log": "live", "sink": "dfg", "backend": "streaming"}),
+        ("G9 sharded.dfg", {"log": "sharded", "sink": "dfg"}),
+        ("G9a sharded append", append_req("sharded", shard_rows)),
+        ("G9b sharded.dfg (after append)",
+         {"log": "sharded", "sink": "dfg", "trace": True}),
+    ]
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    out, walls, launched, probes, stats, snaps = {}, {}, {}, {}, {}, {}
+    for name, req in requests:
+        appending = name.endswith("append")
+        if not appending and req.get("sink") not in (
+                "metrics", "forensics", "slo"):
+            probes[name] = svc.probe(dict(req))
+        if name == "G7b forensics":
+            snaps[name] = engine.own_telemetry()
+        before, s0 = counts_now(), engine.stats
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = (svc.append if appending else svc.query)(dict(req))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        after, s1 = counts_now(), engine.stats
+        launched[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        stats[name] = (s1.rows_scanned - s0.rows_scanned,
+                       s1.delta_hits - s0.delta_hits)
+    served = time.perf_counter()
+
+    # -- each payload: probe, host oracle, direct engine result ---------------
+    grown_live = MemmapLog.open(live.path)
+    grown_sharded = open_sharded_log(sharded.path)
+    ql = Q.log(mlog).using(engine)
+    qu = Q.logs((mlog, "prod"), (canary, "canary")).using(engine)
+    direct = {
+        "G1 prod.dfg": lambda: ql.dfg(),
+        "G2 prod.window(30d).dfg": lambda: ql.window(*w30).dfg(),
+        "G3 prod.process_map(0.2)": lambda: ql.process_map(top=0.2),
+        "G3b prod.process_map(0.5)": lambda: ql.process_map(top=0.5),
+        "G3c prod.process_map(0.1)": lambda: ql.process_map(top=0.1),
+        "G4 prod.neighborhood": lambda: ql.neighborhood(center, k=2),
+        "G5 prod.fitness": lambda: ql.fitness(),
+        "G5b prod.alignments": lambda: ql.alignments(),
+        "G6 union.dfg": lambda: qu.dfg(),
+        "G6b union.compare": lambda: qu.compare(),
+        "G8b live.dfg(streaming) (delta)": lambda: Q.log(grown_live).using(
+            engine).dfg(backend="streaming"),
+        "G9b sharded.dfg (after append)": lambda: Q.log(grown_sharded).using(
+            engine).dfg(),
+    }
+
+    def payload_of(name, res, floor):
+        v = res.value
+        if name.startswith(("G3", "G4")):
+            return (_pm_payload(v, floor) if name.startswith("G3")
+                    else _nb_payload(v, floor))
+        if name.startswith("G5"):
+            return _conf_payload(v, floor, name.startswith("G5b"))
+        if name.startswith("G6b"):
+            return _compare_payload(np, v.names, v.log_names, v.psis,
+                                    v.fitness, floor)
+        return {"psi": _floor(np, v, floor).tolist(), "names": res.names}
+
+    before = counts_now()
+    t0 = time.perf_counter()
+    for name, fn in direct.items():
+        res = fn()
+        check(res.from_cache, f"{name}: the direct query missed the cache")
+        floor = 0 if name.startswith("G9") else fl
+        check(payload_of(name, res, floor) == _value_part(out[name]),
+              f"{name}: the service's payload differs from the direct "
+              "engine result")
+        if name in oracle:
+            check(_value_part(out[name]) == oracle[name],
+                  f"{name}: the service's payload differs from the host "
+                  "oracle")
+    check(_value_part(out["G1b prod.dfg (again)"]) == oracle["G1 prod.dfg"],
+          "G1b: the repeat's payload differs")
+    check(counts_now() == before, "a direct (cached) query launched a kernel")
+    direct_s = time.perf_counter() - t0
+
+    for name, p in probes.items():
+        o = out[name]
+        # a delta hint on a memmap log predicts a resume; on a sharded log
+        # the shard merge reuses the shards the append left alone
+        want = ("delta" if p.delta_hint and p.backend == "streaming"
+                else p.backend)
+        ok = o["from_cache"] if p.cached else (
+            not o["from_cache"] and o["backend"] == want)
+        check(ok, f"{name}: probe predicted backend {p.backend} cached "
+              f"{p.cached} delta {p.delta_hint}; the request ran "
+              f"{o['backend']} from_cache {o['from_cache']}")
+    want_cached = {"G1b prod.dfg (again)"}
+    got_cached = {n for n, o in out.items() if o.get("from_cache")}
+    check(got_cached == want_cached, f"requests served from the cache: "
+          f"{sorted(got_cached)}")
+    backends = {n: o.get("backend") for n, o in out.items()}
+    for name, want in (("G1 prod.dfg", "kernel"),
+                       ("G2 prod.window(30d).dfg", "kernel"),
+                       ("G3 prod.process_map(0.2)", "graph"),
+                       ("G5b prod.alignments", "graph"),
+                       ("G6 union.dfg", "union"),
+                       ("G6b union.compare", "compare"),
+                       ("G8 live.dfg(streaming)", "streaming"),
+                       ("G8b live.dfg(streaming) (delta)", "delta"),
+                       ("G9 sharded.dfg", "sharded-graph"),
+                       ("G9b sharded.dfg (after append)", "sharded-graph")):
+        check(backends[name] == want, f"{name} ran on {backends[name]}")
+
+    # -- introspection --------------------------------------------------------
+    prom = out["G7 metrics(prometheus)"]
+    check('kernel_seconds_count{kernel="dfg_count"}' in prom["prometheus"]
+          and "engine_queries_total" in prom["prometheus"]
+          and prom["metrics"]["engine_queries_total"] > 0
+          and prom["floor"] == 0, "metrics: the exposition is incomplete")
+    own = snaps["G7b forensics"]
+    fo = out["G7b forensics"]
+    so, do, vo = own.df_pairs()
+    check(fo["events"] == own.num_events and fo["names"] == own.activity_names
+          and fo["psi"] == dfg_numpy(so, do, vo, own.num_activities).tolist()
+          and "scan" in fo["names"],
+          "forensics: Ψ of the engine's spans differs from numpy's")
+    slo = out["G7c slo"]
+    check({o["name"] for o in slo["objectives"]}
+          == {"warm_latency", "availability"} and slo["ok"] is True,
+          f"slo: {slo}")
+
+    # -- the appends ----------------------------------------------------------
+    check(out["G8a live append"]["appended"] == n_app
+          and out["G8a live append"]["num_events"] == mlog.num_events + n_app,
+          f"live append: {out['G8a live append']}")
+    check(stats["G8 live.dfg(streaming)"][0] == mlog.num_events
+          and stats["G8b live.dfg(streaming) (delta)"] == (n_app, 1),
+          f"live: rows / delta hits {stats['G8 live.dfg(streaming)']} then "
+          f"{stats['G8b live.dfg(streaming) (delta)']}")
+    t0 = time.perf_counter()
+    want_live = _canonical_psi(np, [
+        (np.asarray(mlog.activity), np.asarray(mlog.case),
+         np.asarray(mlog.time)), live_rows], a)
+    check(_value_part(out["G8b live.dfg(streaming) (delta)"])
+          == {"psi": _floor(np, want_live, fl).tolist(), "names": names},
+          "G8b: the delta Ψ differs from the host oracle")
+    want_sh = _canonical_psi(np, [c for _, s in grown_sharded.present_shards()
+                                  for c in s.iter_chunks()], a)
+    oracle_s = time.perf_counter() - t0
+    check(_value_part(out["G9b sharded.dfg (after append)"])
+          == {"psi": want_sh.tolist(), "names": names},
+          "G9b: Ψ of the grown sharded log differs from the host oracle")
+    check(grown_sharded.num_events == sharded.num_events + n_app,
+          "the sharded append lost rows")
+    hits = {b["name"]: b["trace"]["from_cache"] for b in
+            out["G9b sharded.dfg (after append)"]["trace"]["branches"]}
+    check(stats["G9b sharded.dfg (after append)"][0] == n_app
+          and hits == {f"shard{k}": k != owner for k in range(SHARDS)},
+          f"G9b rescanned {stats['G9b sharded.dfg (after append)'][0]} rows; "
+          f"shard hits {hits}")
+    log(f"  appends: {n_app} rows on the live copy, resumed over exactly "
+        f"{n_app} rows (delta); {n_app} rows on residue {owner} of the "
+        f"sharded log, only shard{owner} rescanned ({n_app} rows); both Ψ "
+        f"== host oracles ({oracle_s:.2f} s)")
+
+    log(f"service requests' launches: {counts_now()}")
+    for name, _ in requests:
+        o = out[name]
+        p = probes.get(name)
+        engine_s = (f" (engine {o['wall_s']:.4f} s)" if "wall_s" in o
+                    else "")
+        log(f"  {name}: wall {walls[name]:.4f} s{engine_s}, launches "
+            f"{launched[name]}, backend {o.get('backend')}, from_cache "
+            f"{o.get('from_cache')}, rows {stats[name][0]}"
+            + (f"; probe {p.backend} cached={p.cached} delta={p.delta_hint} "
+               f"est {p.estimated_cost_s:.4f} s" if p else ""))
+
+    # -- tracing overhead: warm dices, trace on (the service's engine) and
+    # off, interleaved; the trace-off engine attaches no trace
+    off = QueryEngine(trace=False)
+    qc_on, qc_off = Q.log(canary).using(engine), Q.log(canary).using(off)
+    t_c = float(canary.event_time.min())
+    on_s, off_s = [], []
+    first_on = first_off = None
+    for name in ("O trace-on dices", "O trace-off dices"):
+        launched[name] = {}
+    for i in range(OVERHEAD_DICES):
+        w = (t_c, t_c + 30 * DAY + i)
+        for q, acc, name in ((qc_on, on_s, "O trace-on dices"),
+                             (qc_off, off_s, "O trace-off dices")):
+            before = counts_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = q.window(*w).dfg()
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+            after = counts_now()
+            for k in after:
+                if after[k] != before[k]:
+                    launched[name][k] = launched[name].get(k, 0) \
+                        + after[k] - before[k]
+            check(not r.from_cache and r.physical.backend == "kernel"
+                  and r.physical.fused_dicing, f"dice {i}: "
+                  f"{r.physical.describe()}")
+            if q is qc_on and first_on is None:
+                first_on = r
+            if q is qc_off and first_off is None:
+                first_off = r
+    check(first_off.trace is None and first_on.trace is not None
+          and np.array_equal(first_on.value, first_off.value),
+          "trace=False: a trace was attached or the Ψ differs")
+    check("matched prediction" in qc_on.window(
+        t_c, t_c + 30 * DAY).explain(after=first_on)
+        and "none recorded" in qc_off.window(t_c, t_c + 30 * DAY).explain(
+            after=first_off), "explain(after=) of the dices")
+    text = ql.window(*w30).explain()
+    check(text.splitlines()[0].startswith("logical : memmap → Window"),
+          f"explain: {text}")
+    med_on, med_off = float(np.median(on_s)), float(np.median(off_s))
+    counts_3g = counts_now()
+    log(f"service launches: {counts_3g} (predicted {PREDICTED_3G})")
+    check(launched == PREDICTED_3G_QUERIES,
+          f"phase 3g per-request launches {launched} differ from the "
+          f"prediction {PREDICTED_3G_QUERIES}")
+    check(counts_3g == PREDICTED_3G,
+          f"phase 3g launches {counts_3g} differ from the prediction "
+          f"{PREDICTED_3G}")
+
+    # -- the trace store, read back as an event log -------------------------
+    t0 = time.perf_counter()
+    store_repo = store.to_repository()
+    mined = Q.log(store_repo).using(engine).dfg()
+    ss, ds, vs = store_repo.df_pairs()
+    check(store_repo.num_events > 0 and np.array_equal(
+        mined.value, dfg_numpy(ss, ds, vs, store_repo.num_activities))
+        and mined.names == store_repo.activity_names,
+        "the trace store's Ψ differs from numpy's DFG of its spans")
+    store.close()
+    log(f"  trace store: {len(store)} traces kept, read back as "
+        f"{store_repo.num_events} span events of {store_repo.num_traces} "
+        f"trace nodes; mined on {mined.physical.backend}, Ψ == numpy "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    snap = engine.metrics_snapshot()
+    drift = {k[len("planner_drift_total{backend="):-1]: v
+             for k, v in snap.items() if k.startswith("planner_drift_total")}
+    log(f"  planner_drift_total by backend: {drift} (drift band "
+        f"{engine.drift_ratio}x, floor {engine.drift_min_s} s)")
+    log(f"  tracing overhead [{card}]: warm 30-day dice on canary "
+        f"({canary.num_events} events), {OVERHEAD_DICES} each, interleaved: "
+        f"median trace on {med_on:.6f} s (service engine, trace store on), "
+        f"off {med_off:.6f} s, ratio {med_on / med_off:.4f}; min "
+        f"{min(on_s):.6f} / {min(off_s):.6f}")
+    log(f"phase 3g walls [{card}] (s; host clock, card synchronized): "
+        + "  ".join(f"{k.split()[0]} {v:.4f}" for k, v in walls.items()))
+    total = time.perf_counter() - t_phase
+    log(f"phase 3g: {total:.1f} s, of which requests "
+        f"{sum(walls.values()):.1f} s, direct checks {direct_s:.1f} s, "
+        f"overhead dices {sum(on_s) + sum(off_s):.1f} s")
+    return counts_3g
 
 
 # ---------------------------------------------------------------------------
@@ -3043,14 +3625,18 @@ def main() -> int:
             var_counts = phase_variants(torch, mlog, repo, results, card)
             log("== phase 3e: unions, compare and delta resume at "
                 "PAPER_EVAL width")
-            union_counts = phase_union(torch, mlog, repo, results, model,
-                                       card, tmp)
+            union_counts, canary = phase_union(torch, mlog, repo, results,
+                                               model, card, tmp)
             log("== phase 3f: sharded graph tier and distributed DFG at "
                 "PAPER_EVAL width")
-            shard_counts = phase_sharded(torch, mlog, repo, results, card,
-                                         tmp)
+            shard_counts, sharded = phase_sharded(torch, mlog, repo, results,
+                                                  card, tmp)
+            log("== phase 3g: the query service at PAPER_EVAL width")
+            service_counts = phase_service(torch, mlog, repo, results, canary,
+                                           sharded, conf, card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
-                    "3d": var_counts, "3e": union_counts, "3f": shard_counts}
+                    "3d": var_counts, "3e": union_counts, "3f": shard_counts,
+                    "3g": service_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

@@ -3,8 +3,10 @@
 A :class:`TraceContext` is the wire identity of one node in a request
 tree: a 128-bit trace id shared by every span of the request, a 64-bit
 span id naming this node, and the sampling bit.  The query engine mints
-one for every root query; the serving tier (not ported yet) propagates it
-across processes so one id stitches the whole request tree.
+one for every root query, or binds the query under the caller's context
+(:meth:`repro_torch.query.QueryEngine.trace_scope`, which
+``QueryService.query(trace_context=...)`` uses), so one id stitches the
+whole request tree; a transport tier carries it across processes.
 
 Id generation is deliberately cheap: a per-process random prefix plus an
 atomic counter (``itertools.count().__next__`` is a single C call under

@@ -8,7 +8,8 @@ context-manager allocation, no string formatting, no dict churn on the
 hot path.  Everything derived (span objects, coverage, dicts, pretty
 text) is computed lazily at read time.
 
-Span vocabulary used by the engine (a query's trace is a chain):
+Span vocabulary used by the engine (a query's trace is a chain, so the
+engine's own process mines as a DFG — see ``QueryEngine.own_telemetry``):
 
 ``parse`` → ``cache_probe`` → [``delta``] → ``plan`` → ``scan`` |
 ``merge`` → ``sink``
@@ -26,7 +27,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from .context import TraceContext, new_span_id
 
-__all__ = ["Span", "QueryTrace"]
+__all__ = ["Span", "QueryTrace", "NullTrace"]
 
 _SLAB = 8
 
@@ -39,6 +40,10 @@ class Span(NamedTuple):
 
 class QueryTrace:
     """Timed spans plus planner/cache/graph disposition for one query."""
+
+    #: class-level flag: NullTrace instances report False, letting the
+    #: engine skip publishing (metrics / forensics) without isinstance
+    enabled = True
 
     __slots__ = (
         "query_id", "sink", "source", "planned_backend",
@@ -253,3 +258,21 @@ class QueryTrace:
             f"backend={self.executed_backend!r}, spans={self._n}, "
             f"total={self.total_s:.6f}s)"
         )
+
+
+class NullTrace(QueryTrace):
+    """Recorder used when the engine runs with ``trace=False`` (e.g. the
+    baseline of a tracing-overhead measurement): span begin/end are no-ops
+    and the engine publishes nothing.  Disposition attributes still accept writes,
+    so the execution paths stay branch-free."""
+
+    enabled = False
+
+    def begin(self, name: str) -> int:
+        return 0
+
+    def end(self, idx: int) -> None:
+        return None
+
+    def add_span(self, name: str, t0: float, duration_s: float) -> int:
+        return 0

@@ -92,12 +92,17 @@ from .cache import (
 from .execute import (
     CompareResult,
     EngineStats,
+    PlanProbe,
     QueryEngine,
     QueryResult,
     default_engine,
+    memmap_activity_names,
+    memmap_log_name,
     repository_from_memmap,
     set_default_engine,
 )
+from repro_torch.obs import MetricsRegistry, QueryTrace
+
 from .optimize import canonicalize, distribute_over_union
 from .planner import (
     GRAPH_REPEAT_CROSSOVER,
@@ -106,6 +111,7 @@ from .planner import (
     PhysicalPlan,
     SourceInfo,
     device_memory_budget,
+    load_calibration,
     plan_physical,
     source_info,
 )
@@ -123,9 +129,13 @@ __all__ = [
     "prefix_digest", "MemmapFingerprint", "parse_memmap_fingerprint",
     "ResumableState",
     "QueryEngine", "QueryResult", "CompareResult", "EngineStats",
+    "PlanProbe",
+    "MetricsRegistry", "QueryTrace",
     "default_engine", "set_default_engine", "repository_from_memmap",
+    "memmap_activity_names", "memmap_log_name",
     "canonicalize", "distribute_over_union",
     "plan_physical", "PhysicalPlan", "SourceInfo", "source_info",
+    "load_calibration",
     "device_memory_budget", "GRAPH_REPEAT_CROSSOVER",
     "REPLAY_STREAMING_CROSSOVER", "SHARDED_SINGLE_CROSSOVER",
 ]

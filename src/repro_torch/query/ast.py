@@ -52,9 +52,6 @@ The source algebra makes "which logs" a plan property instead of a
 pre-filter: predicates distribute into every branch, union sinks merge
 branch results on an aligned activity axis, and :class:`CompareSink` keeps
 branches separate for cross-deployment conformance drift.
-
-The reference package's other operators, sinks and sources raise
-:class:`QueryPlanError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -103,14 +100,6 @@ __all__ = [
 class QueryPlanError(ValueError):
     """Raised for queries outside the supported algebra (bad op/sink combo,
     unsupported source, unknown activity names)."""
-
-
-def not_ported(what: str, item: int) -> QueryPlanError:
-    """The error for a reference query feature this slice does not carry."""
-    return QueryPlanError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
-        f"{item})"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +507,13 @@ class LogicalPlan:
         """True when any op materializes an intermediate repository."""
         return any(is_barrier(op) for op in self.ops)
 
+    def describe(self) -> str:
+        ops = " → ".join(
+            f"{type(o).__name__}{dataclasses.astuple(o) if not isinstance(o, ApplyView) else (len(o.mapping),)}"
+            for o in self.ops
+        ) or "(no ops)"
+        return f"{self.source} → {ops} → {type(self.sink).__name__}"
+
 
 # ---------------------------------------------------------------------------
 # Fluent builder
@@ -640,10 +636,13 @@ class Query:
         return LogicalPlan(self._kind, self.ops, sink)
 
     def explain(self, sink: Optional[Sink] = None, after=None) -> str:
-        """The reference's planner explanation (``QueryEngine.explain``,
-        with its recorded-trace diff) comes with the serving and
-        observability tier."""
-        raise not_ported("Query.explain", 10)
+        """Planner-side explanation; pass ``after=`` a prior
+        :class:`QueryResult` (or its trace) to diff prediction vs. what
+        actually ran."""
+        from .execute import default_engine
+
+        engine = self._engine or default_engine()
+        return engine.explain(self, sink or DFGSink(), after=after)
 
 
 class Q:

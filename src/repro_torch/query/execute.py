@@ -44,11 +44,22 @@ primitives:
 Every path produces values bit-identical to the reference package's engine
 on the same source and chain.  The engine runs on ``cuda`` unless it is
 built with ``device="cpu"``.
+
+Observability: every query carries a :class:`~repro_torch.obs.QueryTrace`
+(a :class:`~repro_torch.obs.NullTrace` with ``trace=False``, and then no
+``result.trace``); finished traces feed the engine's latency histograms, a
+bounded :class:`~repro_torch.core.telemetry.EventCollector` ring that
+``own_telemetry`` mines, the planner-drift check against
+:func:`~repro_torch.query.planner.estimate_cost_s`, and an optional
+:class:`~repro_torch.obs.TraceStore`.  :meth:`QueryEngine.explain` and
+:meth:`QueryEngine.probe` predict a plan without running it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import os
 import threading
 import time
@@ -76,6 +87,7 @@ from repro_torch.core.distributed import (
 from repro_torch.core.discovery import DiscoveredModel, discover_dependency_graph
 from repro_torch.core.repository import EventRepository, concat_repositories
 from repro_torch.core.streaming import MemmapLog, StreamingDFGMiner, memmap_log_name
+from repro_torch.core.telemetry import EventCollector
 from repro_torch.core.variants import trace_variants, variant_filtered_repository
 from repro_torch.core.views import HIDDEN
 from repro_torch.device import resolve_device
@@ -84,8 +96,9 @@ from repro_torch.graph.shard import ShardedLog, sharded_log_name
 from repro_torch.graph.store import GraphStore
 from repro_torch.graph.traverse import derive_neighborhood, derive_process_map
 from repro_torch.kernels.dfg_count import ops as _ops
-from repro_torch.obs import MetricsRegistry, QueryTrace
-from repro_torch.obs.context import mint_context
+from repro_torch.obs import MetricsRegistry, QueryTrace, kernel_registry
+from repro_torch.obs.context import TraceContext, mint_context
+from repro_torch.obs.trace import NullTrace
 
 from .ast import (
     CONFORMANCE_SINKS,
@@ -119,27 +132,50 @@ from .cache import (
 )
 from .optimize import canonicalize, compose_views, distribute_over_union
 from .planner import (
-    GRAPH_REPEAT_CROSSOVER,
     MEMORY_BUDGET_EVENTS,
-    REPLAY_STREAMING_CROSSOVER,
-    SHARDED_SINGLE_CROSSOVER,
-    TINY_PAIRS,
     PhysicalPlan,
     SourceInfo,
+    _load_calibration,
     device_memory_budget,
+    estimate_cost_s,
     plan_physical,
     source_info,
 )
+
+_LOG = logging.getLogger("repro_torch.obs")
 
 __all__ = [
     "QueryResult",
     "CompareResult",
     "EngineStats",
+    "PlanProbe",
     "QueryEngine",
     "default_engine",
     "set_default_engine",
+    "memmap_activity_names",
+    "memmap_log_name",
     "repository_from_memmap",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanProbe:
+    """Read-only prediction of how one query would execute *right now* —
+    a serving tier's SLO-classification input.
+
+    ``fingerprint`` is the source fingerprint observed at probe time; a
+    transport layer keys in-flight request coalescing on it, so an append
+    that moves the fingerprint separates pre- and post-append waiters
+    instead of fanning a stale execution out to both.  ``cached`` /
+    ``delta_hint`` predict a ~µs–ms serve, ``estimated_cost_s`` is the
+    planner's cold-scan prior for the predicted backend."""
+
+    fingerprint: str
+    plan_key: str
+    backend: str
+    cached: bool
+    delta_hint: bool
+    estimated_cost_s: float
 
 
 @dataclasses.dataclass
@@ -161,7 +197,8 @@ class QueryResult:
     from_cache: bool
     wall_s: float
     rewrites: Tuple[str, ...] = ()
-    # per-query execution trace (repro_torch.obs), always attached
+    # per-query execution trace (repro_torch.obs) — always attached; None
+    # only when the engine was constructed with trace=False
     trace: Optional[QueryTrace] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -222,6 +259,12 @@ class CompareResult:
         return self.psis[j] - self.psis[i]
 
 
+def memmap_activity_names(log: MemmapLog) -> List[str]:
+    """MemmapLog stores integer activity ids; the engine labels them the
+    same way the mining CLI does."""
+    return log.activity_labels()
+
+
 def repository_from_memmap(
     log: MemmapLog, log_name: Optional[str] = None
 ) -> EventRepository:
@@ -270,9 +313,6 @@ def repository_from_memmap(
     )
 
 
-#: materialized memmap repositories an engine keeps (tenants alternating
-#: over a few in-budget logs each keep their load)
-_REPO_MEMO_SIZE = 4
 #: default conformance models an engine keeps (one per source and
 #: transform; a sliding-window dashboard reuses one)
 _MODEL_MEMO_SIZE = 16
@@ -441,6 +481,28 @@ def _sync(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 
+class _TraceScope:
+    """Thread-local ambient trace parent (``QueryEngine.trace_scope``):
+    while entered, root queries on this thread bind as children of the
+    scoped :class:`TraceContext` instead of minting a fresh trace id."""
+
+    __slots__ = ("_tls", "_ctx", "_prev")
+
+    def __init__(self, tls, ctx: Optional[TraceContext]):
+        self._tls = tls
+        self._ctx = ctx
+        self._prev: Optional[TraceContext] = None
+
+    def __enter__(self) -> Optional[TraceContext]:
+        self._prev = getattr(self._tls, "ctx", None)
+        self._tls.ctx = self._ctx
+        return self._ctx
+
+    def __exit__(self, *exc) -> bool:
+        self._tls.ctx = self._prev
+        return False
+
+
 class QueryEngine:
     """Plans, caches, and executes logical query plans in-store.
 
@@ -448,19 +510,34 @@ class QueryEngine:
     the same plans with the kernels' plain versions).  A CUDA device on a
     host without a card raises ``RuntimeError``.
 
-    ``memory_budget_events`` (the events above which a memmap log is mined
-    out-of-core and its graph is topology-only) defaults, on a card, to
+    Thresholds left unset come from the port's calibration records
+    (:func:`~repro_torch.query.planner.load_calibration`, read from
+    ``calibration_path`` and the default places), else the planner's static
+    constants.  ``memory_budget_events`` (the events above which a memmap
+    log is mined out-of-core and its graph is topology-only) is an explicit
+    integer, else a record's, else, on a card,
     :func:`~repro_torch.query.planner.device_memory_budget` of the card's
     and the host's free memory as they stand when the engine is built, and
-    on the CPU to :data:`~repro_torch.query.planner.MEMORY_BUDGET_EVENTS`;
-    an explicit integer always wins.  ``engine.memory_budget_events`` holds
-    the value chosen.  ``graph_crossover`` is the number of topology-query
-    misses on one source after which ``auto`` builds and serves its
-    event-knowledge graph; ``max_graphs`` and ``graph_spill_dir`` size the
-    engine's :class:`~repro_torch.graph.GraphStore`.  ``replay_crossover``
-    (default :data:`~repro_torch.query.planner.REPLAY_STREAMING_CROSSOVER`)
-    is the memmap size above which ``auto`` fitness replays in one
-    streaming scan instead of materializing.
+    on the CPU :data:`~repro_torch.query.planner.MEMORY_BUDGET_EVENTS`.
+    ``engine.memory_budget_events`` holds the value chosen.
+    ``graph_crossover`` is the number of topology-query misses on one
+    source after which ``auto`` builds and serves its event-knowledge
+    graph; ``max_graphs`` and ``graph_spill_dir`` size the engine's
+    :class:`~repro_torch.graph.GraphStore`.  ``replay_crossover`` is the
+    memmap size above which ``auto`` fitness replays in one streaming scan
+    instead of materializing.  ``fused_dicing=False`` keeps windows out of
+    the count kernel (the window masks ``valid`` and the plain count runs).
+    ``cache`` shares a :class:`~repro_torch.query.cache.QueryCache`;
+    ``repo_memo_size`` is the number of materialized memmap repositories
+    the engine keeps.
+
+    ``metrics`` shares a :class:`~repro_torch.obs.MetricsRegistry`;
+    ``trace=False`` attaches no trace and publishes nothing;
+    ``trace_store`` (a :class:`~repro_torch.obs.TraceStore`) is offered
+    every finished root trace; ``telemetry_max_events`` bounds the span
+    ring :meth:`own_telemetry` mines; ``drift_ratio`` is the band around
+    the planner's cost prior outside which a query counts as drift
+    (``planner_drift_total``).
 
     ``mesh`` (a :class:`~repro_torch.core.compat.Mesh`) sends in-memory
     counts above ``tiny_pairs`` to the ``distributed`` backend: each mesh
@@ -475,19 +552,35 @@ class QueryEngine:
         *,
         device="cuda",
         mesh=None,
-        tiny_pairs: int = TINY_PAIRS,
+        tiny_pairs: Optional[int] = None,
         memory_budget_events: Optional[int] = None,
-        graph_crossover: int = GRAPH_REPEAT_CROSSOVER,
-        max_graphs: int = 8,
-        graph_spill_dir: Optional[str] = None,
+        fused_dicing: bool = True,
+        cache: Optional[QueryCache] = None,
+        repo_memo_size: int = 4,
+        calibration_path: Optional[str] = None,
+        graph_crossover: Optional[int] = None,
         replay_crossover: Optional[int] = None,
         sharded_crossover: Optional[int] = None,
+        max_graphs: int = 8,
+        graph_spill_dir: Optional[str] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        trace: bool = True,
+        trace_store=None,
+        telemetry_max_events: Optional[int] = 1 << 16,
+        drift_ratio: float = 16.0,
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
-        self.tiny_pairs = tiny_pairs
+        # thresholds left unset fall back to the port's measured records
+        # (BENCH_torch_*.json) when one exists, else the static constants
+        cal, measured = _load_calibration(calibration_path)
+        self.tiny_pairs = (
+            cal["tiny_pairs"] if tiny_pairs is None else tiny_pairs
+        )
         if memory_budget_events is None:
-            if self.device.type == "cuda":
+            if "memory_budget_events" in measured:
+                memory_budget_events = cal["memory_budget_events"]
+            elif self.device.type == "cuda":
                 free, _ = torch.cuda.mem_get_info(self.device)
                 memory_budget_events = device_memory_budget(
                     free, _host_free_bytes()
@@ -495,18 +588,25 @@ class QueryEngine:
             else:
                 memory_budget_events = MEMORY_BUDGET_EVENTS
         self.memory_budget_events = int(memory_budget_events)
-        self.graph_crossover = graph_crossover
+        self.graph_crossover = (
+            cal["graph_repeat_crossover"]
+            if graph_crossover is None
+            else graph_crossover
+        )
         self.replay_crossover = (
-            REPLAY_STREAMING_CROSSOVER
+            cal["replay_streaming_crossover"]
             if replay_crossover is None
             else int(replay_crossover)
         )
         self.sharded_crossover = (
-            SHARDED_SINGLE_CROSSOVER
+            cal["sharded_single_crossover"]
             if sharded_crossover is None
             else int(sharded_crossover)
         )
-        self.metrics = MetricsRegistry()
+        # fitted crossover curves from a record upgrade the scalars at plan
+        # time
+        self.calibration_curves = cal.get("curves") or {}
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         m = self.metrics
         self._c_queries = m.counter(
             "engine_queries_total", "Queries run (also the query-id sequence)"
@@ -553,10 +653,36 @@ class QueryEngine:
             "delta_suffix_fraction",
             "Fraction of the log rescanned by a delta resume",
         )
+        m.gauge(
+            "engine_cache_hit_ratio", self._cache_hit_ratio,
+            "Result-cache hits over total queries",
+        )
+        # always-on per-query tracing + self-mining forensics: every
+        # finished trace batches its spans into a bounded collector, so
+        # ``Q.log(engine.own_telemetry())`` mines the engine's own process
+        self.trace_enabled = trace
+        # optional repro_torch.obs.TraceStore: every finished *root* trace
+        # (and every errored one) is offered for tail-sampled persistence
+        self.trace_store = trace_store
+        self.drift_ratio = drift_ratio
+        self.drift_min_s = 0.005
+        self.telemetry = EventCollector(
+            "engine", max_events=telemetry_max_events
+        )
+        m.gauge(
+            "telemetry_events", lambda: float(len(self.telemetry)),
+            "Span events resident in the forensics ring buffer",
+        )
+        m.gauge(
+            "telemetry_dropped_events",
+            lambda: float(self.telemetry.dropped),
+            "Span events dropped by the bounded forensics ring",
+        )
         # hot-path memo of query_latency_seconds{sink,backend} histograms
         self._lat_hists: Dict[Tuple[str, str], object] = {}  # guarded by _lock
         self._tls = threading.local()
-        self.cache = QueryCache()
+        self.fused_dicing = fused_dicing
+        self.cache = cache if cache is not None else QueryCache()
         # built graphs keyed by source fingerprint, built on the engine's
         # device; appends extend the CSR over the proven suffix
         self.graphs = GraphStore(
@@ -575,7 +701,9 @@ class QueryEngine:
             OrderedDict()
         )  # guarded by _lock
         self._max_plans = 512
-        # materialized memmap repos keyed by source fingerprint
+        # materialized memmap repos keyed by source fingerprint: tenants
+        # alternating over several in-budget logs each keep their load
+        self.repo_memo_size = repo_memo_size
         self._repo_memo: "OrderedDict[str, EventRepository]" = OrderedDict()  # guarded by _lock
         # default conformance models keyed by (source fingerprint, transform)
         self._model_memo: "OrderedDict[Tuple, ModelSpec]" = OrderedDict()  # guarded by _lock
@@ -599,7 +727,27 @@ class QueryEngine:
             shard_queries=self._c_shard.value,
         )
 
-    # -- tracing ---------------------------------------------------------------
+    def _cache_hit_ratio(self) -> float:
+        q = self._c_queries.value
+        return self._c_cache_hits.value / q if q else 0.0
+
+    def metrics_snapshot(self, floor: int = 0) -> Dict[str, object]:
+        """Engine registry + process-wide CUDA kernel timings, one flat
+        dict.  ``floor`` applies the serving tier's k-anonymity floor
+        (counts below it read as zero)."""
+        snap = self.metrics.to_dict(floor=floor)
+        snap.update(kernel_registry().to_dict(floor=floor))
+        return snap
+
+    # -- tracing / self-mining forensics -------------------------------------
+    def trace_scope(self, ctx: Optional[TraceContext]):
+        """Context manager binding ``ctx`` as the ambient trace parent for
+        queries run on *this thread*: the next root query's trace becomes a
+        child of ``ctx`` (same trace id), and its own sub-queries — union
+        branches, per-shard sub-traces — inherit transitively through the
+        trace stack."""
+        return _TraceScope(self._tls, ctx)
+
     def _trace_begin(self, qid: int, sink: Sink, source) -> QueryTrace:
         """Open a query's trace on this thread's trace *stack*: a union's
         branch sub-queries run through :meth:`run` while the union's own
@@ -614,14 +762,23 @@ class QueryEngine:
         else:
             kind = "repository"
         label = type(sink).__name__.lower()
-        tr = QueryTrace(qid, label[:-4] if label.endswith("sink") else label, kind)
+        cls = QueryTrace if self.trace_enabled else NullTrace
+        tr = cls(qid, label[:-4] if label.endswith("sink") else label, kind)
         stack = getattr(self._tls, "stack", None)
         if stack is None:
             stack = self._tls.stack = []
-        if stack and stack[-1].trace_id is not None:
-            tr.bind_child_of(stack[-1].context)
-        else:
-            tr.bind_root(mint_context())
+        if self.trace_enabled:
+            # nested queries (union branches, shard sub-queries) chain under
+            # their enclosing trace; a root query chains under the ambient
+            # context when one is scoped, else mints a fresh trace id
+            if stack and stack[-1].trace_id is not None:
+                tr.bind_child_of(stack[-1].context)
+            else:
+                ctx = getattr(self._tls, "ctx", None)
+                if ctx is not None:
+                    tr.bind_child_of(ctx)
+                else:
+                    tr.bind_root(mint_context())
         stack.append(tr)
         return tr
 
@@ -635,9 +792,16 @@ class QueryEngine:
             stack.pop()
 
     def _trace_error(self, tr: QueryTrace) -> None:
-        """Error path: pop the trace and close its open spans."""
+        """Error path: pop + finish the trace and persist it when a store
+        is attached — errored traces are always kept (tail sampling)."""
         self._trace_abort(tr)
+        if not tr.enabled:
+            return
         tr.finish()
+        if self.trace_store is not None and not getattr(
+            self._tls, "stack", None
+        ):
+            self.trace_store.offer(tr, error=True)
 
     def _note_rows(self, n: int) -> None:
         """Row-scan accounting: the global counter plus attribution to the
@@ -664,10 +828,14 @@ class QueryEngine:
     def _trace_finish(self, tr: QueryTrace, result: QueryResult) -> None:
         self._trace_abort(tr)
         tr.finish()
-        result.trace = tr
+        result.trace = tr if tr.enabled else None
+        if not tr.enabled:
+            return
         key = (tr.sink, tr.executed_backend or "unknown")
         hist = self._lat_hists.get(key)
         if hist is None:
+            # double-checked under the engine lock so two racing threads
+            # converge on one Histogram
             with self._lock:
                 hist = self._lat_hists.get(key)
                 if hist is None:
@@ -677,6 +845,53 @@ class QueryEngine:
                         sink=key[0], backend=key[1],
                     )
         hist.observe(tr.total_s, trace_id=tr.trace_id)
+        names, t0s, durs = tr.raw_spans()
+        if names:
+            self.telemetry.record_many(f"q{tr.query_id}", names, t0s, durs)
+        self._check_drift(tr)
+        # persist root traces only: a nested sub-trace (union branch, shard
+        # sub-query) rides its parent's record as a branch
+        if self.trace_store is not None and not getattr(
+            self._tls, "stack", None
+        ):
+            self.trace_store.offer(tr)
+
+    def _check_drift(self, tr: QueryTrace) -> None:
+        """Calibration drift: the recorded cost contradicts the planner's
+        prior for the chosen backend by more than ``drift_ratio`` — count
+        it and emit one structured warning."""
+        pred, act = tr.predicted_cost_s, tr.actual_cost_s
+        if (
+            pred is None or act is None or pred <= 0.0
+            or max(pred, act) < self.drift_min_s
+        ):
+            return
+        ratio = act / pred
+        if 1.0 / self.drift_ratio < ratio < self.drift_ratio:
+            return
+        tr.drift = ratio
+        backend = tr.executed_backend or "unknown"
+        self.metrics.counter("planner_drift_total", backend=backend).inc()
+        _LOG.warning(
+            "planner_cost_drift %s",
+            json.dumps({
+                "query_id": tr.query_id,
+                "sink": tr.sink,
+                "backend": backend,
+                "planned_backend": tr.planned_backend,
+                "predicted_cost_s": pred,
+                "actual_cost_s": act,
+                "ratio": ratio,
+                "rows_scanned": tr.rows_scanned,
+            }, sort_keys=True),
+        )
+
+    def own_telemetry(self) -> EventRepository:
+        """The engine's own spans as a canonical event repository: each
+        query is one case, each span one event.  Feed it back through
+        ``Q.log`` and the engine mines its own process — cache hits,
+        delta resumes, and full scans surface as distinct DFG variants."""
+        return self.telemetry.to_repository()
 
     # -- public --------------------------------------------------------------
     def run(self, query: Query, sink: Sink) -> QueryResult:
@@ -727,6 +942,12 @@ class QueryEngine:
             physical = self._plan_cached(logical, info, graph_available)
             tr.end(s)
             tr.planned_backend = physical.backend
+            if not isinstance(sink, CONFORMANCE_SINKS):
+                # conformance cost scales with variants x model size, which
+                # a per-backend events/s prior cannot see
+                tr.predicted_cost_s = estimate_cost_s(
+                    physical.backend, info.num_events
+                )
 
             s = tr.begin("scan")
             t0 = time.perf_counter()
@@ -820,15 +1041,141 @@ class QueryEngine:
             device_type=self.device.type,
             tiny_pairs=self.tiny_pairs,
             memory_budget_events=self.memory_budget_events,
+            fused_dicing=self.fused_dicing,
             graph_available=graph_available,
             replay_crossover=self.replay_crossover,
             sharded_crossover=self.sharded_crossover,
+            curves=self.calibration_curves,
         )
         with self._lock:
             self._plans[plan_key] = physical
             while len(self._plans) > self._max_plans:
                 self._plans.popitem(last=False)
         return physical
+
+    def _predicted_graph_available(
+        self, source, fp: str, logical: LogicalPlan
+    ) -> bool:
+        """The amortization signal :meth:`run` would see, read-only: never
+        bumps the repeat counter, but predicts the next run."""
+        if isinstance(source, UnionSource):
+            return False
+        with self._lock:
+            seen = self._topo_seen.get(fp, 0)
+        sink_ok = isinstance(logical.sink, TOPOLOGY_SINKS) or (
+            isinstance(logical.sink, CONFORMANCE_SINKS)
+            and self._conformance_graph_ok(source)
+        )
+        warm = (
+            self._shards_warm(source)
+            if isinstance(source, ShardedLog)
+            else (self.graphs.peek(fp) or self.graphs.has_extendable(source))
+        )
+        return (
+            sink_ok
+            and not logical.has_barrier()
+            and (warm or seen + 1 >= self.graph_crossover)
+        )
+
+    def explain(
+        self,
+        query: Query,
+        sink: Optional[Sink] = None,
+        after: Optional[object] = None,
+    ) -> str:
+        """Predicted plan for ``query``; with ``after=`` (a
+        :class:`QueryResult` or :class:`repro_torch.obs.QueryTrace` from a
+        recorded run) the prediction is diffed against what actually
+        executed — backend, cost, spans, rows."""
+        if sink is None:
+            sink = DFGSink()
+        info = source_info(query.source)
+        logical, rewrites = canonicalize(
+            query.logical_plan(sink), info.activity_names
+        )
+        fp = (
+            None if isinstance(query.source, UnionSource)
+            else fingerprint(query.source)
+        )
+        physical = self._plan_cached(
+            logical, info,
+            self._predicted_graph_available(query.source, fp, logical),
+        )
+        lines = [
+            f"logical : {logical.describe()}",
+            f"rewrites: {', '.join(rewrites) if rewrites else '(none)'}",
+            f"physical: {physical.describe()}",
+            f"plan key: {logical.key()}",
+        ]
+        if after is not None:
+            tr = after.trace if isinstance(after, QueryResult) else after
+            lines.append("-- after: recorded trace --")
+            if tr is None:
+                lines.append(
+                    "trace   : (none recorded — engine trace=False)"
+                )
+            else:
+                exe = tr.executed_backend or "?"
+                verdict = (
+                    "matched prediction" if exe == physical.backend
+                    else f"!= predicted {physical.backend}"
+                )
+                lines.append(f"executed: {exe} ({verdict})")
+                pred, act = tr.predicted_cost_s, tr.actual_cost_s
+                if pred is not None and act is not None and pred > 0:
+                    drift = " [drift]" if tr.drift is not None else ""
+                    lines.append(
+                        f"cost    : predicted={pred:.6f}s "
+                        f"actual={act:.6f}s ratio={act / pred:.2f}x{drift}"
+                    )
+                spans = ", ".join(
+                    f"{sp.name}={sp.duration_s * 1e3:.3f}ms"
+                    for sp in tr.spans
+                )
+                lines.append(
+                    f"spans   : {spans} "
+                    f"(coverage {tr.coverage() * 100:.1f}%)"
+                )
+                lines.append(
+                    f"rows    : {tr.rows_scanned} scanned; "
+                    f"cache={'hit' if tr.from_cache else 'miss'}"
+                )
+        return "\n".join(lines)
+
+    def probe(self, query: Query, sink: Optional[Sink] = None) -> PlanProbe:
+        """Cost/cache probe for a serving tier: predict — without
+        executing, without mutating cache stats or the graph-crossover
+        repeat counter — whether this query would be a cache hit, a delta
+        resume, or a cold scan, which backend it would pick, and the
+        planner's cost prior for that backend."""
+        if sink is None:
+            sink = DFGSink()
+        info = source_info(query.source)
+        logical, _ = canonicalize(
+            query.logical_plan(sink), info.activity_names
+        )
+        fp = fingerprint(query.source)
+        plan_key = logical.key()
+        cached = self.cache.probe((fp, plan_key))
+        delta_hint = False
+        if not cached and logical.source in ("memmap", "sharded"):
+            delta_hint = self.cache.has_delta_hint(
+                self._source_hint(query.source), plan_key
+            )
+        graph_available = self._predicted_graph_available(
+            query.source, fp, logical
+        )
+        physical = self._plan_cached(logical, info, graph_available)
+        return PlanProbe(
+            fingerprint=fp,
+            plan_key=plan_key,
+            backend=physical.backend,
+            cached=cached,
+            delta_hint=delta_hint,
+            estimated_cost_s=estimate_cost_s(
+                physical.backend, info.num_events
+            ),
+        )
 
     # -- union / compare (multi-source) --------------------------------------
     @staticmethod
@@ -1257,7 +1604,7 @@ class QueryEngine:
             self._note_seconds("concat", time.perf_counter() - t0)
             with self._lock:
                 self._repo_memo[fp] = repo_u
-                while len(self._repo_memo) > _REPO_MEMO_SIZE:
+                while len(self._repo_memo) > self.repo_memo_size:
                     self._repo_memo.popitem(last=False)
         # single-source execution on the concatenation, planned on its shape
         inner = LogicalPlan("repository", logical.ops, logical.sink)
@@ -1374,6 +1721,9 @@ class QueryEngine:
             start = max(resume.rows_end, lo)
             tr.planned_backend = "delta"
             tr.delta_rows = (start, hi)
+            tr.predicted_cost_s = estimate_cost_s(
+                "delta", max(hi - start, 0)
+            )
             if log.num_events:
                 self._h_delta_fraction.observe(
                     max(hi - start, 0) / log.num_events
@@ -1576,7 +1926,7 @@ class QueryEngine:
         if fp is not None:
             with self._lock:
                 self._repo_memo[fp] = repo
-                while len(self._repo_memo) > _REPO_MEMO_SIZE:
+                while len(self._repo_memo) > self.repo_memo_size:
                     self._repo_memo.popitem(last=False)
         return repo
 

@@ -56,11 +56,13 @@ one scan, ``graph`` replays or aligns the graph store's event tables.
 Alignments need the variant table, so they never stream; their DP runs on
 the engine's device either way (the ``align_dp`` CUDA kernel on a card).
 
-The thresholds are the static constants below, except the memory budget,
-which a CUDA engine takes from the card and the host
+The thresholds are the static constants below unless a calibration record
+of the port's own (``BENCH_torch_*.json``, :func:`load_calibration`)
+measures them; the memory budget is an explicit argument, then a record,
+then what a CUDA engine takes from the card and the host
 (:func:`device_memory_budget`).  The reference package's calibration
-records were measured on other hardware, so the port reads none of them; a
-port benchmark will measure its own crossovers.
+records (``BENCH_*.json``) were measured on other hardware, so the port
+never reads them.
 
 Pushdown decisions recorded on the :class:`PhysicalPlan`:
 
@@ -79,7 +81,12 @@ Pushdown decisions recorded on the :class:`PhysicalPlan`:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+import logging
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.repository import EventRepository
 from repro_torch.core.streaming import MemmapLog
@@ -117,7 +124,14 @@ __all__ = [
     "REPLAY_STREAMING_CROSSOVER",
     "SHARDED_SINGLE_CROSSOVER",
     "device_memory_budget",
+    "CrossoverCurve",
+    "load_calibration",
+    "resolve_threshold",
+    "estimate_cost_s",
+    "SLO_HOT_CUTOFF_S",
 ]
+
+_LOG = logging.getLogger(__name__)
 
 #: below this many pairs, numpy on the host beats a device round trip
 TINY_PAIRS = 2048
@@ -128,22 +142,294 @@ MEMORY_BUDGET_EVENTS = 1 << 22
 #: event-knowledge graph amortizes (the reference's static default)
 GRAPH_REPEAT_CROSSOVER = 3
 #: memmap events above which ``auto`` replays a memmap log in one streaming
-#: scan instead of materializing it.  The reference ties its static default
-#: to the memory budget constant and reads a measured value from its
-#: calibration record; the port reads no calibration, so it keeps the static
-#: value (a CUDA engine's measured budget is larger, and the crossover is
-#: then what sends large logs to the streaming replayer)
+#: scan instead of materializing it.  The static default ties it to the
+#: memory budget constant (a CUDA engine's budget is larger, and the
+#: crossover is then what sends large logs to the streaming replayer); a
+#: measured value comes from ``BENCH_torch_conformance.json`` (none exists
+#: yet, so every engine keeps this constant)
 REPLAY_STREAMING_CROSSOVER = MEMORY_BUDGET_EVENTS
 #: sharded-log events above which the sharded-graph backend (per-shard CSR
 #: snapshots + aligned merge) beats concatenate-and-materialize on a single
-#: host.  The reference's static default; it reads a measured value from its
-#: calibration record (``sharded_single_crossover``), which the port does not
-#: read, so an engine takes this constant unless ``sharded_crossover`` is set
+#: host.  The reference's static default; a measured value comes from
+#: ``BENCH_torch_shard.json`` (none exists yet, so an engine takes this
+#: constant unless ``sharded_crossover`` is set)
 SHARDED_SINGLE_CROSSOVER = 1 << 18
-#: the reference's cost prior of a graph serve (dispatch seconds, events per
-#: second) that a sharded plan's per-shard notes quote
-_GRAPH_DISPATCH_S = 5e-5
-_GRAPH_EVENTS_PER_S = 4e8
+#: predicted execution cost (seconds) below which a serving tier classifies
+#: a request *hot* (a cache, delta or graph serve) rather than a cold scan.
+#: The reference's static default, between a cache hit and a cold streaming
+#: scan; a measured boundary comes from ``BENCH_torch_serve.json`` (none
+#: exists yet)
+SLO_HOT_CUTOFF_S = 0.05
+
+# Order-of-magnitude cost priors for the observability drift check: fixed
+# per-backend dispatch overhead plus an events-per-second throughput.  They
+# let a recorded trace (repro_torch.obs.QueryTrace) be contrasted with the
+# planner's choice and never influence planning itself.  Keyed by the
+# port's backend names.  Each card number was measured by ``chip_smoke.py``
+# at PAPER_EVAL width on an NVIDIA H100 80GB HBM3 with a 700.00 W power
+# limit, and PERF.md gives the run it comes from (§5 for walls, §6 for the
+# kernel's time).
+_COST_DISPATCH_S = {
+    "numpy": 5e-5,          # host prior kept from the reference, not measured on the card
+    "scatter": 3e-4,        # host prior kept from the reference, not measured on the card
+    "onehot": 3e-4,         # host prior kept from the reference, not measured on the card
+    # one dfg_count call on the card, the host's call included: 0.0523 ms
+    # (PERF.md §6, B1 ms)
+    "kernel": 5.23e-5,
+    # distributed_dfg on a mesh of the card (one position): 0.0633 s of the
+    # mesh engine's 1.4355 s cold DFG (PERF.md §5, sharded tier)
+    "distributed": 6.33e-2,
+    "graph": 5e-5,          # host prior kept from the reference, not measured on the card
+    # the merge of 4 shard Ψ in a cold sharded DFG: 0.0134 s (PERF.md §5,
+    # sharded tier)
+    "sharded-graph": 1.34e-2,
+}
+# Events per second, cold-path inclusive: a cold scan on a memmap source
+# pays materialization on top of the count, and the drift band (±16x by
+# default) absorbs part of the warm-path speedup.  On the card a warm dice
+# is faster than the band allows, so it counts as drift (PERF.md §5).
+_COST_RATE_EVENTS_S = {
+    "numpy": 2e7,           # host prior kept from the reference, not measured on the card
+    "scatter": 2e6,         # host prior kept from the reference, not measured on the card
+    "onehot": 1e6,          # host prior kept from the reference, not measured on the card
+    # a cold whole-log DFG: 7,200,010 events in 1.4136 s (PERF.md §5,
+    # main path)
+    "kernel": 5.1e6,
+    # the mesh engine's cold DFG: 7,200,010 events in 1.4355 s (PERF.md
+    # §5, sharded tier)
+    "distributed": 5.0e6,
+    "streaming": 5e6,       # host prior kept from the reference, not measured on the card
+    "delta": 5e6,           # host prior kept from the reference, not measured on the card
+    "graph": 4e8,           # host prior kept from the reference, not measured on the card
+    "concat": 5e6,          # host prior kept from the reference, not measured on the card
+    # a cold sharded DFG, 4 shard graph builds: 7,200,010 events in 2.7803 s
+    # (PERF.md §5, sharded tier)
+    "sharded-graph": 2.6e6,
+}
+
+
+def estimate_cost_s(backend: str, num_events: int) -> float:
+    """Prior execution cost (seconds) of ``backend`` over ``num_events``
+    events — the prediction a trace records so ``explain(after=...)`` and
+    the ``planner_drift_total`` counter can contrast it with the measured
+    span."""
+    rate = _COST_RATE_EVENTS_S.get(backend, 5e6)
+    return _COST_DISPATCH_S.get(backend, 1e-4) + num_events / rate
+
+
+# ---------------------------------------------------------------------------
+# Measured calibration: the port's own records only
+# ---------------------------------------------------------------------------
+
+#: sanity rails: a stray or corrupt record must not be able to flip plans
+#: far outside the regime its benchmark measured (the reference's rails)
+_CALIBRATION_CLAMPS = {
+    "tiny_pairs": (256, 4096),
+    "memory_budget_events": (1 << 20, 1 << 26),
+}
+_GRAPH_CLAMPS = {
+    "graph_repeat_crossover": (1, 64),
+}
+_CONFORMANCE_CLAMPS = {
+    "replay_streaming_crossover": (1 << 18, 1 << 26),
+}
+_SHARD_CLAMPS = {
+    "sharded_single_crossover": (1 << 14, 1 << 24),
+}
+#: float clamp bounds mark float-valued calibration keys (the serve
+#: boundary is seconds, not a count)
+_SERVE_CLAMPS = {
+    "slo_hot_cutoff_s": (1e-4, 2.0),
+}
+_REPO_ROOT = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "..")
+)
+
+#: calibration basenames already warned about this process — a planner that
+#: runs on static fallbacks should say so exactly once, not on every query
+_warned_missing: set = set()
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossoverCurve:
+    """A crossover threshold as a *function of problem size* instead of one
+    scalar.  A record's ``calibration.curves.<key>`` holds measured
+    ``[work, threshold]`` points where ``work = events × activities``; the
+    curve interpolates them piecewise-linearly (clamped to the endpoint
+    thresholds outside the measured range), so the same mechanism serves
+    every backend crossover — tiny_pairs, replay, graph repeats, and the
+    sharded-vs-single-host decision."""
+
+    key: str
+    xs: Tuple[float, ...]  # sorted work coordinates (events × activities)
+    ys: Tuple[float, ...]  # measured thresholds at those sizes
+
+    def value_at(self, work: float) -> int:
+        return int(round(float(np.interp(float(work), self.xs, self.ys))))
+
+
+def _parse_curves(
+    cal: dict, clamps: Dict[str, Tuple[int, int]], out: Dict
+) -> None:
+    """Fit clamp-railed :class:`CrossoverCurve` objects from a record's
+    ``curves`` section.  Only keys this record is allowed to calibrate (its
+    scalar clamp keys) are accepted, and every threshold passes the same
+    sanity rails as the scalar — one corrupt record still cannot flip plans
+    outside the measured regime."""
+    curves = cal.get("curves")
+    if not isinstance(curves, dict):
+        return
+    for key, (lo, hi) in clamps.items():
+        pts = curves.get(key)
+        if not isinstance(pts, list) or not pts:
+            continue
+        try:
+            parsed = sorted(
+                (float(x), float(min(max(float(y), lo), hi)))
+                for x, y in pts
+                if float(x) >= 0 and float(y) > 0
+            )
+        except (TypeError, ValueError):
+            continue
+        if parsed:
+            out.setdefault("curves", {})[key] = CrossoverCurve(
+                key=key,
+                xs=tuple(x for x, _ in parsed),
+                ys=tuple(y for _, y in parsed),
+            )
+
+
+def _read_calibration(
+    explicit: Optional[str],
+    basename: str,
+    clamps: Dict[str, Tuple[int, int]],
+    out: Dict,
+) -> Tuple[str, ...]:
+    """Merge one record's ``calibration`` section into ``out``, clamped, and
+    return the scalar keys it set.  An explicitly named record is
+    authoritative: if it is missing or corrupt the static constants stay,
+    never whatever record happens to sit in the cwd / repo root."""
+    candidates = [explicit] if explicit else [
+        basename,
+        os.path.join(_REPO_ROOT, basename),
+    ]
+    for cand in candidates:
+        if not cand or not os.path.isfile(cand):
+            continue
+        try:
+            with open(cand) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            continue  # unreadable / corrupt: static fallback
+        cal = data.get("calibration")
+        if not isinstance(cal, dict):
+            continue
+        measured = []
+        for key, (lo, hi) in clamps.items():
+            v = cal.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool) and v > 0:
+                # float clamp bounds mark float-valued keys (the serve-tier
+                # SLO boundary in seconds); everything else stays an
+                # integer threshold
+                if isinstance(lo, float) or isinstance(hi, float):
+                    out[key] = float(min(max(float(v), lo), hi))
+                else:
+                    out[key] = int(min(max(int(v), lo), hi))
+                measured.append(key)
+        _parse_curves(cal, clamps, out)
+        return tuple(measured)
+    if basename not in _warned_missing:
+        _warned_missing.add(basename)
+        _LOG.warning(
+            "calibration record %s not found (searched explicit path, cwd, "
+            "repo root); the planner falls back to static thresholds for %s",
+            basename, sorted(clamps),
+        )
+    return ()
+
+
+def _load_calibration(
+    path: Optional[str] = None,
+    graph_path: Optional[str] = None,
+    conformance_path: Optional[str] = None,
+    shard_path: Optional[str] = None,
+    serve_path: Optional[str] = None,
+) -> Tuple[Dict, Tuple[str, ...]]:
+    """:func:`load_calibration` and the scalar keys that records set."""
+    out: Dict = {
+        "tiny_pairs": TINY_PAIRS,
+        "memory_budget_events": MEMORY_BUDGET_EVENTS,
+        "graph_repeat_crossover": GRAPH_REPEAT_CROSSOVER,
+        "replay_streaming_crossover": REPLAY_STREAMING_CROSSOVER,
+        "sharded_single_crossover": SHARDED_SINGLE_CROSSOVER,
+        "slo_hot_cutoff_s": SLO_HOT_CUTOFF_S,
+        "curves": {},
+    }
+    env = os.environ.get
+    measured = (
+        _read_calibration(
+            path or env("GRAPHPM_TORCH_BENCH_QUERY"),
+            "BENCH_torch_query.json", _CALIBRATION_CLAMPS, out,
+        )
+        + _read_calibration(
+            graph_path or env("GRAPHPM_TORCH_BENCH_GRAPH"),
+            "BENCH_torch_graph.json", _GRAPH_CLAMPS, out,
+        )
+        + _read_calibration(
+            conformance_path or env("GRAPHPM_TORCH_BENCH_CONFORMANCE"),
+            "BENCH_torch_conformance.json", _CONFORMANCE_CLAMPS, out,
+        )
+        + _read_calibration(
+            shard_path or env("GRAPHPM_TORCH_BENCH_SHARD"),
+            "BENCH_torch_shard.json", _SHARD_CLAMPS, out,
+        )
+        + _read_calibration(
+            serve_path or env("GRAPHPM_TORCH_BENCH_SERVE"),
+            "BENCH_torch_serve.json", _SERVE_CLAMPS, out,
+        )
+    )
+    return out, measured
+
+
+def load_calibration(
+    path: Optional[str] = None,
+    graph_path: Optional[str] = None,
+    conformance_path: Optional[str] = None,
+    shard_path: Optional[str] = None,
+    serve_path: Optional[str] = None,
+) -> Dict:
+    """Cost-model thresholds, measured on the card when the port has a record.
+
+    A record is a JSON file with a ``calibration`` section, as the
+    reference's benchmarks write them: ``BENCH_torch_query.json``
+    (``tiny_pairs``, ``memory_budget_events``), ``BENCH_torch_graph.json``
+    (``graph_repeat_crossover``), ``BENCH_torch_conformance.json``
+    (``replay_streaming_crossover``), ``BENCH_torch_shard.json``
+    (``sharded_single_crossover``) and ``BENCH_torch_serve.json``
+    (``slo_hot_cutoff_s``).  Each is searched as: the explicit path
+    argument, ``$GRAPHPM_TORCH_BENCH_QUERY`` / ``_GRAPH`` /
+    ``_CONFORMANCE`` / ``_SHARD`` / ``_SERVE``, ``./BENCH_torch_*.json``,
+    ``<repo root>/BENCH_torch_*.json``.  A record's values replace the static
+    constants, clamped to the reference's sanity rails, and any ``curves``
+    section becomes a :class:`CrossoverCurve` under ``out["curves"]``
+    (threshold as a function of events × activities — used in preference
+    to the scalar when present).  The constants are always the fallback; a
+    missing record logs a one-time warning.  The reference package's own
+    records (``BENCH_*.json``, measured on other hardware) are never read.
+    """
+    return _load_calibration(
+        path, graph_path, conformance_path, shard_path, serve_path
+    )[0]
+
+
+def resolve_threshold(calibration: Dict, key: str, work: float) -> int:
+    """The effective crossover for ``key`` at problem size ``work``
+    (events × activities): the fitted curve when the calibration carries
+    one, else the (possibly measured) scalar."""
+    curve = calibration.get("curves", {}).get(key)
+    if curve is not None:
+        return curve.value_at(work)
+    return int(calibration[key])
 
 #: device bytes per event that ``QueryEngine._count`` uploads: the int32
 #: activity column (4 B), the bool valid column (1 B) and, for a fused
@@ -432,6 +718,7 @@ def _plan_union(
     device_type: str,
     tiny_pairs: int,
     memory_budget_events: int,
+    fused_dicing: bool,
     replay_crossover: int,
 ) -> PhysicalPlan:
     """Union costing: every branch is costed on its own shape (one union may
@@ -491,6 +778,7 @@ def _plan_union(
             bplan, binfo,
             mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
             memory_budget_events=memory_budget_events,
+            fused_dicing=fused_dicing,
             replay_crossover=replay_crossover,
         )
         notes.append(f"branch[{name}]={bphys.backend}")
@@ -514,6 +802,7 @@ def _plan_sharded(
     device_type: str,
     tiny_pairs: int,
     memory_budget_events: int,
+    fused_dicing: bool,
     graph_available: bool,
     sharded_crossover: int,
 ) -> PhysicalPlan:
@@ -596,7 +885,7 @@ def _plan_sharded(
         return PhysicalPlan(
             backend=backend,
             materialize=True,
-            fused_dicing=backend == "kernel" and windowed,
+            fused_dicing=fused_dicing and backend == "kernel" and windowed,
             view_pushdown=view_pushdown,
             activities_as_output_mask=acts is not None and not view_pushdown,
             notes=tuple(notes),
@@ -616,8 +905,10 @@ def _plan_sharded(
     )
     # per-shard cost estimates: each shard is an independent graph serve
     for name, sinfo in zip(info.shard_names, info.shards):
-        cost = _GRAPH_DISPATCH_S + sinfo.num_events / _GRAPH_EVENTS_PER_S
-        notes.append(f"shard[{name}]=graph cost≈{cost:.1e}s")
+        notes.append(
+            f"shard[{name}]=graph "
+            f"cost≈{estimate_cost_s('graph', sinfo.num_events):.1e}s"
+        )
     return PhysicalPlan(
         backend="sharded-graph",
         row_range_window=(window.t0, window.t1) if windowed else None,
@@ -634,9 +925,11 @@ def plan_physical(
     device_type: str = "cuda",
     tiny_pairs: int = TINY_PAIRS,
     memory_budget_events: int = MEMORY_BUDGET_EVENTS,
+    fused_dicing: bool = True,
     graph_available: bool = False,
     replay_crossover: int = REPLAY_STREAMING_CROSSOVER,
     sharded_crossover: int = SHARDED_SINGLE_CROSSOVER,
+    curves: Optional[Dict[str, CrossoverCurve]] = None,
 ) -> PhysicalPlan:
     """Map a canonical logical plan to a physical one.  ``plan`` must be the
     output of :func:`repro_torch.query.optimize.canonicalize`;
@@ -654,7 +947,30 @@ def plan_physical(
     shard merge or, below ``sharded_crossover`` events, one host
     (:func:`_plan_sharded`).  With a ``mesh`` (a
     :class:`~repro_torch.core.compat.Mesh`), ``auto`` counts above
-    ``tiny_pairs`` on the ``distributed`` backend."""
+    ``tiny_pairs`` on the ``distributed`` backend.  ``fused_dicing=False``
+    keeps a window out of the kernel: the engine masks ``valid`` and
+    launches the plain count.
+
+    ``curves`` (from ``load_calibration()["curves"]``) upgrades the scalar
+    crossovers to fitted curves evaluated at this source's problem size
+    (events × activities)."""
+    if curves:
+        work = float(info.num_events) * float(max(info.num_activities, 1))
+        for key, cur in (
+            ("tiny_pairs", "tiny_pairs"),
+            ("replay_streaming_crossover", "replay"),
+            ("sharded_single_crossover", "sharded"),
+        ):
+            curve = curves.get(key)
+            if curve is None:
+                continue
+            v = curve.value_at(work)
+            if cur == "tiny_pairs":
+                tiny_pairs = v
+            elif cur == "replay":
+                replay_crossover = v
+            else:
+                sharded_crossover = v
     if not isinstance(plan.sink, CONFORMANCE_SINKS):
         if not isinstance(plan.sink, _SINKS):
             raise QueryPlanError(f"unknown sink {plan.sink!r}")
@@ -675,6 +991,7 @@ def plan_physical(
             plan, info,
             mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
             memory_budget_events=memory_budget_events,
+            fused_dicing=fused_dicing,
             replay_crossover=replay_crossover,
         )
     if info.shards is not None:
@@ -682,6 +999,7 @@ def plan_physical(
             plan, info,
             mesh=mesh, device_type=device_type, tiny_pairs=tiny_pairs,
             memory_budget_events=memory_budget_events,
+            fused_dicing=fused_dicing,
             graph_available=graph_available,
             sharded_crossover=sharded_crossover,
         )
@@ -819,7 +1137,12 @@ def plan_physical(
             view_pushdown = True
             notes.append(f"count_space=G×G ({len(labels)}<{info.num_activities})")
 
-    fuse = backend == "kernel" and window is not None and not window.empty
+    fuse = (
+        fused_dicing
+        and backend == "kernel"
+        and window is not None
+        and not window.empty
+    )
     return PhysicalPlan(
         backend=backend,
         materialize=materialize,

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back: no file of ``repro_torch`` (or
 ``chip_smoke.py``) imports JAX or the reference package, it imports and
 answers CPU queries (a DFG, a graph-store process map, replay fitness and
-alignments) with both blocked, and its entry points refuse to run on a card
-that is not there."""
+alignments, service requests with their introspection sinks and a trace
+store read back) with both blocked, and its entry points refuse to run on a
+card that is not there."""
 
 import ast
 import os
@@ -59,6 +60,9 @@ from repro_torch.data import generate_repository
 from repro_torch.query import Q, QueryEngine
 import repro_torch.launch.mine, repro_torch.configs
 import repro_torch.graph, repro_torch.sharding, repro_torch.core.distributed
+import repro_torch.obs, repro_torch.serve
+from repro_torch.obs import SLOEngine, TraceStore
+from repro_torch.serve import QueryService
 
 engine = QueryEngine(device="cpu", tiny_pairs=8)
 repo = generate_repository(60, seed=1)
@@ -70,15 +74,25 @@ fit = Q.log(repo).using(engine).fitness()
 assert 0.0 < fit.value.fitness <= 1.0, fit.value
 ali = Q.log(repo).using(engine).alignments()
 assert ali.value.trace_cost.shape == (repo.num_traces,), ali.value
+store = TraceStore(sys.argv[1])
+svc = QueryService(QueryEngine(device="cpu", trace_store=store))
+svc.register("main", repo)
+out = svc.query({"log": "main", "sink": "dfg", "trace": True})
+assert out["trace"]["spans"] and svc.probe({"log": "main"}).cached, out
+for sink in ("forensics", "metrics", "slo"):
+    assert svc.query({"sink": sink, "format": "prometheus"})["sink"] == sink
+assert Q.log(store.to_repository()).using(engine).dfg().value.sum() > 0
+assert "physical:" in Q.log(repo).using(engine).explain()
+store.close()
 print(int(res.value.sum()), sorted(m for m in sys.modules if m.startswith("jax")))
 """
 
 
-def test_port_runs_with_jax_and_the_reference_blocked():
+def test_port_runs_with_jax_and_the_reference_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
-        env=env, timeout=120,
+        [sys.executable, "-c", BLOCKED_RUN, str(tmp_path / "traces")],
+        capture_output=True, text=True, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     total, jax_modules = out.stdout.split(maxsplit=1)

@@ -205,8 +205,10 @@ def test_unported_features_name_their_roadmap_item(repos):
     q = port_query.Q.log(port_repo).using(
         port_query.QueryEngine(device="cpu")
     )
-    with pytest.raises(port_query.QueryPlanError, match="item 10"):
-        q.explain()
+    # item 10a is ported: explain() returns the plan text
+    text = q.explain()
+    assert text.splitlines()[0] == "logical : repository → (no ops) → DFGSink"
+    assert "physical: backend=" in text and "plan key: " in text
     with pytest.raises(port_query.QueryPlanError, match="kernel"):
         q.dfg(backend="pallas")
     # items 6 and 8 are ported: their backends plan, or refuse with the

@@ -2,9 +2,11 @@
 against the JAX reference package (``repro``)."""
 
 import collections
+import os
 import re
 
 import repro.core.variants as ref_variants
+import repro.query as ref_query
 from repro.core.repository import EventRepository as RefRepository
 
 #: the reference's backend names that the port renames (reference → port);
@@ -72,3 +74,17 @@ def assert_no_collision(*repos) -> None:
     asserts of each log (and selection) it hands both packages."""
     for r in repos:
         assert not collides(r)
+
+
+def ref_engine(**kw):
+    """A reference ``QueryEngine`` that plans on the static thresholds the
+    port's default CPU engine uses: the reference would otherwise read the
+    crossovers (and crossover curves) of its committed ``BENCH_*.json``
+    records, measured on other hardware, which the port never reads."""
+    kw.setdefault("calibration_path", os.devnull)
+    kw.setdefault("graph_crossover", 3)
+    kw.setdefault("replay_crossover", 1 << 22)
+    kw.setdefault("sharded_crossover", 1 << 18)
+    eng = ref_query.QueryEngine(**kw)
+    eng.calibration_curves = {}
+    return eng
