@@ -20,7 +20,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    odd offsets; ``segment_count``: its shared and global branches on either
    side of their boundary, id views at offsets 1-3, every N mod 16, one
    hot bin, each launch's grid and flush bound; ``align_dp``: its
-   registers, shared and global tiers, and each register instance);
+   registers, shared and global tiers, and each register instance); every
+   one of those launches' configurations (``last_launch``) with its
+   build's ptxas resources through the Hopper launch checker
+   (``repro_torch.analysis.kernels_check``; a hard finding is fatal), and
+   its launch report at the main path's shapes (resident blocks per SM
+   and the limit that sets them);
 3. the main path at the paper's evaluation width (PAPER_EVAL: 7.2 M events,
    600 activities, 120 days) on a default ``QueryEngine()`` (its memory
    budget taken from the card): ``Q.log(log).using(engine).dfg()`` plus
@@ -80,6 +85,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``PREDICTED_3G``; the trace store mined back, ``planner_drift_total``
    and the tracing overhead (warm dices on a trace-on and a trace-off
    engine);
+3h. the HTTP transport at the same width: a ``TransportServer`` on
+   127.0.0.1:0 (its event loop in a thread of this process) over one
+   ``QueryService`` on a fresh default engine of the card with a trace
+   store, ``prod`` under a floor of 5 and a copy of it for appends; a
+   client in this process sends a burst of 32 identical cold DFGs (one
+   execution), a cache hit, a 30-day dice, three process maps (the graph
+   build), streamed alignments (NDJSON), an append of 72,000 rows and the
+   DFG that resumes over them, a tenant over its quota, four concurrent
+   dices, a cold lane of depth 1 held busy (a second cold request shed)
+   while the hot lane serves cache hits, the metrics / SLO / health /
+   readiness endpoints and an inbound traceparent; each payload against
+   the host oracle (floored) and the direct service answer, launches and
+   lanes against ``PREDICTED_3H``; with the wire's walls, the Ψ body's
+   JSON cost, the stream's lines and the hot lane's p50 / p99;
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -98,7 +117,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own); the last line
+``launches_by_phase`` each phase's own, 3 to 3h); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
 has tolerance 0.
@@ -106,6 +125,7 @@ has tolerance 0.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import os
@@ -572,6 +592,78 @@ def _segment_count_resources(build):
     spills = {k: v for k, v in rows.items() if v[1] or v[2]}
     check(not spills, f"segment_count instances spill: {spills}")
     return rows
+
+
+@contextlib.contextmanager
+def _recording_launches(mods):
+    """Within the context, every launch through each wrapper module's
+    ``launch`` is recorded as a launch configuration (its ``last_launch``
+    named by its library) for the Hopper launch checker; a call that
+    launched nothing (no work) leaves ``last_launch`` empty and is not
+    recorded.  The modules' ``launch`` is restored after."""
+    from repro_torch.analysis.kernels_check import launch_config
+
+    configs, saved = [], []
+    for library, mod in mods:
+        def recorded(*args, _fn=mod.launch, _mod=mod, _lib=library,
+                     **kwargs):
+            _mod.last_launch.clear()
+            out = _fn(*args, **kwargs)
+            if _mod.last_launch:
+                configs.append(launch_config(_lib, _mod.last_launch))
+            return out
+
+        saved.append((mod, mod.launch))
+        mod.launch = recorded
+    try:
+        yield configs
+    finally:
+        for mod, fn in saved:
+            mod.launch = fn
+
+
+def phase_launch_check(build, configs):
+    """Every phase-2 launch's configuration, with its build's ptxas
+    resources, through ``kernels_check.validate_launch`` (a hard finding is
+    fatal), then ``kernels_check.build_report()``: each kernel launched at
+    the main path's PAPER_EVAL shapes and its resident blocks per SM."""
+    from repro_torch.analysis import kernels_check as kc
+
+    records = {r.name: build.ptxas_resources(r.ptxas)
+               for r in build.build_all()}
+    distinct = list({json.dumps(c, sort_keys=True): c
+                     for c in configs}.values())
+    warnings, occ = [], {}
+    for c in distinct:
+        _, res = kc.entry_resources(c, records[c["library"]])
+        try:
+            warnings += kc.validate_launch(c, res)
+        except kc.KernelLaunchError as e:
+            raise SmokeFailure(f"launch checker: {e}")
+        o = kc.occupancy(c, res)
+        occ.setdefault((c["library"], c["branch"]), set()).add(
+            (o.blocks_per_sm, o.limit))
+    check(configs and {(c["library"], c["branch"]) for c in configs}
+          == set(kc.KERNEL_TABLE),
+          f"phase 2 launched the tiers {sorted(occ)}, not every entry of "
+          "the launch checker's table")
+    log(f"launch checker: {len(configs)} phase-2 launches, {len(distinct)} "
+        "distinct configurations, checked against the H100's limits: 0 hard "
+        f"findings, {len(warnings)} warning(s)")
+    for w in warnings:
+        log(f"  warning: {w.format()}")
+    for (lib, tier), got in sorted(occ.items()):
+        log(f"  {lib} {tier}: resident blocks per SM "
+            + ", ".join(f"{b} (limit: {lim})" for b, lim in sorted(got)))
+    t0 = time.perf_counter()
+    report = kc.build_report()
+    check(report["hard"] == 0, f"launch report: {report['hard']} hard "
+          "finding(s)")
+    log(f"launch report at PAPER_EVAL shapes ({report['configurations']} "
+        f"launches, {report['warnings']} warning(s), "
+        f"{time.perf_counter() - t0:.1f} s):")
+    for line in kc.format_report(report):
+        log(f"  {line}")
 
 
 def phase_align_sweep(torch, dp_ops):
@@ -2802,8 +2894,8 @@ def phase_service(torch, mlog, repo, results, canary, sharded, conf, card,
     want_live = _canonical_psi(np, [
         (np.asarray(mlog.activity), np.asarray(mlog.case),
          np.asarray(mlog.time)), live_rows], a)
-    check(_value_part(out["G8b live.dfg(streaming) (delta)"])
-          == {"psi": _floor(np, want_live, fl).tolist(), "names": names},
+    live_after = {"psi": _floor(np, want_live, fl).tolist(), "names": names}
+    check(_value_part(out["G8b live.dfg(streaming) (delta)"]) == live_after,
           "G8b: the delta Ψ differs from the host oracle")
     want_sh = _canonical_psi(np, [c for _, s in grown_sharded.present_shards()
                                   for c in s.iter_chunks()], a)
@@ -2918,7 +3010,626 @@ def phase_service(torch, mlog, repo, results, canary, sharded, conf, card,
     log(f"phase 3g: {total:.1f} s, of which requests "
         f"{sum(walls.values()):.1f} s, direct checks {direct_s:.1f} s, "
         f"overhead dices {sum(on_s) + sum(off_s):.1f} s")
-    return counts_3g
+    # the host oracles phase 3h serves the same requests against
+    oracles = {
+        "dfg": oracle["G1 prod.dfg"], "w30": w30,
+        "dice30": oracle["G2 prod.window(30d).dfg"],
+        "pm": {t: oracle[n] for t, n in zip(tops, (
+            "G3 prod.process_map(0.2)", "G3b prod.process_map(0.5)",
+            "G3c prod.process_map(0.1)"))},
+        "alignments": oracle["G5b prod.alignments"],
+        "live_rows": live_rows, "live_after": live_after,
+    }
+    return counts_3g, oracles
+
+
+# ---------------------------------------------------------------------------
+# Phase 3h — the HTTP transport at PAPER_EVAL width
+# ---------------------------------------------------------------------------
+
+#: phase 3h's launches and lanes per request, predicted from the code before
+#: its first run on the card (PERF.md §6).  The card's cost priors
+#: (query/planner.py) price a kernel scan at 5.23e-5 s + events / 5.1e6 /s
+#: and a graph serve at 5e-5 s + events / 4e8 /s against the static hot
+#: cutoff SLO_HOT_CUTOFF_S = 0.05 s (no BENCH_torch_serve.json exists).  H1
+#: is the fresh engine's first request: the burst's leader prices prod's
+#: cold DFG at 1.41 s (cold lane) and runs one B1; its 31 twins coalesce
+#: onto it or hit the cache it filled.  H2 is a cache hit (hot).  A probe
+#: prices a plan by its backend and the whole log's events, window or not,
+#: so the 30-day dice is priced at 1.41 s too (cold) and fuses the window
+#: into one B2.  The first process map is prod's third topology
+#: miss, so it builds the graph (one B1 + one B3), yet it is priced as a
+#: graph serve (0.018 s, hot lane); the next two read the graph.  The
+#: streamed alignments run one B4 on the graph's event tables (graph prior,
+#: hot).  The live copy's streaming scan (1.44 s, cold), the append (always
+#: cold) and the delta resume (a delta hint, hot) run on the host.  The
+#: quota and queue sheds execute nothing; the held 60-day dice on the
+#: narrow app (one cold slot) runs one B2 once released; cache hits, the SLO
+#: sink and the traced cache hit are hot and launch nothing; the four
+#: concurrent dices run one B2 each on the cold lane's two workers.
+PREDICTED_3H_QUERIES = {
+    "H1 burst of 32 prod.dfg": ({"dfg_count": 1}, "cold"),
+    "H2 prod.dfg (again)": ({}, "hot"),
+    "H3 prod.window(30d).dfg": ({"dfg_count_diced": 1}, "cold"),
+    "H4 prod.process_map(0.2)": ({"dfg_count": 1, "segment_count": 1},
+                                 "hot"),
+    "H4b prod.process_map(0.5)": ({}, "hot"),
+    "H4c prod.process_map(0.1)": ({}, "hot"),
+    "H5 stream prod.alignments": ({"align_dp": 1}, "hot"),
+    "H6 live.dfg(streaming)": ({}, "cold"),
+    "H6a live append": ({}, "cold"),
+    "H6b live.dfg(streaming) (delta)": ({}, "hot"),
+    "H7 starved tenant": ({}, "hot"),
+    "H7b starved tenant (over quota)": ({}, None),
+    "H9 slo": ({}, "hot"),
+    "H10 traceparent prod.dfg": ({}, "hot"),
+    "C four concurrent dices": ({"dfg_count_diced": 4}, "cold"),
+    "H8 held prod.window(60d).dfg": ({"dfg_count_diced": 1}, "cold"),
+    "H8b prod.window(90d).dfg (shed)": ({}, None),
+    "H8c 100 cache hits": ({}, "hot"),
+}
+PREDICTED_3H = {"dfg_count": 2, "dfg_count_diced": 6, "segment_count": 1,
+                "align_dp": 1}
+#: identical cold-DFG requests sent at once as the engine's first request
+BURST = 32
+#: cache hits timed per state of the cold lane (idle, then busy)
+HOT_HITS = 50
+#: client-side timeout of one HTTP request
+HTTP_TIMEOUT_S = 300
+
+
+def _http(method, url, body=None, headers=None):
+    """(status, headers, body bytes, seconds) of one HTTP request."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as f:
+            out = (f.status, dict(f.headers), f.read())
+    except urllib.error.HTTPError as e:
+        with e:
+            out = (e.code, dict(e.headers), e.read())
+    return (*out, time.perf_counter() - t0)
+
+
+class _ServedApp:
+    """One ``TransportServer`` on 127.0.0.1:0 with its event loop in a thread
+    of this process; :meth:`stop` stops the server (closing the app), the
+    loop and the thread."""
+
+    def __init__(self, server):
+        import asyncio
+        import threading
+
+        self.asyncio = asyncio
+        self.server = server
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="transport-loop", daemon=True)
+
+    def start(self):
+        self.thread.start()
+        self.asyncio.run_coroutine_threadsafe(self.server.start(),
+                                              self.loop).result(60)
+        return self
+
+    @property
+    def address(self):
+        return self.server.address
+
+    def stop(self):
+        try:
+            if self.thread.is_alive():
+                self.asyncio.run_coroutine_threadsafe(
+                    self.server.stop(), self.loop).result(120)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            if not self.thread.is_alive():
+                self.loop.close()
+
+
+def phase_transport(torch, mlog, repo, oracles, card, tmp):
+    """The HTTP transport through ``TransportServer`` on 127.0.0.1:0 over one
+    ``QueryService`` on a fresh default engine of the card with a trace
+    store, at PAPER_EVAL width: the requests H1–H10 and a concurrent burst
+    of dices, each payload against phase 3g's host oracles (floored as
+    prod's policy says) and the direct ``service.query`` answer, launches
+    and lanes against ``PREDICTED_3H``, sheds with Retry-After, the
+    Prometheus, SLO, health and readiness endpoints, an inbound traceparent
+    found in the store; with the wire's walls, the Ψ body's JSON cost, the
+    NDJSON stream's lines and seconds, and the hot lane's p50 / p99 with
+    the cold lane idle and busy.  Returns {kernel: launches}."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.core import (
+        AccessPolicy,
+        MemmapLog,
+        dfg_numpy,
+        pair_mask_for_window,
+    )
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.obs import mint_context, parse_traceparent
+    from repro_torch.query import QueryEngine, fingerprint
+    from repro_torch.query.planner import SLO_HOT_CUTOFF_S
+    from repro_torch.serve import QueryService
+    from repro_torch.transport import (
+        TransportApp,
+        TransportConfig,
+        TransportServer,
+        canonical_payload,
+        reassemble_ndjson,
+    )
+
+    t_phase = time.perf_counter()
+    kernel_ops = (ops, seg_ops, dp_ops)
+
+    def counts_now():
+        out = {}
+        for m in kernel_ops:
+            out.update(m.launch_counts)
+        return out
+
+    def delta(before):
+        after = counts_now()
+        return {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+
+    class HeldService(QueryService):
+        """A QueryService whose ``query`` waits at ``gate`` for the requests
+        ``hold`` selects, so a cold request can saturate a lane on cue."""
+
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.gate = threading.Event()
+            self.gate.set()
+            self.hold = lambda request: False
+            self.held = threading.Event()
+
+        def query(self, request, trace_context=None):
+            if self.hold(request):
+                self.held.set()
+                check(self.gate.wait(timeout=HTTP_TIMEOUT_S),
+                      "the held request was never released")
+            return super().query(request, trace_context)
+
+    # -- inputs: a fresh copy of prod for the appends --------------------------
+    a = mlog.num_activities
+    t_min = float(mlog.time[0])
+    w30 = oracles["w30"]
+    t0 = time.perf_counter()
+    w = MemmapLog.create(os.path.join(tmp, "prod_http_live"),
+                         mlog.num_events, a, mlog.num_traces,
+                         chunk_rows=mlog.chunk_rows)
+    w.append(np.asarray(mlog.activity), np.asarray(mlog.case),
+             np.asarray(mlog.time))
+    live = w.close()
+    check(fingerprint(live) == fingerprint(mlog),
+          "the live copy's fingerprint differs from prod's")
+    live_rows = oracles["live_rows"]
+    n_app = int(live_rows[0].shape[0])
+    log(f"transport: copied prod's {live.num_events} rows for the live log "
+        f"in {time.perf_counter() - t0:.2f} s (host)")
+
+    engine = QueryEngine()
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    svc = HeldService(engine)
+    policy = AccessPolicy(min_group_count=PROD_FLOOR)
+    svc.register("prod", mlog, policy)
+    svc.register("live", live, policy)
+    app = TransportApp(svc, TransportConfig(
+        trace_dir=os.path.join(tmp, "http_traces")))
+    check(app.hot_cutoff_s == SLO_HOT_CUTOFF_S,
+          f"hot cutoff {app.hot_cutoff_s}: a calibration record was read")
+    app.admission.set_quota("starved", rate=0.001, burst=1.0)
+    served = [_ServedApp(TransportServer(app)).start()]
+    main = served[0]
+    check(main.server.host == "127.0.0.1" and main.server.port > 0,
+          f"server bound {main.address}")
+    log(f"transport: server on {main.address} (default lanes: "
+        f"{app.config.hot_workers} hot / {app.config.cold_workers} cold "
+        f"workers); hot cutoff {app.hot_cutoff_s} s (static), trace store "
+        f"{app.trace_store.path}")
+
+    w60 = (t_min, t_min + 60 * DAY)
+    w90 = (t_min, t_min + 90 * DAY)
+    dices = [(t_min, t_min + d * DAY) for d in (7, 14, 21, 45)]
+    req = {
+        "dfg": {"log": "prod", "sink": "dfg"},
+        "dice30": {"log": "prod", "sink": "dfg", "window": list(w30)},
+        "pm": {t: {"log": "prod", "sink": "process_map", "top": t}
+               for t in (0.2, 0.5, 0.1)},
+        "alignments": {"log": "prod", "sink": "alignments"},
+        "live": {"log": "live", "sink": "dfg", "backend": "streaming"},
+        "append": {"log": "live", "activity": live_rows[0].tolist(),
+                   "case": live_rows[1].tolist(),
+                   "time": live_rows[2].tolist()},
+        "traced": {"log": "prod", "sink": "dfg", "trace": True},
+    }
+    out, launched, lanes, walls, stats = {}, {}, {}, {}, {}
+    t_first = None
+    try:
+        for m in kernel_ops:
+            m.reset_launch_counts()
+
+        def send(name, path, body=None, headers=None, base=None):
+            before, s0 = counts_now(), engine.stats
+            status, hdrs, raw, secs = _http(
+                "POST" if body is not None else "GET",
+                (base or main.address) + path, body, headers)
+            torch.cuda.synchronize()
+            launched[name] = delta(before)
+            s1 = engine.stats
+            stats[name] = (s1.rows_scanned - s0.rows_scanned,
+                           s1.delta_hits - s0.delta_hits,
+                           s1.executions - s0.executions)
+            lanes[name] = hdrs.get("X-Lane")
+            walls[name] = secs
+            out[name] = (status, hdrs, raw)
+            return status, hdrs, raw
+
+        # the client's first use (urllib's opener, imports) off the burst's
+        # clock: a liveness probe touches no engine
+        warm_s = max(pool_r[3] for pool_r in ThreadPoolExecutor(
+            BURST, thread_name_prefix="warm").map(
+            lambda _: _http("GET", main.address + "/healthz"), range(BURST)))
+
+        # H1: the engine's first request, 32 identical cold DFGs at once
+        name = "H1 burst of 32 prod.dfg"
+        before, s0 = counts_now(), engine.stats
+        barrier = threading.Barrier(BURST)
+
+        def one(_):
+            barrier.wait(timeout=60)
+            return _http("POST", main.address + "/query", req["dfg"])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(BURST, thread_name_prefix="h1") as pool:
+            burst = list(pool.map(one, range(BURST),
+                                  timeout=HTTP_TIMEOUT_S))
+        walls[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched[name] = delta(before)
+        s1 = engine.stats
+        stats[name] = (s1.rows_scanned - s0.rows_scanned,
+                       s1.delta_hits - s0.delta_hits,
+                       s1.executions - s0.executions)
+        check(all(r[0] == 200 for r in burst),
+              f"H1 statuses {sorted({r[0] for r in burst})}")
+        bodies = [json.loads(r[2]) for r in burst]
+        kinds = []
+        for (_, hdrs, _, _), body in zip(burst, bodies):
+            if hdrs["X-Coalesced"] == "1":
+                kinds.append(f"follower/{hdrs['X-Lane']}")
+            elif body["from_cache"]:
+                kinds.append(f"hit/{hdrs['X-Lane']}")
+            else:
+                kinds.append(f"leader/{hdrs['X-Lane']}")
+        leaders = [k for k in kinds if k.startswith("leader")]
+        check(leaders == ["leader/cold"] and stats[name][2] == 1
+              and all(k in ("follower/cold", "follower/hot", "hit/hot")
+                      for k in kinds if not k.startswith("leader")),
+              f"H1: {sorted(kinds)}, executions {stats[name][2]}")
+        lanes[name] = "cold"
+        first = canonical_payload(bodies[0])
+        check(all(canonical_payload(b) == first for b in bodies),
+              "H1: the burst's payloads differ")
+        out[name] = (200, burst[0][1], burst[0][2])
+        h1_kinds = {k: kinds.count(k) for k in sorted(set(kinds))}
+        h1_leader = next(r[1]["X-Trace-Id"] for r, k in zip(burst, kinds)
+                         if k.startswith("leader"))
+        h1_walls = sorted(r[3] for r in burst)
+        h1_engine_s = max(b["wall_s"] for b in bodies)
+
+        send("H2 prod.dfg (again)", "/query", req["dfg"])
+        send("H3 prod.window(30d).dfg", "/query", req["dice30"])
+        for t, n in zip((0.2, 0.5, 0.1), ("H4 prod.process_map(0.2)",
+                                          "H4b prod.process_map(0.5)",
+                                          "H4c prod.process_map(0.1)")):
+            send(n, "/query", req["pm"][t])
+        send("H5 stream prod.alignments", "/query/stream", req["alignments"])
+        send("H6 live.dfg(streaming)", "/query", req["live"])
+        send("H6a live append", "/append", req["append"])
+        send("H6b live.dfg(streaming) (delta)", "/query", req["live"])
+        send("H7 starved tenant", "/query", req["dfg"],
+             {"X-Tenant": "starved"})
+        send("H7b starved tenant (over quota)", "/query", req["dfg"],
+             {"X-Tenant": "starved"})
+        send("H9 slo", "/slo")
+        for path in ("/metrics", "/healthz", "/readyz"):
+            send(f"H9 {path}", path)
+        inbound = mint_context()
+        send("H10 traceparent prod.dfg", "/query", req["traced"],
+             {"traceparent": inbound.to_traceparent()})
+
+        # C: four distinct dices at once on the cold lane's two workers
+        name = "C four concurrent dices"
+        before = counts_now()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(dices), thread_name_prefix="c") as pool:
+            conc = list(pool.map(
+                lambda w: _http("POST", main.address + "/query",
+                                {"log": "prod", "sink": "dfg",
+                                 "window": list(w)}),
+                dices, timeout=HTTP_TIMEOUT_S))
+        walls[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched[name] = delta(before)
+        lanes[name] = "/".join(sorted({r[1].get("X-Lane") for r in conc}))
+
+        # H8: a second app over the same service with one cold slot (its
+        # queue-depth gauges replace the first app's in the shared registry;
+        # the counters are shared); the slot is held by a cold request, a
+        # second cold request is shed, and the hot lane serves cache hits
+        # meanwhile
+        narrow = TransportApp(svc, TransportConfig(cold_workers=1,
+                                                   max_depth_cold=1))
+        served.append(_ServedApp(TransportServer(narrow)).start())
+        slim = served[1]
+        hits, hit_launches = {}, {}
+        for state in ("idle", "busy"):
+            if state == "busy":
+                before = counts_now()
+                svc.hold = lambda r: r.get("window") == list(w60)
+                svc.gate.clear()
+                holder = ThreadPoolExecutor(1, thread_name_prefix="h8")
+                held = holder.submit(
+                    _http, "POST", slim.address + "/query",
+                    {"log": "prod", "sink": "dfg", "window": list(w60)})
+                check(svc.held.wait(timeout=60),
+                      "the held request never reached the service")
+                check(narrow.scheduler.depth("cold") == 1,
+                      f"cold depth {narrow.scheduler.depth('cold')}")
+                shed_b = counts_now()
+                shed = _http("POST", slim.address + "/query",
+                             {"log": "prod", "sink": "dfg",
+                              "window": list(w90)})
+                launched["H8b prod.window(90d).dfg (shed)"] = delta(shed_b)
+                lanes["H8b prod.window(90d).dfg (shed)"] = shed[1].get(
+                    "X-Lane")
+                out["H8b prod.window(90d).dfg (shed)"] = shed[:3]
+                walls["H8b prod.window(90d).dfg (shed)"] = shed[3]
+            hb = counts_now()
+            rows = [_http("POST", slim.address + "/query", req["dfg"])
+                    for _ in range(HOT_HITS)]
+            hit_launches[state] = delta(hb)
+            check(all(r[0] == 200 and r[1]["X-Lane"] == "hot"
+                      and json.loads(r[2])["from_cache"] for r in rows),
+                  f"H8c ({state}): a cache hit missed the hot lane")
+            if state == "busy":
+                check(not held.done()
+                      and narrow.scheduler.depth("cold") == 1,
+                      "the cold lane drained while the hits ran")
+            hits[state] = sorted(r[3] for r in rows)
+        lanes["H8c 100 cache hits"] = "hot"
+        walls["H8c 100 cache hits"] = sum(map(sum, hits.values()))
+        launched["H8c 100 cache hits"] = {
+            k: hit_launches["idle"].get(k, 0) + hit_launches["busy"].get(k, 0)
+            for k in set(hit_launches["idle"]) | set(hit_launches["busy"])}
+        svc.gate.set()
+        held_r = held.result(timeout=HTTP_TIMEOUT_S)
+        holder.shutdown(wait=True)
+        svc.hold = lambda r: False
+        torch.cuda.synchronize()
+        # the held dice's launches: all since it was sent, less the shed
+        # request's and the busy lane's cache hits'
+        held_l = delta(before)
+        for other in (launched["H8b prod.window(90d).dfg (shed)"],
+                      hit_launches["busy"]):
+            for k, v in other.items():
+                held_l[k] = held_l.get(k, 0) - v
+        launched["H8 held prod.window(60d).dfg"] = {
+            k: v for k, v in held_l.items() if v}
+        lanes["H8 held prod.window(60d).dfg"] = held_r[1].get("X-Lane")
+        out["H8 held prod.window(60d).dfg"] = held_r[:3]
+        walls["H8 held prod.window(60d).dfg"] = held_r[3]
+        counts_3h = counts_now()
+        snap_narrow = engine.metrics_snapshot()
+    finally:
+        svc.gate.set()
+        for s_ in reversed(served):
+            s_.stop()
+    # stopping the main server closed its app and the trace store it shares
+    # with the engine: the direct calls below trace nowhere
+    engine.trace_store = None
+    served_s = time.perf_counter() - t_phase
+
+    # -- statuses, sheds, lanes and launches against the prediction ----------
+    status = {n: o[0] for n, o in out.items()}
+    want_status = {n: 200 for n in out}
+    want_status["H7b starved tenant (over quota)"] = 429
+    want_status["H8b prod.window(90d).dfg (shed)"] = 429
+    check(status == want_status, f"statuses {status}")
+    for n, reason in (("H7b starved tenant (over quota)", "quota"),
+                      ("H8b prod.window(90d).dfg (shed)", "queue")):
+        _, hdrs, raw = out[n]
+        check(float(hdrs["Retry-After"]) > 0
+              and json.loads(raw)["retry_after_s"] > 0,
+              f"{n}: no Retry-After ({hdrs})")
+        check(snap_narrow[f"transport_shed_total{{reason={reason}}}"] >= 1,
+              f"transport_shed_total{{reason={reason}}} did not count {n}")
+    got = {n: (launched[n], lanes[n]) for n in PREDICTED_3H_QUERIES}
+    check(got == PREDICTED_3H_QUERIES,
+          f"phase 3h per-request launches and lanes {got} differ from the "
+          f"prediction {PREDICTED_3H_QUERIES}")
+    check(counts_3h == PREDICTED_3H, f"phase 3h launches {counts_3h} differ "
+          f"from the prediction {PREDICTED_3H}")
+
+    # -- each payload: host oracle (floored) and the direct service answer ---
+    def body(n):
+        raw = out[n][2]
+        if n.startswith("H5"):
+            return reassemble_ndjson(raw.decode().splitlines())
+        return json.loads(raw)
+
+    def value(payload):
+        return _value_part(canonical_payload(payload))
+
+    served_reqs = {
+        "H1 burst of 32 prod.dfg": (req["dfg"], oracles["dfg"]),
+        "H2 prod.dfg (again)": (req["dfg"], oracles["dfg"]),
+        "H3 prod.window(30d).dfg": (req["dice30"], oracles["dice30"]),
+        "H4 prod.process_map(0.2)": (req["pm"][0.2], oracles["pm"][0.2]),
+        "H4b prod.process_map(0.5)": (req["pm"][0.5], oracles["pm"][0.5]),
+        "H4c prod.process_map(0.1)": (req["pm"][0.1], oracles["pm"][0.1]),
+        "H5 stream prod.alignments": (req["alignments"],
+                                      oracles["alignments"]),
+        "H6b live.dfg(streaming) (delta)": (req["live"],
+                                            oracles["live_after"]),
+        "H7 starved tenant": (req["dfg"], oracles["dfg"]),
+        "H10 traceparent prod.dfg": (req["traced"], oracles["dfg"]),
+    }
+    src, dst, valid = repo.df_pairs()
+    win_oracle = {}
+    for w_ in dices + [w60]:
+        psi_w = dfg_numpy(src, dst, valid & pair_mask_for_window(repo, w_), a)
+        win_oracle[w_] = {"psi": _floor(np, psi_w, PROD_FLOOR).tolist(),
+                          "names": oracles["dfg"]["names"]}
+    before = counts_now()
+    t0 = time.perf_counter()
+    for n, (r, want) in served_reqs.items():
+        got_p = body(n)
+        direct = svc.query(dict(r))
+        check(direct["from_cache"], f"{n}: the direct call missed the cache")
+        check(canonical_payload(got_p) == canonical_payload(direct),
+              f"{n}: the HTTP payload differs from the direct service answer")
+        check(value(got_p) == want,
+              f"{n}: the HTTP payload differs from the host oracle")
+    for (status_, _, raw, _), w_ in zip(conc, dices):
+        direct = svc.query({"log": "prod", "sink": "dfg", "window": list(w_)})
+        check(canonical_payload(json.loads(raw)) == canonical_payload(direct)
+              and value(json.loads(raw)) == win_oracle[w_],
+              f"C: the concurrent {w_[1] - w_[0]:.0f}-s dice differs from "
+              "its serial oracle")
+    direct = svc.query({"log": "prod", "sink": "dfg", "window": list(w60)})
+    check(canonical_payload(json.loads(out["H8 held prod.window(60d).dfg"][2]))
+          == canonical_payload(direct)
+          and value(direct) == win_oracle[w60],
+          "H8: the held dice differs from its oracle")
+    check(counts_now() == before, "a direct (cached) call launched a kernel")
+    check_s = time.perf_counter() - t0
+
+    # -- the append, the endpoints, the trace --------------------------------
+    appended = json.loads(out["H6a live append"][2])
+    check(appended["appended"] == n_app
+          and appended["num_events"] == mlog.num_events + n_app,
+          f"append: {appended}")
+    check(stats["H6 live.dfg(streaming)"][0] == mlog.num_events
+          and stats["H6b live.dfg(streaming) (delta)"][:2] == (n_app, 1),
+          f"live: rows / delta hits {stats['H6 live.dfg(streaming)']} then "
+          f"{stats['H6b live.dfg(streaming) (delta)']}")
+    prom = out["H9 /metrics"][2].decode()
+    check(all(s_ in prom for s_ in (
+        "transport_requests_total", "transport_queue_depth",
+        "transport_coalesce_groups_total", "request_latency_seconds_bucket",
+        'kernel_seconds_count{kernel="dfg_count"}')),
+        "/metrics: the exposition lacks the transport or kernel series")
+    slo = json.loads(out["H9 slo"][2])
+    check({o["name"] for o in slo["objectives"]} == {"warm_latency",
+                                                     "availability"},
+          f"/slo: {slo}")
+    check(json.loads(out["H9 /healthz"][2]) == {"ok": True}
+          and json.loads(out["H9 /readyz"][2])["ready"] is True,
+          "/healthz or /readyz")
+    _, hdrs, raw = out["H10 traceparent prod.dfg"]
+    tid = inbound.trace_id
+    echoed = parse_traceparent(hdrs["traceparent"])
+    traced = json.loads(raw)
+    store = app.trace_store
+    recs = store.find(tid)
+    check(hdrs["X-Trace-Id"] == tid and echoed.trace_id == tid
+          and echoed.span_id != inbound.span_id
+          and traced["trace_id"] == tid and traced["trace"]["trace_id"] == tid
+          and any(r["source"] == "transport" for r in recs)
+          and any(r["source"] != "transport" for r in recs),
+          f"H10: trace id {tid} not carried through ({hdrs}, "
+          f"{len(recs)} records)")
+    transport_snap = {
+        k: (v if not isinstance(v, dict) else
+            {q: v[q] for q in ("count", "p50", "p99")})
+        for k, v in sorted(snap_narrow.items())
+        if k.startswith(("transport_", "request_latency_seconds"))}
+
+    # -- for the record --------------------------------------------------------
+    psi_raw = out["H2 prod.dfg (again)"][2]
+    t0 = time.perf_counter()
+    decoded = json.loads(psi_raw)
+    dec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    json.dumps(decoded)
+    enc_s = time.perf_counter() - t0
+    cells = len(decoded["psi"]) * len(decoded["psi"][0])
+    stream_lines = out["H5 stream prod.alignments"][2].decode().splitlines()
+    direct_s = {}
+    for n, (r, _) in served_reqs.items():
+        t0 = time.perf_counter()
+        svc.query(dict(r))
+        direct_s[n] = time.perf_counter() - t0
+    log(f"transport launches: {counts_3h} (predicted {PREDICTED_3H})")
+    log(f"  H1: {BURST} identical requests -> one execution "
+        f"(executions +{stats['H1 burst of 32 prod.dfg'][2]}), responses "
+        f"{h1_kinds}; the leader's engine query {h1_engine_s:.4f} s; "
+        f"responses on the wire after {h1_walls[0]:.4f} (first), "
+        f"{h1_walls[BURST // 2]:.4f} (median), {h1_walls[-1]:.4f} s (last); "
+        f"{BURST} concurrent /healthz before it (the client's first use) "
+        f"{warm_s:.4f} s")
+    for n in walls:
+        p_lane = lanes.get(n)
+        extra = (f", direct service.query {direct_s[n]:.6f} s"
+                 if n in direct_s else "")
+        if n in out and out[n][0] == 200 and not n.startswith(("H5", "H9")):
+            engine_s = json.loads(out[n][2]).get("wall_s")
+            if engine_s is not None:
+                extra += f", engine {engine_s:.6f} s"
+        log(f"  {n}: wire {walls[n]:.6f} s, status "
+            f"{out[n][0] if n in out else 200}, lane {p_lane}, launches "
+            f"{launched.get(n)}{extra}")
+    log(f"  Ψ body [{card}]: {len(psi_raw)} bytes for {cells} cells; "
+        f"json.loads {dec_s:.4f} s, json.dumps {enc_s:.4f} s (host)")
+    log(f"  NDJSON alignments: {len(stream_lines)} lines "
+        f"({len(out['H5 stream prod.alignments'][2])} bytes) in "
+        f"{walls['H5 stream prod.alignments']:.4f} s on the wire")
+    for state, xs in hits.items():
+        log(f"  hot lane, cold lane {state} [{card}]: {HOT_HITS} cache hits "
+            f"p50 {xs[len(xs) // 2]:.6f} s, p99 "
+            f"{xs[min(len(xs) - 1, int(0.99 * len(xs)))]:.6f} s, max "
+            f"{xs[-1]:.6f} s (host clock, on the wire)")
+    log(f"  C: {len(dices)} concurrent dices on the "
+        f"{sorted({r[1]['X-Lane'] for r in conc})} lane(s) == their host "
+        "oracles and the direct answers")
+    log(f"  transport series: {transport_snap}")
+    log(f"  trace store: {len(store)} traces kept; H10's id {tid} in "
+        f"{len(recs)} records")
+    # where a request's wire time goes: the transport record's spans (on
+    # the loop: probe, admit; on the lane's worker: queue wait, execute =
+    # service.query) and the engine record's own time, against the wire
+    for n, rid in (("H1 leader", h1_leader),
+                   ("H2", out["H2 prod.dfg (again)"][1]["X-Trace-Id"])):
+        by_src = {}
+        for r in store.find(rid):
+            by_src.setdefault(r["source"] == "transport", r)
+        t_rec, e_rec = by_src.get(True), by_src.get(False)
+        spans = {sp["name"]: sp["duration_s"]
+                 for sp in (t_rec or {}).get("spans", [])}
+        notes = {k: v for k, v in (e_rec or {}).get("notes", {}).items()
+                 if k.endswith("_s")}
+        log(f"  {n} split [{card}] (s): transport spans "
+            + ", ".join(f"{k} {v:.6f}" for k, v in spans.items())
+            + (f"; engine total {e_rec['total_s']:.6f} {notes}"
+               if e_rec else ""))
+    total = time.perf_counter() - t_phase
+    log(f"phase 3h: {total:.1f} s, of which serving {served_s:.1f} s, direct "
+        f"checks {check_s:.1f} s")
+    return counts_3h
 
 
 # ---------------------------------------------------------------------------
@@ -3611,9 +4322,13 @@ def main() -> int:
             + "; ".join(f"{k} {r} {st}/{ld}" for k, (r, st, ld)
                         in _segment_count_resources(build).items()))
         log("== phase 2: kernels against their plain versions")
-        worst = phase_sweep(torch, ops)
-        worst["segment_count"] = phase_segment_sweep(torch, seg_ops)
-        worst["align_dp"] = phase_align_sweep(torch, dp_ops)
+        with _recording_launches((("dfg_count", ops),
+                                  ("segment_count", seg_ops),
+                                  ("align_dp", dp_ops))) as configs:
+            worst = phase_sweep(torch, ops)
+            worst["segment_count"] = phase_segment_sweep(torch, seg_ops)
+            worst["align_dp"] = phase_align_sweep(torch, dp_ops)
+        phase_launch_check(build, configs)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             log("== phase 3: main path at PAPER_EVAL width")
             counts, results, repo, mlog, model = phase_main_path(torch, tmp)
@@ -3632,11 +4347,14 @@ def main() -> int:
             shard_counts, sharded = phase_sharded(torch, mlog, repo, results,
                                                   card, tmp)
             log("== phase 3g: the query service at PAPER_EVAL width")
-            service_counts = phase_service(torch, mlog, repo, results, canary,
-                                           sharded, conf, card, tmp)
+            service_counts, oracles = phase_service(
+                torch, mlog, repo, results, canary, sharded, conf, card, tmp)
+            log("== phase 3h: the HTTP transport at PAPER_EVAL width")
+            transport_counts = phase_transport(torch, mlog, repo, oracles,
+                                               card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
-                    "3g": service_counts}
+                    "3g": service_counts, "3h": transport_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

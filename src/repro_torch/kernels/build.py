@@ -63,7 +63,10 @@ _lock = threading.Lock()
 
 def ptxas_resources(report: str) -> Dict[str, Dict[str, int]]:
     """Per kernel entry (mangled name) of a ``-Xptxas -v`` report: its
-    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)."""
+    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes), and the
+    static shared memory ``smem`` and constant memory ``cmem`` (bytes,
+    over every bank) that its ``Used ...`` line states (0 when it states
+    none)."""
     out: Dict[str, Dict[str, int]] = {}
     entry = None
     for line in report.splitlines():
@@ -81,6 +84,11 @@ def ptxas_resources(report: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[entry]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem"] = int(smem.group(1)) if smem else 0
+            out[entry]["cmem"] = sum(
+                int(b) for b in re.findall(r"(\d+) bytes cmem\[\d+\]", line)
+            )
     return out
 
 

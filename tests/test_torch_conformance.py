@@ -631,8 +631,9 @@ ptxas info    : Used 32 registers, 380 bytes cmem[0]
 """
     assert build.ptxas_resources(report) == {
         "_Z3fooILi20EEvv": {"registers": 86, "spill_stores": 4,
-                            "spill_loads": 12},
-        "_Z3barv": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
+                            "spill_loads": 12, "smem": 0, "cmem": 416},
+        "_Z3barv": {"registers": 32, "spill_stores": 0, "spill_loads": 0,
+                    "smem": 0, "cmem": 380},
     }
 
 

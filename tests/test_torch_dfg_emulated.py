@@ -195,3 +195,33 @@ def test_hash_grid_is_one_block_per_sm(lib):
     n = 1024 * ops.RUN + 1  # two runs' worth of blocks at most
     _, _, launch = run(lib, act[:n], act[1:n + 1], valid[:n], 600)
     assert launch["grid"] == 2
+
+
+def test_launch_configs_pass_the_hopper_checker(lib):
+    """The configurations the launcher writes back on both branches, both
+    column layouts and with the window on, held by the Hopper launch
+    checker against the H100 ptxas report: no hard finding, and each names
+    its Pallas kernel (B2 with the window, else B1)."""
+    from repro_torch.analysis import kernels_check as kc
+    from repro_torch.kernels.build import ptxas_resources
+    from torch_ptxas import REPORTS
+
+    rng = np.random.default_rng(7)
+    resources = ptxas_resources(REPORTS["dfg_count"])
+    seen = set()
+    for a in (16, 600):
+        act, valid, ts = uniform_pairs(rng, 20_000, a)
+        for shifted in (True, False):
+            dst = act[1:] if shifted else act[1:].clone()
+            for window in (None, (float(ts[100]), float(ts[-100]))):
+                _, _, launch = run(lib, act[:-1], dst, valid, a,
+                                   ts[:-1] if window else None,
+                                   ts[1:] if window else None, window)
+                config = kc.launch_config("dfg_count", launch)
+                _, res = kc.entry_resources(config, resources)
+                assert kc.validate_launch(config, res) == []
+                assert kc.occupancy(config, res).blocks_per_sm >= 1
+                seen.add((launch["branch"], launch["columns"],
+                          kc.ported_kernel(config).key))
+    assert seen == {(b, c, k) for b in ("shared", "hash")
+                    for c in ("shifted", "separate") for k in ("B1", "B2")}

@@ -2,8 +2,9 @@
 ``chip_smoke.py``) imports JAX or the reference package, it imports and
 answers CPU queries (a DFG, a graph-store process map, replay fitness and
 alignments, service requests with their introspection sinks and a trace
-store read back) with both blocked, and its entry points refuse to run on a
-card that is not there."""
+store read back, a transport request and the lint rules over its own tree)
+with both blocked, and its entry points refuse to run on a card that is not
+there."""
 
 import ast
 import os
@@ -60,9 +61,12 @@ from repro_torch.data import generate_repository
 from repro_torch.query import Q, QueryEngine
 import repro_torch.launch.mine, repro_torch.configs
 import repro_torch.graph, repro_torch.sharding, repro_torch.core.distributed
-import repro_torch.obs, repro_torch.serve
+import repro_torch.obs, repro_torch.serve, repro_torch.transport
+import repro_torch.analysis.framework, repro_torch.analysis.kernels_check
+from repro_torch.analysis.framework import Project, run_rules
 from repro_torch.obs import SLOEngine, TraceStore
 from repro_torch.serve import QueryService
+from repro_torch.transport import TransportApp, TransportConfig
 
 engine = QueryEngine(device="cpu", tiny_pairs=8)
 repo = generate_repository(60, seed=1)
@@ -83,7 +87,15 @@ for sink in ("forensics", "metrics", "slo"):
     assert svc.query({"sink": sink, "format": "prometheus"})["sink"] == sink
 assert Q.log(store.to_repository()).using(engine).dfg().value.sum() > 0
 assert "physical:" in Q.log(repo).using(engine).explain()
+import asyncio
+app = TransportApp(svc, TransportConfig(hot_cutoff_s=0.05))
+try:
+    resp = asyncio.run(app.handle({"log": "main", "sink": "histogram"}))
+finally:
+    app.close()
+assert resp.status == 200 and resp.headers["X-Lane"] == "hot", resp
 store.close()
+assert run_rules(Project(sys.argv[2])) == []
 print(int(res.value.sum()), sorted(m for m in sys.modules if m.startswith("jax")))
 """
 
@@ -91,7 +103,8 @@ print(int(res.value.sum()), sorted(m for m in sys.modules if m.startswith("jax")
 def test_port_runs_with_jax_and_the_reference_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-c", BLOCKED_RUN, str(tmp_path / "traces")],
+        [sys.executable, "-c", BLOCKED_RUN, str(tmp_path / "traces"),
+         str(ROOT)],
         capture_output=True, text=True, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -117,6 +130,34 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     psi = dfg(src, dst, valid, repo.num_activities, backend="kernel", device="cpu")
     np.testing.assert_array_equal(psi, [[0, 1, 0, 0], [0, 0, 2, 0],
                                         [0, 0, 0, 1], [0, 0, 0, 0]])
+
+
+def test_transport_and_launch_report_refuse_a_missing_card(monkeypatch):
+    """The transport's default app serves ``QueryService()`` on the card,
+    and the launch report builds and launches the kernels there: without a
+    card each raises, with no fallback to the host."""
+    from repro_torch.analysis.kernels_check import build_report
+    from repro_torch.transport import TransportApp, TransportServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransportApp()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransportServer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_report()
+
+
+def test_analysis_cli_kernel_report_refuses_a_missing_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--kernel-report",
+         str(tmp_path / "report.json")],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert not (tmp_path / "report.json").exists()
 
 
 def test_mine_cli_refuses_a_missing_card():

@@ -303,3 +303,51 @@ def test_align_dp_kernel_matches_plain_version_on_the_card():
                                    device=dev), got)
     assert tiers == {"registers", "shared", "global"}
     assert ks == {k for k, _ in dp_ops.REGISTER_INSTANCES}
+
+
+@pytest.mark.gpu
+def test_launch_report_on_the_card():
+    """``kernels_check.build_report`` builds every library, launches each
+    tier (the main path's at PAPER_EVAL shapes) and finds no launch that
+    cannot start; every launch has a resident block per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the report launches the kernels")
+    from repro_torch.analysis.kernels_check import KERNEL_TABLE, build_report
+
+    report = build_report()
+    assert report["hard"] == 0
+    assert {(r["library"], r["tier"]) for r in report["launches"]} == \
+        set(KERNEL_TABLE)
+    assert all(r["blocks_per_sm"] >= 1 for r in report["launches"])
+
+
+@pytest.mark.gpu
+def test_default_transport_app_serves_from_the_card():
+    """``TransportApp()`` serves ``QueryService()`` on the card: a DFG
+    request pinned to the kernel launches ``dfg_count`` once, from a lane
+    worker thread, and answers the host's count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the default app's engine runs there")
+    import asyncio
+
+    from repro_torch.core import dfg_numpy
+    from repro_torch.data import ProcessSpec, generate_repository
+    from repro_torch.transport import TransportApp
+
+    repo = generate_repository(2_000, ProcessSpec(num_activities=40, seed=3),
+                               seed=3)
+    app = TransportApp()
+    try:
+        assert app.service.engine.device.type == "cuda"
+        app.service.register("main", repo)
+        before = ops.launch_counts["dfg_count"]
+        resp = asyncio.run(app.handle({"log": "main", "sink": "dfg",
+                                       "backend": "kernel"}))
+    finally:
+        app.close()
+    assert resp.status == 200 and resp.payload["backend"] == "kernel"
+    assert ops.launch_counts["dfg_count"] == before + 1
+    src, dst, valid = repo.df_pairs()
+    np.testing.assert_array_equal(
+        np.asarray(resp.payload["psi"]),
+        dfg_numpy(src, dst, valid, repo.num_activities))

@@ -199,3 +199,34 @@ def test_process_log_ids(lib):
     for head in (0, 3):
         for v in (None, valid[head:]):
             check(lib, act[head:], v, 600)
+
+
+def test_launch_configs_pass_the_hopper_checker(lib):
+    """The configurations the launcher writes back on both branches, with
+    and without a valid column, held by the Hopper launch checker against
+    the H100 ptxas report: no hard finding and no spill, and a warning that
+    the emulated card's two blocks per SM are more than an H100 holds of
+    1,024 threads at 38 to 44 registers (one block per SM, set by the
+    registers)."""
+    from repro_torch.analysis import kernels_check as kc
+    from repro_torch.kernels.build import ptxas_resources
+    from torch_ptxas import REPORTS
+
+    resources = ptxas_resources(REPORTS["segment_count"])
+    rng = np.random.default_rng(9)
+    seen = set()
+    for s in (600, LAST_SHARED + 1):
+        ids = torch.from_numpy(rng.integers(0, s, 50_000).astype(np.int32))
+        for valid in (None, torch.from_numpy(rng.random(50_000) < 0.5)):
+            _, launch = run(lib, ids, valid, s)
+            config = kc.launch_config("segment_count", launch)
+            _, res = kc.entry_resources(config, resources)
+            found = kc.validate_launch(config, res)
+            occ = kc.occupancy(config, res)
+            assert (occ.blocks_per_sm, occ.limit) == (1, "registers")
+            assert [f.check for f in found] == ["occupancy"]
+            assert kc.check_launch(dict(config, blocks_per_sm=1), res) == []
+            seen.add((launch["branch"], launch["valid"],
+                      kc.ported_kernel(config).key))
+    assert seen == {(b, v, "B3") for b in ("shared", "global")
+                    for v in (True, False)}
