@@ -99,6 +99,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    the host oracle (floored) and the direct service answer, launches and
    lanes against ``PREDICTED_3H``; with the wire's walls, the Ψ body's
    JSON cost, the stream's lines and the hot lane's p50 / p99;
+3i. the LM serving path: gemma2-9b at its published width and depth (42
+   layers, d_model 3,584, vocab 256,000; 9,241,705,984 parameters) built on
+   the card from a seeded generator and served by ``ServeEngine``
+   (``max_batch`` 4, ``max_cache`` 1,024, ``q_chunk`` 64; its matrices
+   cast to bf16 once): 8 greedy requests of 16-512 prompt tokens
+   (``numpy.random.default_rng(0)``), 32 new tokens each, in two waves,
+   served twice with identical tokens; decode logits against the last
+   position of a prefill over prompt + token with the full-width weights
+   computed in f32 (the reference's rtol = atol = 2e-2) and in the served
+   bf16 (the same argmax; its difference printed beside bf16's own
+   distance from f32); four decode steps under ``torch.profiler`` (the
+   device's busy share, kernels per step); every other arch
+   ``.reduced()`` in f32 on the card against the same weights on the host
+   (atol = rtol = 1e-4, the CPU tests'); the
+   engine's telemetry mined on the default engine as it is and on one with
+   ``tiny_pairs=0`` (one ``dfg_count`` for ``mine_telemetry()``, one
+   ``dfg_count_diced`` for ``mine_telemetry(time_window=...)``), each Ψ
+   against a count of the collector's events; ``repro_torch.launch.serve
+   --arch gemma2-9b --requests 6``; with init seconds, weight bytes, peak
+   device memory, each wave's prefill seconds, the median decode step
+   beside its bytes bound, tokens/s, and the logits product both ways;
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -117,10 +138,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own, 3 to 3h); the last line
+``launches_by_phase`` each phase's own, 3 to 3i); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
-has tolerance 0.
+of phases 2-3h has tolerance 0; phase 3i states its model tolerances.
 """
 
 from __future__ import annotations
@@ -3633,6 +3654,398 @@ def phase_transport(torch, mlog, repo, oracles, card, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3i — the LM serving path
+# ---------------------------------------------------------------------------
+
+#: phase 3i's full-width run (the published gemma2-9b config, nothing cut)
+LM_ARCH = "gemma2-9b"
+LM_REQUESTS, LM_MAX_NEW = 8, 32
+LM_MAX_BATCH, LM_MAX_CACHE, LM_Q_CHUNK = 4, 1024, 64
+LM_PROMPT_LENS = (16, 512)  # uniform, numpy.random.default_rng(0)
+#: the reference's decode-matches-forward tolerance
+#: (``tests/test_models_smoke.py``: rtol 2e-2, atol 2e-2)
+LM_DECODE_TOL = 2e-2
+#: the CPU tests' f32 tolerance (``tests/test_torch_models.py``)
+LM_F32_TOL = 1e-4
+#: launches of phase 3i: one B1 for ``mine_telemetry()`` and one B2 for
+#: ``mine_telemetry(time_window=...)`` on the ``tiny_pairs=0`` engine
+PREDICTED_3I = {"dfg_count": 1, "dfg_count_diced": 1, "segment_count": 0,
+                "align_dp": 0}
+
+
+def _events_psi(np, collector, names, window=None):
+    """Directly-follows counts of the collector's own events (per case,
+    stably by time; with a window both endpoints in [t0, t1))."""
+    events = sorted(zip(collector._cases, collector._times,
+                        range(len(collector)), collector._activities))
+    psi = np.zeros((len(names), len(names)), np.int64)
+    for (c0, t0, _, a), (c1, t1, _, b) in zip(events, events[1:]):
+        if c0 != c1:
+            continue
+        if window is None or (window[0] <= t0 < window[1]
+                              and window[0] <= t1 < window[1]):
+            psi[names.index(a), names.index(b)] += 1
+    return psi
+
+
+def _reduced_on_card(torch, np, arch):
+    """``arch``'s ``.reduced()`` config in f32: prefill (ragged) and four
+    vector-position decode steps on the card and, with the same weights on
+    the host, on the CPU.  Returns the largest |card − host| over logits and
+    caches, and the largest |host| logit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import DecoderLM
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    gpu = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu = DecoderLM(cfg, None, "meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(0)
+    b, s = 3, 13
+    lens = np.array([13, 7, 10])
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s))}
+    prefix = 0
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.normal(
+            size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        prefix = cfg.n_patches
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    steps = rng.integers(0, cfg.vocab_size, size=(4, b, 1))
+    outs = {}
+    for where, dev, model in (("card", "cuda", gpu), ("host", "cpu", cpu)):
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        caches, logits = prefill(
+            cfg, model, tb, 32, q_chunk=4, cache_dtype=torch.float32,
+            last_index=torch.as_tensor(prefix + lens - 1, device=dev))
+        seq = [logits]
+        for i, t in enumerate(steps):
+            logits, caches = decode_step(
+                cfg, model, torch.as_tensor(t, device=dev), caches,
+                torch.as_tensor(prefix + lens + i, device=dev))
+            seq.append(logits)
+        flat = list(seq)
+        for unit in caches:
+            for entry in unit.values():
+                for v in entry.values():
+                    flat.extend(v.values() if isinstance(v, dict) else [v])
+        outs[where] = [x.float().cpu().numpy() for x in flat]
+    worst = 0.0
+    for g, c in zip(outs["card"], outs["host"]):
+        check(g.shape == c.shape and bool(np.isfinite(g).all()),
+              f"{arch}: card output {g.shape} vs host {c.shape}")
+        excess = np.abs(g - c) - (LM_F32_TOL + LM_F32_TOL * np.abs(c))
+        check(float(excess.max()) <= 0.0,
+              f"{arch}: card and host differ by {np.abs(g - c).max():.3g} "
+              f"(tolerance atol = rtol = {LM_F32_TOL})")
+        worst = max(worst, float(np.abs(g - c).max()))
+    return worst, float(np.abs(outs["host"][0]).max())
+
+
+def _logits_product_ms(torch, h, w):
+    """The f32 logits product at the tied embedding's shape both ways: the
+    bf16-in / f32-out GEMM the port uses, and an f32 GEMM of upcast
+    operands (TF32 off), CUDA events over 20 calls each."""
+    out = {}
+    cases = {
+        "bf16_in_f32_out": lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
+        "upcast_f32": lambda: h.float() @ w.float().t(),
+    }
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / 20
+    diff = float((cases["bf16_in_f32_out"]() - cases["upcast_f32"]())
+                 .abs().max())
+    return out, diff
+
+
+def _decode_and_prefill(torch, cfg, params, prompt, tok):
+    """Logits of ``tok`` decoded after a prefill of ``prompt`` (f32 caches),
+    and the last-position logits of a prefill of ``prompt + [tok]``."""
+    from repro_torch.models import decode_step, prefill
+
+    s = len(prompt)
+    caches, _ = prefill(cfg, params,
+                        {"tokens": torch.tensor([prompt], device="cuda")},
+                        s + 1, q_chunk=LM_Q_CHUNK, cache_dtype=torch.float32)
+    dec, _ = decode_step(cfg, params, torch.tensor([[tok]], device="cuda"),
+                         caches, s)
+    _, par = prefill(cfg, params,
+                     {"tokens": torch.tensor([prompt + [tok]], device="cuda")},
+                     s + 2, q_chunk=LM_Q_CHUNK, cache_dtype=torch.float32)
+    return dec.float().cpu().numpy(), par.float().cpu().numpy()
+
+
+def _decode_profile(torch, cfg, params, prompts, steps=4):
+    """Four decode steps of one wave under ``torch.profiler``: ms per step
+    (profiled), the device's busy share of that wall (the kernels' summed
+    device time over it; None when the profiler records no device time),
+    and the kernels launched."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    lens = np.array([len(p) for p in prompts])
+    toks = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for r, p in enumerate(prompts):
+        toks[r, :len(p)] = p
+    caches, logits = prefill(
+        cfg, params, {"tokens": torch.as_tensor(toks, device="cuda")},
+        LM_MAX_CACHE, q_chunk=LM_Q_CHUNK,
+        last_index=torch.as_tensor(lens - 1, device="cuda"))
+    pos = torch.as_tensor(lens, device="cuda")
+    nxt = logits.argmax(-1)[:, None]
+    logits, caches = decode_step(cfg, params, nxt, caches, pos)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            nxt = logits.argmax(-1)[:, None]
+            logits, caches = decode_step(cfg, params, nxt, caches,
+                                         pos + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    busy = device_us / 1e6 / wall if device_us else None
+    return 1e3 * wall / steps, busy, kernels
+
+
+def phase_lm_serving(torch, card):
+    """The LM serving path: gemma2-9b at its published width and depth
+    served by ``ServeEngine`` on the card (8 greedy requests in two waves,
+    twice), decode against prefill, every other arch ``.reduced()`` on the
+    card against the host, the engine's telemetry mined with B1 and B2, and
+    the serving CLI.  Returns {kernel: launches}."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import count_params, init_params
+    from repro_torch.query import QueryEngine, default_engine, set_default_engine
+    from repro_torch.query import execute
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    kernel_ops = (ops, seg_ops, dp_ops)
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on")
+    log(f"f32 matmul precision: {torch.get_float32_matmul_precision()}, "
+        f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; device memory "
+        f"held before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+
+    # ---- full width: the published config, nothing cut ---------------------
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (42, 3584, 256_000),
+          f"{LM_ARCH} config is not the published one")
+    n_params = count_params(cfg)
+    check(n_params == 9_241_705_984, f"{LM_ARCH} counts {n_params} params")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base_alloc
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, params, max_batch=LM_MAX_BATCH,
+                         max_cache=LM_MAX_CACHE, q_chunk=LM_Q_CHUNK)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.params.parameters())
+    check(all(p.device.type == "cuda" for p in engine.params.parameters()),
+          "a weight is off the card")
+    log(f"{LM_ARCH} [{card}]: {n_params:,} parameters, init {init_s:.2f} s "
+        f"(f32, peak {init_peak / 1e9:.2f} GB), cast once {cast_s:.2f} s, "
+        f"weights on the card {weight_bytes / 1e9:.2f} GB")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                        size=LM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    log(f"prompts: lengths {sorted(int(n) for n in lens)} "
+        f"({int(lens.sum())} tokens), max_new_tokens {LM_MAX_NEW}, "
+        f"max_batch {LM_MAX_BATCH}, max_cache {LM_MAX_CACHE}, q_chunk "
+        f"{LM_Q_CHUNK}")
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, max_new_tokens=LM_MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    col = engine.collector
+    spans = list(zip(col._cases, col._activities, col._durations))
+    waves = sorted({c for c, _, _ in spans})
+    check(len(waves) == -(-LM_REQUESTS // LM_MAX_BATCH),
+          f"served {len(waves)} waves")
+    second_engine = ServeEngine(cfg, engine.params, max_batch=LM_MAX_BATCH,
+                                max_cache=LM_MAX_CACHE, q_chunk=LM_Q_CHUNK)
+    second = second_engine.generate(prompts, max_new_tokens=LM_MAX_NEW)
+    check([r.tokens for r in first] == [r.tokens for r in second],
+          "the same requests served twice gave other tokens")
+    for r in first:
+        check(len(r.tokens) == LM_MAX_NEW or r.finished == "stop",
+              f"a request ended with {len(r.tokens)} tokens ({r.finished})")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+              "a token id out of the vocabulary")
+    generated = sum(len(r.tokens) for r in first)
+    prefill_s = [d for _, a, d in spans if a == "prefill"]
+    decode_ms = [1e3 * d for _, a, d in spans if a == "decode"]
+    decode_med = statistics.median(decode_ms)
+    cache_bytes = sum(
+        2 * LM_MAX_BATCH * LM_MAX_CACHE * cfg.n_kv_heads * cfg.head_dim * 2
+        for _ in range(cfg.n_layers))
+    bound_ms = 1e3 * (weight_bytes + cache_bytes) / HBM_BYTES_PER_S
+    log(f"served [{card}]: {len(first)} requests in {len(waves)} waves, "
+        f"{generated} tokens in {wall:.3f} s = {generated / wall:.1f} "
+        f"tokens/s; prefill per wave {', '.join(f'{s:.4f}' for s in prefill_s)}"
+        f" s; decode steps {len(decode_ms)}, median {decode_med:.3f} ms "
+        f"(min {min(decode_ms):.3f}, max {max(decode_ms):.3f}) against a "
+        f"bytes bound of {bound_ms:.3f} ms (weights {weight_bytes / 1e9:.2f} "
+        f"GB + cache {cache_bytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{bound_ms / decode_med * 100:.1f}% of it; served twice, identical "
+        f"tokens")
+
+    # decode logits against the last position of a prefill over prompt +
+    # token, the full-width weights computed in f32 (the property) and in
+    # the served bf16 (where the two paths round differently)
+    i = int(np.argmin(lens))
+    p, tok = prompts[i], first[i].tokens[0]
+    out = {dt: _decode_and_prefill(torch, dataclasses.replace(cfg, dtype=dt),
+                                   engine.params, p, tok)
+           for dt in ("float32", "bfloat16")}
+    (dec32, par32), (dec16, par16) = out["float32"], out["bfloat16"]
+    err32, err16 = (float(np.abs(d - q).max()) for d, q in out.values())
+    noise16 = float(np.abs(par16 - par32).max())
+    check(bool(np.isfinite(dec32).all())
+          and bool((np.abs(dec32 - par32)
+                    <= LM_DECODE_TOL + LM_DECODE_TOL * np.abs(par32)).all()),
+          f"f32 decode logits differ from prefill's by {err32:.3g}")
+    check(int(dec16.argmax()) == int(par16.argmax()) == int(par32.argmax()),
+          "bf16 decode, bf16 prefill and f32 prefill pick other tokens")
+    log(f"decode vs prefill over prompt + token ({len(p)} + 1 tokens, "
+        f"{dec32.size} logits, |logit| ≤ {float(np.abs(par32).max()):.3g}): "
+        f"f32 compute max |diff| {err32:.4g} (rtol = atol = "
+        f"{LM_DECODE_TOL}); bf16 compute {err16:.4g}, where bf16 prefill is "
+        f"{noise16:.4g} from f32 prefill; the same argmax in all four")
+
+    step_ms, busy, kernels = _decode_profile(torch, cfg, engine.params,
+                                             prompts[:LM_MAX_BATCH])
+    log(f"decode profile [{card}] (wave 1's 4 prompts, 4 steps under "
+        f"torch.profiler): {step_ms:.3f} ms per step, "
+        + (f"device busy {busy * 100:.1f}% (idle {100 - busy * 100:.1f}%), "
+           f"{kernels / 4:.0f} kernels per step" if busy is not None
+           else "device time not measured (the profiler saw no CUDA "
+                "kernel)"))
+
+    h = torch.randn((LM_MAX_BATCH, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).to(torch.bfloat16)
+    prod_ms, prod_diff = _logits_product_ms(torch, h, engine.params.embed)
+    log(f"logits product (4, {cfg.d_model}) x ({cfg.d_model}, "
+        f"{cfg.vocab_size}) [{card}]: bf16-in / f32-out GEMM (the port's) "
+        f"{prod_ms['bf16_in_f32_out']:.4f} ms, f32 GEMM of upcast operands "
+        f"{prod_ms['upcast_f32']:.4f} ms; max |diff| {prod_diff:.3g}")
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+
+    # ---- every other arch, reduced, card against host ------------------------
+    t0 = time.perf_counter()
+    for arch in sorted(ARCHS):
+        if arch == LM_ARCH:
+            continue
+        worst, scale = _reduced_on_card(torch, np, arch)
+        log(f"  {arch}.reduced() f32: card vs host max |diff| {worst:.3g} "
+            f"(|logit| ≤ {scale:.3g})")
+    log(f"reduced archs on the card: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the engine's telemetry, mined with B1 and B2 ----------------------
+    repo = col.to_repository()
+    check(repo.num_traces == len(waves),
+          f"{repo.num_traces} traces for {len(waves)} waves")
+    as_is = engine.mine_telemetry()
+    log(f"mine_telemetry() on the default engine as it is: backend "
+        f"{as_is.physical.backend} ({len(col)} spans, tiny_pairs "
+        f"{default_engine().tiny_pairs})")
+    previous = execute._DEFAULT
+    mining = QueryEngine(tiny_pairs=0)
+    check(mining.tiny_pairs == 0, f"tiny_pairs=0 became {mining.tiny_pairs}")
+    set_default_engine(mining)
+    try:
+        plain = engine.mine_telemetry()
+        times = sorted(col._times)
+        window = (times[5], times[-5])
+        diced = engine.mine_telemetry(time_window=window)
+    finally:
+        set_default_engine(previous)
+    check(plain.physical.backend == "kernel"
+          and diced.physical.backend == "kernel"
+          and diced.physical.fused_dicing,
+          f"telemetry plans {plain.physical.describe()} / "
+          f"{diced.physical.describe()}")
+    names = list(plain.names)
+    for res, tw in ((as_is, None), (plain, None), (diced, window)):
+        want = _events_psi(np, col, names, tw)
+        check(list(res.names) == names
+              and np.array_equal(np.asarray(res.value), want),
+              f"telemetry Ψ (window {tw}) differs from the collector's count")
+    pi, di = names.index("prefill"), names.index("decode")
+    psi = np.asarray(plain.value)
+    check(psi[pi, di] == len(waves) and psi[di, di] >= 1,
+          f"telemetry Ψ prefill→decode {psi[pi, di]}, decode→decode "
+          f"{psi[di, di]}")
+    counts = {}
+    for m in kernel_ops:
+        counts.update(m.launch_counts)
+    check(counts == PREDICTED_3I,
+          f"phase 3i launches {counts} differ from {PREDICTED_3I}")
+    log(f"telemetry: {repo.num_traces} traces, Ψ prefill→decode "
+        f"{psi[pi, di]}, decode→decode {psi[di, di]}; windowed Ψ sum "
+        f"{int(np.asarray(diced.value).sum())} of {int(psi.sum())}; "
+        f"launches {counts}")
+    del engine, second_engine, params
+    torch.cuda.empty_cache()
+
+    # ---- the CLI, in-process -------------------------------------------------
+    summary = serve_cli.main(["--arch", LM_ARCH, "--requests", "6"])
+    check(summary["requests"] == 6 and summary["generated_tokens"] > 0,
+          f"serve CLI: {summary}")
+    log(f"phase 3i [{card}]: {time.perf_counter() - t_phase:.1f} s; peak "
+        f"device memory of the full-width run "
+        f"{peak / 1e9:.2f} GB above the {base_alloc / 1e9:.2f} GB held "
+        f"before (torch.cuda.max_memory_allocated)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 4 — the CLI
 # ---------------------------------------------------------------------------
 
@@ -4352,9 +4765,12 @@ def main() -> int:
             log("== phase 3h: the HTTP transport at PAPER_EVAL width")
             transport_counts = phase_transport(torch, mlog, repo, oracles,
                                                card, tmp)
+        log("== phase 3i: the LM serving path, gemma2-9b at full width")
+        lm_counts = phase_lm_serving(torch, card)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
-                    "3g": service_counts, "3h": transport_counts}
+                    "3g": service_counts, "3h": transport_counts,
+                    "3i": lm_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

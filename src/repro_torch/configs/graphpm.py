@@ -8,8 +8,9 @@ Mirrors the evaluation setup of the paper: BPI-2016-scale click log
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
-__all__ = ["GraphPMConfig", "PAPER_EVAL"]
+__all__ = ["GraphPMConfig", "PAPER_EVAL", "BENCH_FAST"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,9 @@ class GraphPMConfig:
     backend: str = "auto"  # scatter | onehot | kernel | auto
     chunk_events: int = 1 << 20  # streaming-tier chunk
     dice_step_days: float = 1.0  # Experiment-2 accumulation step
+    # distribution
+    mesh_axes: Tuple[str, ...] = ("pod", "data", "model")
+    hierarchical_reduce: bool = True  # per-axis reductions, fastest axis first
 
 
 # the paper's evaluation scale (BPI-2016 clicks: ~7.2M events; the paper
@@ -33,4 +37,8 @@ PAPER_EVAL = GraphPMConfig(
     num_activities=600,  # click-log page granularity, coarsened
     horizon_days=120.0,
     mean_trace_len=12.0,
+)
+
+BENCH_FAST = dataclasses.replace(
+    PAPER_EVAL, name="bench-fast", num_events=200_000, num_activities=64
 )

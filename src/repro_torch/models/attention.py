@@ -1,0 +1,346 @@
+"""GQA attention for the assigned architectures.
+
+Covers: grouped-query attention, RoPE (per-kind base for gemma3), sliding
+window / local layers, attention-logit softcapping (gemma2), QK-norm
+(gemma3/olmoe), gemma2 query scaling, encoder (bidirectional) and
+cross-attention (whisper), KV caches (full, ring/window), and
+**q-chunked attention** for long sequences: scores are materialized only
+per q-chunk — (B, KV, G, chunk, S_k) — which bounds activation memory;
+local layers additionally slice keys to the window, so their compute is
+O(S · W), not O(S²).
+
+The reference's explicit head-axis sharding (``_head_shard``) does nothing
+on one card and waits for the sharding item.
+
+Cache contract: :func:`attn_decode` writes the new key / value into the
+cache tensors **in place** and returns the same dict.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .common import (
+    apply_rope, frozen, matmul_f32, normal_init, rms_norm, softcap,
+)
+
+__all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
+           "init_attn_cache", "prefill_fill_cache"]
+
+NEG_INF = -2.0**30  # large-but-finite: keeps fully-masked rows NaN-free
+
+
+def _rope_base(cfg: ModelConfig, kind: str) -> float:
+    if kind == "local" and cfg.rope_base_local is not None:
+        return cfg.rope_base_local
+    return cfg.rope_base
+
+
+def _scale(cfg: ModelConfig) -> float:
+    if cfg.query_scale is not None:
+        return cfg.query_scale**-0.5
+    return float(cfg.head_dim) ** -0.5
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """Attention parameters, stored fused as in the reference:
+    wq (D, H·hd), wk/wv (D, KV·hd), wo (H·hd, D)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        D = cfg.d_model
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        pd = getattr(torch, cfg.param_dtype)
+
+        def init(shape):
+            return frozen(normal_init(generator, shape, dtype=pd,
+                                      device=device))
+
+        self.wq = init((D, H * hd))
+        self.wk = init((D, KV * hd))
+        self.wv = init((D, KV * hd))
+        self.wo = init((H * hd, D))
+        if cfg.qk_norm:
+            self.q_norm = frozen(torch.zeros(hd, dtype=pd, device=device))
+            self.k_norm = frozen(torch.zeros(hd, dtype=pd, device=device))
+
+
+def init_attn(cfg: ModelConfig, generator=None, device=None) -> Attention:
+    return Attention(cfg, generator, device)
+
+
+def init_attn_cache(
+    cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+    dtype=torch.bfloat16, device=None,
+) -> Dict:
+    """KV cache for one attention layer.  Local layers keep a ring buffer of
+    ``window`` slots (keys cached post-RoPE, so ring order is irrelevant —
+    softmax is permutation-invariant over the key set)."""
+    cap = cache_len
+    if kind == "local" and cfg.window:
+        cap = min(cfg.window, cache_len)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, cap, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, cap, KV, hd), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Products: scores (f32) and probs @ v
+# ---------------------------------------------------------------------------
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """einsum("bqkgh,bskh->bkgqs") in f32: q (B, qc, KV, G, hd), k (B, Sk,
+    KV, hd) → (B, KV, G, qc, Sk)."""
+    B, qc, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    qq = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * qc, hd)
+    kk = k.permute(0, 2, 3, 1).reshape(B * KV, hd, Sk)
+    return matmul_f32(qq, kk).reshape(B, KV, G, qc, Sk)
+
+
+def _probs_v(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """einsum("bkgqs,bskh->bqkgh"): probs (B, KV, G, qc, Sk), v (B, Sk, KV,
+    hd) → (B, qc, KV, G, hd) in their common dtype."""
+    B, KV, G, qc, Sk = probs.shape
+    hd = v.shape[-1]
+    pp = probs.reshape(B * KV, G * qc, Sk)
+    vv = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd)
+    out = torch.bmm(pp, vv).reshape(B, KV, G, qc, hd)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# q-chunked attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _attend_chunk(q, k, v, mask, scale, cap):
+    """q (B, qc, KV, G, hd); k/v (B, Sk, KV, hd); mask (qc, Sk) or None."""
+    scores = _scores(q, k) * scale
+    scores = softcap(scores, cap)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return _probs_v(probs, v)
+
+
+def attn_train(
+    cfg: ModelConfig,
+    params: Attention,
+    x: torch.Tensor,
+    kind: str,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    causal: bool = True,
+    kv_source: Optional[torch.Tensor] = None,
+    return_kv: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+    """Full-sequence attention (forward of training / prefill).
+
+    ``kind``: "global" (causal full), "local" (causal windowed).
+    ``causal=False`` gives the whisper encoder (bidirectional).
+    ``kv_source``: cross-attention (keys/values from the encoder output).
+    """
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dt = x.dtype
+    dev = x.device
+
+    src = x if kv_source is None else kv_source
+    Sk = src.shape[1]
+    q = (x @ params.wq.to(dt)).reshape(B, S, KV, G, hd)
+    k = (src @ params.wk.to(dt)).reshape(B, Sk, KV, hd)
+    v = (src @ params.wv.to(dt)).reshape(B, Sk, KV, hd)
+
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.rms_eps)
+        k = rms_norm(k, params.k_norm, cfg.rms_eps)
+
+    if kv_source is None:  # self-attention gets RoPE
+        pos = (
+            positions
+            if positions is not None
+            else torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        )
+        base = _rope_base(cfg, kind)
+        q = apply_rope(q.reshape(B, S, KV * G, hd), pos, base).reshape(
+            B, S, KV, G, hd
+        )
+        k = apply_rope(k, pos, base)
+
+    scale = _scale(cfg)
+    cap = cfg.attn_logit_softcap
+    window = cfg.window if kind == "local" else None
+
+    qc = min(q_chunk, S)
+    pad = (-S) % qc
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+    nq = (S + pad) // qc
+    ar = torch.arange(qc, device=dev)
+
+    outs = []
+    if window is not None and causal and kv_source is None and Sk > window + qc:
+        # local layers: slice keys to [start, start + W + qc) per q chunk —
+        # compute is O(S·W) instead of O(S²)
+        W = window
+        kwin = W + qc
+        karange = torch.arange(kwin, device=dev)
+        for i in range(nq):
+            q0 = i * qc
+            # clamp so the fixed-size slice stays in bounds
+            start = min(max(0, q0 - W), Sk - kwin)
+            ks = k[:, start:start + kwin]
+            vs = v[:, start:start + kwin]
+            qpos = q0 + ar
+            kpos = start + karange
+            m = (
+                (qpos[:, None] >= kpos[None, :])
+                & (qpos[:, None] - kpos[None, :] < W)
+            )
+            outs.append(_attend_chunk(q[:, q0:q0 + qc], ks, vs, m, scale, cap))
+    else:
+        kpos = torch.arange(Sk, device=dev)
+        for i in range(nq):
+            qpos = i * qc + ar
+            if causal and kv_source is None:
+                m = qpos[:, None] >= kpos[None, :]
+                if window is not None:
+                    m &= qpos[:, None] - kpos[None, :] < window
+            else:
+                m = None
+            outs.append(
+                _attend_chunk(q[:, i * qc:(i + 1) * qc], k, v, m, scale, cap))
+
+    out = torch.cat(outs, dim=1).reshape(B, S + pad, H * hd)[:, :S]
+    out = out @ params.wo.to(dt)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against a cache)
+# ---------------------------------------------------------------------------
+
+
+def attn_decode(
+    cfg: ModelConfig,
+    params: Attention,
+    x: torch.Tensor,  # (B, 1, D)
+    kind: str,
+    cache: Dict,
+    pos,  # int / 0-d tensor, or (B,) per-sequence: tokens already in cache
+    *,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict]:
+    """One token against the cache.  Self-attention writes the token's key
+    and value into ``cache`` in place and returns it."""
+    B, _, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dt = x.dtype
+    dev = x.device
+
+    q = (x @ params.wq.to(dt)).reshape(B, 1, KV, G, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.rms_eps)
+    vector_pos = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if vector_pos:
+        posb = pos[:, None].to(torch.int32)
+    else:
+        posb = torch.full((B, 1), int(pos), dtype=torch.int32, device=dev)
+    base = _rope_base(cfg, kind)
+    q = apply_rope(q.reshape(B, 1, KV * G, hd), posb, base).reshape(
+        B, 1, KV, G, hd
+    )
+    scale = _scale(cfg)
+    cap = cfg.attn_logit_softcap
+
+    if cross_kv is not None:
+        k, v = cross_kv  # (B, S_enc, KV, hd) — static, no cache update
+        scores = _scores(q, k) * scale
+        scores = softcap(scores, cap)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = _probs_v(probs, v).reshape(B, 1, H * hd).to(dt)
+        return out @ params.wo.to(dt), cache
+
+    k_new = (x @ params.wk.to(dt)).reshape(B, 1, KV, hd)
+    v_new = (x @ params.wv.to(dt)).reshape(B, 1, KV, hd)
+    if cfg.qk_norm:
+        k_new = rms_norm(k_new, params.k_norm, cfg.rms_eps)
+    k_new = apply_rope(k_new, posb, base)
+
+    ck, cv = cache["k"], cache["v"]
+    cap_len = ck.shape[1]
+    is_ring = kind == "local" and cfg.window is not None
+    idx = torch.arange(cap_len, device=dev)
+    if vector_pos:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        slot = pos % cap_len if is_ring else torch.clamp(pos, max=cap_len - 1)
+        rows = torch.arange(B, device=dev)
+        ck[rows, slot] = k_new[:, 0].to(ck.dtype)
+        cv[rows, slot] = v_new[:, 0].to(cv.dtype)
+        valid = (idx[None, :] <= slot[:, None]) | (pos[:, None] >= cap_len)
+        vmask = valid[:, None, None, None, :]
+    else:
+        p = int(pos)
+        slot = p % cap_len if is_ring else min(p, cap_len - 1)
+        ck[:, slot] = k_new[:, 0].to(ck.dtype)
+        cv[:, slot] = v_new[:, 0].to(cv.dtype)
+        # validity: ring buffers are fully valid once wrapped; otherwise ≤ pos
+        valid = (idx <= slot) | (p >= cap_len)
+        vmask = valid[None, None, None, None, :]
+    scores = _scores(q, ck.to(dt)) * scale
+    scores = softcap(scores, cap)
+    scores = scores.masked_fill(~vmask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = _probs_v(probs, cv.to(dt)).reshape(B, 1, H * hd)
+    out = out @ params.wo.to(dt)
+    return out, cache
+
+
+def prefill_fill_cache(
+    cfg: ModelConfig,
+    kind: str,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cache_len: int,
+    dtype=torch.bfloat16,
+) -> Dict:
+    """Build a cache from full-sequence K/V (post-RoPE) after prefill."""
+    B, S = k.shape[0], k.shape[1]
+    dev = k.device
+    cap = cache_len
+    ring = kind == "local" and bool(cfg.window)
+    if ring:
+        cap = min(cfg.window, cache_len)
+    ck = torch.zeros((B, cap) + tuple(k.shape[2:]), dtype=dtype, device=dev)
+    cv = torch.zeros((B, cap) + tuple(v.shape[2:]), dtype=dtype, device=dev)
+    if S >= cap:
+        ks, vs = k[:, S - cap:S], v[:, S - cap:S]
+        # ring layout: element at position p lives in slot p % cap
+        if ring:
+            slots = torch.arange(S - cap, S, device=dev) % cap
+        else:
+            slots = torch.arange(cap, device=dev)
+        ck[:, slots] = ks.to(dtype)
+        cv[:, slots] = vs.to(dtype)
+    else:
+        ck[:, :S] = k.to(dtype)
+        cv[:, :S] = v.to(dtype)
+    return {"k": ck, "v": cv}

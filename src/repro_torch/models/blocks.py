@@ -1,0 +1,184 @@
+"""Per-layer ("entry") assembly: norm → mixer (attn | mamba) → norm → ffn
+(dense MLP | MoE), with gemma-style optional post-norms.  Entries are the
+elements of ``cfg.layer_pattern``; the model holds ``n_units`` repetitions
+of the pattern as an ``nn.ModuleList`` (the reference scans over stacked
+unit parameters)."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import attn_decode, attn_train, init_attn, prefill_fill_cache
+from .common import frozen, rms_norm
+from .mamba import init_mamba, mamba_decode, mamba_train
+from .mlp import init_mlp, mlp
+from .moe import init_moe, moe_apply
+
+__all__ = ["Entry", "init_entry", "entry_train", "entry_prefill",
+           "entry_decode"]
+
+
+def _has_ffn(cfg: ModelConfig, idx: int) -> Optional[str]:
+    """What follows the mixer at pattern position ``idx``:
+    'moe' | 'mlp' | None (pure-mamba archs fold the MLP into the mixer)."""
+    if cfg.is_moe_layer(idx):
+        return "moe"
+    if cfg.d_ff > 0:
+        return "mlp"
+    return None
+
+
+class Entry(nn.Module):
+    """One layer: ``ln1``, ``attn`` or ``mamba``, [``ln1_post``], [``ln_x``,
+    ``xattn``], [``ln2``, [``ln2_post``], ``mlp`` or ``moe``] — the
+    reference's parameter names."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, idx: int, generator=None,
+                 device=None, cross: bool = False):
+        super().__init__()
+        pd = getattr(torch, cfg.param_dtype)
+        D = cfg.d_model
+
+        def norm():
+            return frozen(torch.zeros(D, dtype=pd, device=device))
+
+        self.ln1 = norm()
+        if kind == "mamba":
+            self.mamba = init_mamba(cfg, generator, device)
+        else:
+            self.attn = init_attn(cfg, generator, device)
+        if cfg.post_norms:
+            self.ln1_post = norm()
+        if cross:  # whisper decoder: add a cross-attention sub-block
+            self.ln_x = norm()
+            self.xattn = init_attn(cfg, generator, device)
+        ffn = _has_ffn(cfg, idx)
+        if ffn:
+            self.ln2 = norm()
+            if cfg.post_norms:
+                self.ln2_post = norm()
+            if ffn == "moe":
+                self.moe = init_moe(cfg, generator, device)
+            else:
+                self.mlp = init_mlp(cfg, generator, device)
+
+
+def init_entry(cfg: ModelConfig, kind: str, idx: int, generator=None,
+               device=None, cross: bool = False) -> Entry:
+    return Entry(cfg, kind, idx, generator, device, cross)
+
+
+def _ffn_apply(cfg, idx, p, x):
+    ffn = _has_ffn(cfg, idx)
+    if ffn is None:
+        return x, 0.0
+    h = rms_norm(x, p.ln2, cfg.rms_eps)
+    if ffn == "moe":
+        h, aux = moe_apply(cfg, p.moe, h)
+    else:
+        h, aux = mlp(cfg, p.mlp, h), 0.0
+    if cfg.post_norms:
+        h = rms_norm(h, p.ln2_post, cfg.rms_eps)
+    return x + h, aux
+
+
+def entry_train(
+    cfg: ModelConfig,
+    kind: str,
+    idx: int,
+    p: Entry,
+    x: torch.Tensor,
+    *,
+    causal: bool = True,
+    enc_out: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (x, aux_loss)."""
+    h = rms_norm(x, p.ln1, cfg.rms_eps)
+    if kind == "mamba":
+        h = mamba_train(cfg, p.mamba, h)
+    else:
+        h = attn_train(cfg, p.attn, h, kind, causal=causal, q_chunk=q_chunk)
+    if cfg.post_norms:
+        h = rms_norm(h, p.ln1_post, cfg.rms_eps)
+    x = x + h
+    if enc_out is not None:  # whisper decoder cross-attention
+        h = rms_norm(x, p.ln_x, cfg.rms_eps)
+        h = attn_train(cfg, p.xattn, h, "global", kv_source=enc_out,
+                       causal=False, q_chunk=q_chunk)
+        x = x + h
+    return _ffn_apply(cfg, idx, p, x)
+
+
+def entry_prefill(
+    cfg: ModelConfig,
+    kind: str,
+    idx: int,
+    p: Entry,
+    x: torch.Tensor,
+    cache_len: int,
+    *,
+    enc_out: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    cache_dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict]:
+    """Forward + build this entry's decode cache."""
+    h = rms_norm(x, p.ln1, cfg.rms_eps)
+    if kind == "mamba":
+        h, cache = mamba_train(cfg, p.mamba, h, return_cache=True)
+    else:
+        h, (k, v) = attn_train(cfg, p.attn, h, kind, q_chunk=q_chunk,
+                               return_kv=True)
+        cache = prefill_fill_cache(cfg, kind, k, v, cache_len, cache_dtype)
+    if cfg.post_norms:
+        h = rms_norm(h, p.ln1_post, cfg.rms_eps)
+    x = x + h
+    if enc_out is not None:
+        h = rms_norm(x, p.ln_x, cfg.rms_eps)
+        dt = x.dtype
+        KV, hd = cfg.n_kv_heads, cfg.head_dim
+        Senc = enc_out.shape[1]
+        kx = (enc_out @ p.xattn.wk.to(dt)).reshape(-1, Senc, KV, hd)
+        vx = (enc_out @ p.xattn.wv.to(dt)).reshape(-1, Senc, KV, hd)
+        h = attn_train(cfg, p.xattn, h, "global", kv_source=enc_out,
+                       causal=False, q_chunk=q_chunk)
+        x = x + h
+        cache = {"self": cache, "cross_k": kx.to(cache_dtype),
+                 "cross_v": vx.to(cache_dtype)}
+    x, _ = _ffn_apply(cfg, idx, p, x)
+    return x, cache
+
+
+def entry_decode(
+    cfg: ModelConfig,
+    kind: str,
+    idx: int,
+    p: Entry,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: Dict,
+    pos,
+) -> Tuple[torch.Tensor, Dict]:
+    """One token; updates ``cache`` in place and returns it."""
+    h = rms_norm(x, p.ln1, cfg.rms_eps)
+    is_encdec_entry = "cross_k" in cache
+    self_cache = cache["self"] if is_encdec_entry else cache
+    if kind == "mamba":
+        h, _ = mamba_decode(cfg, p.mamba, h, self_cache)
+    else:
+        h, _ = attn_decode(cfg, p.attn, h, kind, self_cache, pos)
+    if cfg.post_norms:
+        h = rms_norm(h, p.ln1_post, cfg.rms_eps)
+    x = x + h
+    if is_encdec_entry:
+        h = rms_norm(x, p.ln_x, cfg.rms_eps)
+        h, _ = attn_decode(
+            cfg, p.xattn, h, "global", {}, pos,
+            cross_kv=(cache["cross_k"], cache["cross_v"]),
+        )
+        x = x + h
+    x, _ = _ffn_apply(cfg, idx, p, x)
+    return x, cache

@@ -1,0 +1,148 @@
+"""Shared model components: norms, RoPE, activations, init, and the
+products whose output stays f32.
+
+``chunked_cross_entropy`` belongs to the training half of the zoo, which the
+port does not carry yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "rms_norm",
+    "apply_rope",
+    "rope_angles",
+    "softcap",
+    "activation",
+    "sinusoidal_positions",
+    "normal_init",
+    "matmul_f32",
+    "frozen",
+]
+
+
+def frozen(t: torch.Tensor) -> torch.nn.Parameter:
+    """A parameter that takes no gradient: the port's models serve only."""
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+def normal_init(generator: Optional[torch.Generator], shape, scale: float = 0.02,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """``scale · N(0, 1)`` drawn from ``generator`` (an explicit
+    :class:`torch.Generator` on ``device``).  On the ``meta`` device nothing
+    is drawn: the tensor only has a shape, for counting."""
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    x.mul_(scale)
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, gemma-style (1 + w) scaling with zeros-init weight."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Logit soft-capping: cap * tanh(x / cap) (gemma2)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return _gelu_tanh
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, base: float) -> torch.Tensor:
+    """(…, head_dim/2) angles for given integer positions."""
+    dev = positions.device
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+    # the f32 base is filled on the device: a host tensor copied over would
+    # synchronize the stream at every call
+    base_f32 = torch.full((), base, dtype=torch.float32, device=dev)
+    inv_freq = 1.0 / torch.pow(base_f32, exps)
+    return positions.float()[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: (..., S). Pairs split as
+    [first half, second half] (HF convention)."""
+    if base <= 0:  # architecture without RoPE (whisper/jamba)
+        return x
+    hd = x.shape[-1]
+    ang = rope_angles(positions, hd, base)  # (..., S, hd/2)
+    sin = torch.sin(ang)[..., None, :]  # broadcast over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    """Whisper-style sinusoidal embedding table (length, dim)."""
+    log_timescale = np.log(10_000.0) / (dim // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(dim // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(
+        np.float32
+    )
+
+
+def sinusoidal_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sinusoidal embedding at dynamic positions ``pos`` ((B,) or (1,)),
+    computed in f32 on ``pos``'s device (the decode step's position)."""
+    half = dim // 2
+    inv = torch.exp(
+        -math.log(10_000.0) / (half - 1)
+        * torch.arange(half, dtype=torch.float32, device=pos.device)
+    )
+    ang = pos.float()[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Products with an f32 output
+# ---------------------------------------------------------------------------
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an f32 result, for 2-D or batched 3-D operands: the
+    reference's ``preferred_element_type=float32`` (products of the operands'
+    values, summed in f32).  f32 operands multiply as they are; bf16
+    operands on the card go through cuBLAS's bf16-in / f32-out GEMM
+    (``out_dtype``), so a weight is never upcast; elsewhere the operands are
+    upcast, which gives the same products (a bf16 × bf16 product is exact in
+    f32)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()

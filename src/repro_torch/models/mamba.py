@@ -1,0 +1,254 @@
+"""Mamba-2 SSD (state-space duality) block.
+
+The selective scan is computed in its *dual* chunked-matmul form
+(arXiv 2405.21060 §6): within chunks of length Q the recurrence becomes
+dense attention-like matmuls; across chunks a short loop passes the
+(H, P, N) state.  Jamba's Mamba-1 layers also run through this block
+(d_state 16 preserved), as in the reference package.
+
+Block layout (mamba_ssm convention):
+  in_proj: D → [z (d_inner), x (d_inner), B (G·N), C (G·N), dt (H)]
+  causal depthwise conv (width 4) over the [x, B, C] channels
+  SSD core, per-head RMS-norm gated by z, out_proj: d_inner → D.
+
+Cache contract: :func:`mamba_decode` stores the new conv window and state in
+``cache`` (the same dict) and returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .common import frozen, normal_init, rms_norm
+
+__all__ = ["Mamba2", "init_mamba", "mamba_train", "mamba_decode",
+           "init_mamba_cache", "ssd_chunked"]
+
+
+def _dims(cfg: ModelConfig):
+    d_in = cfg.d_inner
+    H = cfg.ssm_n_heads
+    P = cfg.ssm_head_dim
+    N = cfg.ssm_d_state
+    G = cfg.ssm_n_groups
+    conv_ch = d_in + 2 * G * N
+    return d_in, H, P, N, G, conv_ch
+
+
+class Mamba2(nn.Module):
+    """The mixer's parameters, named as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        pd = getattr(torch, cfg.param_dtype)
+        d_in, H, P, N, G, conv_ch = _dims(cfg)
+        proj_out = 2 * d_in + 2 * G * N + H
+
+        def init(shape):
+            return frozen(normal_init(generator, shape, dtype=pd,
+                                      device=device))
+
+        def const(n, value):
+            return frozen(torch.full((n,), value, dtype=pd, device=device))
+
+        self.in_proj = init((cfg.d_model, proj_out))
+        self.conv_w = init((cfg.conv_width, conv_ch))
+        self.conv_b = const(conv_ch, 0.0)
+        self.A_log = const(H, 0.0)  # A = -exp(A_log) ∈ (-∞, 0)
+        self.D = const(H, 1.0)
+        self.dt_bias = const(H, 0.0)
+        self.norm_w = const(d_in, 0.0)
+        self.out_proj = init((d_in, cfg.d_model))
+
+
+def init_mamba(cfg: ModelConfig, generator=None, device=None) -> Mamba2:
+    return Mamba2(cfg, generator, device)
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None) -> Dict:
+    d_in, H, P, N, G, conv_ch = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, H, P, N), dtype=dtype, device=device),
+    }
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    d_in, H, P, N, G, _ = _dims(cfg)
+    return torch.split(proj, [d_in, d_in + 2 * G * N, H], dim=-1)
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time. xBC (B, L, C); w (W, C)."""
+    W = w.shape[0]
+    L = xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = torch.zeros_like(xBC)
+    for i in range(W):  # width is 4 — unrolled taps
+        out = out + pad[:, i:i + L] * w[i]
+    return F.silu(out + b)
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise cumulative sums: out[..., i, j] =
+    Σ_{k=j+1..i} dA[..., k] for i ≥ j, -inf above the diagonal."""
+    Q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(Q, device=dA.device)
+    mask = i[:, None] >= i[None, :]
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) — post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, L, G, N)
+    Cm: torch.Tensor,  # (B, L, G, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, L, H, P), final_state (B, H, P, N)), both f32."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (L + pad) // Q
+
+    f32 = torch.float32
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    dtc = dt.reshape(Bsz, nc, Q, H).to(f32)
+    Bc = torch.repeat_interleave(Bm.reshape(Bsz, nc, Q, G, N), rep, dim=3).to(f32)
+    Cc = torch.repeat_interleave(Cm.reshape(Bsz, nc, Q, G, N), rep, dim=3).to(f32)
+
+    dA = dtc * A.to(f32)  # (B, c, Q, H)
+    dA_cs = torch.cumsum(dA, dim=2)  # within-chunk cumsum
+
+    # ---- intra-chunk (block-diagonal) term --------------------------------
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B, c, H, Q, Q)
+    CB = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    xdt = xc.to(f32) * dtc[..., None]  # (B,c,Q,H,P)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", CB * Lmat, xdt)
+
+    # ---- chunk states -------------------------------------------------------
+    decay_tail = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (B,c,Q,H)
+    S_chunk = torch.einsum(
+        "bcqhn,bcqh,bcqhp->bchpn", Bc, decay_tail, xdt
+    )
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (B, c, H)
+
+    # ---- inter-chunk recurrence (short loop over nc) -----------------------
+    state = (
+        init_state.to(f32)
+        if init_state is not None
+        else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    )
+    S_in = []
+    for c in range(nc):
+        S_in.append(state)  # the state *entering* this chunk
+        state = S_chunk[:, c] + chunk_decay[:, c, :, None, None] * state
+    S_in = torch.stack(S_in, dim=1)  # (B, c, H, P, N)
+
+    # ---- inter-chunk output term ---------------------------------------------
+    state_decay = torch.exp(dA_cs)  # (B,c,Q,H)
+    y_off = torch.einsum(
+        "bcqhn,bchpn,bcqh->bcqhp", Cc, S_in, state_decay
+    )
+
+    y = (y_diag + y_off).reshape(Bsz, nc * Q, H, P)[:, :L]
+    return y, state
+
+
+def mamba_train(
+    cfg: ModelConfig,
+    params: Mamba2,
+    x: torch.Tensor,
+    *,
+    return_cache: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
+    """Full-sequence SSD forward. x: (B, L, D)."""
+    Bsz, L, D = x.shape
+    d_in, H, P, N, G, conv_ch = _dims(cfg)
+    dt_ = x.dtype
+
+    proj = x @ params.in_proj.to(dt_)
+    z, xBC, dt_raw = _split_proj(cfg, proj)
+    xBC = _causal_conv(xBC, params.conv_w.to(dt_), params.conv_b.to(dt_))
+    xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bsz, L, H, P)
+    Bm = Bm.reshape(Bsz, L, G, N)
+    Cm = Cm.reshape(Bsz, L, G, N)
+    dt = F.softplus(dt_raw.float() + params.dt_bias.float())
+    A = -torch.exp(params.A_log.float())
+
+    y, last_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + xs.float() * params.D.float()[None, None, :, None]
+    y = y.reshape(Bsz, L, d_in).to(dt_)
+    y = rms_norm(y * F.silu(z), params.norm_w, cfg.rms_eps)
+    out = y @ params.out_proj.to(dt_)
+    if return_cache:
+        # conv cache holds the *pre-conv* channel inputs of the last
+        # (width-1) steps, taken from the pre-conv projection:
+        proj_tail = proj[:, max(0, L - (cfg.conv_width - 1)):]
+        _, xBC_tail, _ = _split_proj(cfg, proj_tail)
+        pad_t = cfg.conv_width - 1 - xBC_tail.shape[1]
+        if pad_t:
+            xBC_tail = F.pad(xBC_tail, (0, 0, pad_t, 0))
+        cache = {"conv": xBC_tail.float(), "state": last_state}
+        return out, cache
+    return out
+
+
+def mamba_decode(
+    cfg: ModelConfig, params: Mamba2, x: torch.Tensor, cache: Dict
+) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrent step. x: (B, 1, D) — O(1) in context length."""
+    Bsz = x.shape[0]
+    d_in, H, P, N, G, conv_ch = _dims(cfg)
+    dt_ = x.dtype
+
+    proj = x[:, 0] @ params.in_proj.to(dt_)  # (B, proj_out)
+    z, xBC_new, dt_raw = _split_proj(cfg, proj)
+
+    # conv ring: window = [cache, new]
+    conv = cache["conv"]
+    win = torch.cat([conv, xBC_new[:, None].to(conv.dtype)], dim=1)  # (B, W, C)
+    conv_out = torch.einsum("bwc,wc->bc", win, params.conv_w.to(win.dtype))
+    xBC = F.silu(conv_out + params.conv_b.to(win.dtype))
+    new_conv = win[:, 1:]
+
+    xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bsz, H, P).float()
+    rep = H // G
+    Bm = torch.repeat_interleave(Bm.reshape(Bsz, G, N), rep, dim=1).float()
+    Cm = torch.repeat_interleave(Cm.reshape(Bsz, G, N), rep, dim=1).float()
+    dt = F.softplus(dt_raw.float() + params.dt_bias.float())  # (B, H)
+    A = -torch.exp(params.A_log.float())
+    decay = torch.exp(dt * A)  # (B, H)
+
+    # S' = decay·S + dt·x ⊗ B ;  y = (S'·C) + D·x
+    state = cache["state"] * decay[..., None, None] + torch.einsum(
+        "bhp,bhn,bh->bhpn", xs, Bm, dt
+    )
+    y = torch.einsum("bhpn,bhn->bhp", state, Cm)
+    y = y + xs * params.D.float()[None, :, None]
+    y = y.reshape(Bsz, d_in).to(dt_)
+    y = rms_norm(y * F.silu(z), params.norm_w, cfg.rms_eps)
+    out = (y @ params.out_proj.to(dt_))[:, None]
+    cache["conv"] = new_conv
+    cache["state"] = state
+    return out, cache

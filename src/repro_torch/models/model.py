@@ -1,0 +1,275 @@
+"""Top-level models: decoder-only LM (dense / MoE / SSM / hybrid / VLM) and
+encoder–decoder (whisper), built from ``n_units`` repetitions of the layer
+pattern.
+
+Public API (the serving half of the reference's):
+  init_params(cfg, generator, device)   → :class:`DecoderLM`
+  prefill(cfg, params, batch, cache_len) → (caches, last_logits)
+  decode_step(cfg, params, tokens, caches, pos) → (logits, caches)
+  init_caches(cfg, batch, cache_len)    → zeroed caches
+  count_params(cfg, active_only=False)  → exact count, on the meta device
+
+Caches are a list with one dict per unit (``{"e0": {...}, ...}``), each
+entry's cache a dict of tensors.  :func:`decode_step` **updates the caches
+in place** (the cache tensors and the dicts) and returns the same list, so a
+cache that went through a decode step holds the state after it.
+
+``train_loss`` waits for the training half of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import init_attn_cache
+from .blocks import entry_decode, entry_prefill, entry_train, init_entry
+from .common import (
+    frozen, matmul_f32, normal_init, rms_norm, sinusoidal_at,
+    sinusoidal_positions, softcap,
+)
+from .mamba import init_mamba_cache
+
+__all__ = [
+    "DecoderLM",
+    "init_params",
+    "prefill",
+    "decode_step",
+    "init_caches",
+    "count_params",
+    "serving_weights",
+]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+class DecoderLM(nn.Module):
+    """The model's parameters, named as the reference's pytree: ``embed``
+    (V, D), ``final_norm``, ``units`` (one ``ModuleDict`` of entries
+    ``e0``… per unit), [``lm_head`` (V, D)], [``enc_units``, ``enc_norm``]."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        pd = getattr(torch, cfg.param_dtype)
+        pattern = cfg.layer_pattern
+        cross = cfg.family == "encdec"
+        self.units = nn.ModuleList(
+            nn.ModuleDict({
+                f"e{i}": init_entry(cfg, kind, i, generator, device,
+                                    cross=cross)
+                for i, kind in enumerate(pattern)
+            })
+            for _ in range(cfg.n_units)
+        )
+        if cfg.family == "encdec":
+            self.enc_units = nn.ModuleList(
+                nn.ModuleDict({"e0": init_entry(cfg, "global", 0, generator,
+                                                device)})
+                for _ in range(cfg.n_enc_layers)
+            )
+            self.enc_norm = frozen(torch.zeros(cfg.d_model, dtype=pd,
+                                               device=device))
+        self.embed = frozen(normal_init(
+            generator, (cfg.vocab_size, cfg.d_model), dtype=pd, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = frozen(normal_init(
+                generator, (cfg.vocab_size, cfg.d_model), dtype=pd,
+                device=device))
+        self.final_norm = frozen(torch.zeros(cfg.d_model, dtype=pd,
+                                             device=device))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> DecoderLM:
+    """Random weights (N(0, 0.02²) matrices, zero norms) drawn from
+    ``generator`` on ``device`` (by default the generator's device)."""
+    return DecoderLM(cfg, generator,
+                     generator.device if device is None else device)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from a model built on the ``meta`` device (no
+    allocation).  ``active_only`` counts top-k of the experts' matrices."""
+    model = DecoderLM(cfg, None, "meta")
+    total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        parts = name.split(".")
+        if active_only and "moe" in parts and parts[-1] in (
+            "w_up", "w_down", "w_gate"
+        ):
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Shared forward plumbing
+# ---------------------------------------------------------------------------
+
+
+def _embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens):
+    h = params.embed[tokens.long()].to(getattr(torch, cfg.dtype))
+    if cfg.scale_embed:  # sqrt(d_model) in f32, rounded to the compute dtype
+        scale = torch.full((), float(cfg.d_model), dtype=torch.float32,
+                           device=h.device).sqrt()
+        h = h * scale.to(h.dtype)
+    return h
+
+
+def _vocab_weight(cfg: ModelConfig, params: DecoderLM):
+    return params.embed if cfg.tie_embeddings else params.lm_head
+
+
+def _logits(cfg: ModelConfig, params: DecoderLM, h: torch.Tensor):
+    """(B, D) → (B, V) f32 logits against the vocabulary matrix, softcapped."""
+    w = _vocab_weight(cfg, params).to(h.dtype)
+    return softcap(matmul_f32(h, w.t()), cfg.final_logit_softcap)
+
+
+def _encode(cfg: ModelConfig, params: DecoderLM, frames):
+    """Whisper encoder over stub frame embeddings (B, S_enc, D)."""
+    dt = getattr(torch, cfg.dtype)
+    pos = torch.as_tensor(sinusoidal_positions(frames.shape[1], cfg.d_model))
+    h = frames.to(dt) + pos.to(dtype=dt, device=frames.device)[None]
+    for unit in params.enc_units:
+        h, _ = entry_train(cfg, "global", 0, unit["e0"], h, causal=False)
+    return rms_norm(h, params.enc_norm, cfg.rms_eps)
+
+
+def _decoder_inputs(cfg: ModelConfig, params: DecoderLM, batch) -> Tuple[torch.Tensor, int]:
+    """Token (+modality) embeddings.  Returns (embeds, n_prefix) where
+    n_prefix = positions that carry no next-token loss (VLM patches)."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    n_prefix = 0
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(h.dtype)
+        h = torch.cat([vis, h], dim=1)
+        n_prefix = vis.shape[1]
+    if cfg.family == "encdec":
+        pos = torch.as_tensor(sinusoidal_positions(h.shape[1], cfg.d_model))
+        h = h + pos.to(dtype=h.dtype, device=h.device)[None]
+    return h, n_prefix
+
+
+# ---------------------------------------------------------------------------
+# Serve: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(
+    cfg: ModelConfig, batch: int, cache_len: int, cache_dtype=torch.bfloat16,
+    device="cpu",
+) -> List[Dict]:
+    """Zeroed caches with the exact decode-time structure (one dict per
+    unit)."""
+    pattern = cfg.layer_pattern
+    cross = cfg.family == "encdec"
+    unit_caches = []
+    for _ in range(cfg.n_units):
+        entry = {}
+        for i, kind in enumerate(pattern):
+            if kind == "mamba":
+                c = init_mamba_cache(cfg, batch, device=device)
+            else:
+                c = init_attn_cache(cfg, kind, batch, cache_len, cache_dtype,
+                                    device)
+            if cross:
+                shape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+                c = {
+                    "self": c,
+                    "cross_k": torch.zeros(shape, dtype=cache_dtype,
+                                           device=device),
+                    "cross_v": torch.zeros(shape, dtype=cache_dtype,
+                                           device=device),
+                }
+            entry[f"e{i}"] = c
+        unit_caches.append(entry)
+    return unit_caches
+
+
+@torch.inference_mode()
+def prefill(
+    cfg: ModelConfig,
+    params: DecoderLM,
+    batch: Dict,
+    cache_len: int,
+    *,
+    q_chunk: int = 1024,
+    cache_dtype=torch.bfloat16,
+    last_index: Optional[torch.Tensor] = None,
+) -> Tuple[List[Dict], torch.Tensor]:
+    """Run the full prompt, build caches, return f32 logits at the last
+    position (per sequence ``last_index`` for right-padded prompts)."""
+    h, _ = _decoder_inputs(cfg, params, batch)
+    enc_out = (
+        _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
+    )
+    pattern = cfg.layer_pattern
+    caches = []
+    for unit in params.units:
+        unit_c = {}
+        for i, kind in enumerate(pattern):
+            h, c = entry_prefill(
+                cfg, kind, i, unit[f"e{i}"], h, cache_len,
+                enc_out=enc_out, q_chunk=q_chunk, cache_dtype=cache_dtype,
+            )
+            unit_c[f"e{i}"] = c
+        caches.append(unit_c)
+    h = rms_norm(h, params.final_norm, cfg.rms_eps)
+    if last_index is None:
+        last = h[:, -1]
+    else:  # ragged prompts (batched serving): per-seq last real position
+        rows = torch.arange(h.shape[0], device=h.device)
+        last = h[rows, last_index.to(device=h.device, dtype=torch.int64)]
+    return caches, _logits(cfg, params, last)
+
+
+@torch.inference_mode()
+def decode_step(
+    cfg: ModelConfig,
+    params: DecoderLM,
+    tokens: torch.Tensor,  # (B, 1)
+    caches: List[Dict],
+    pos,  # int / 0-d tensor, or (B,) tensor: tokens already in cache
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """One token per sequence: f32 logits (B, V), and ``caches`` updated in
+    place (returned for convenience)."""
+    h = _embed_tokens(cfg, params, tokens)
+    if cfg.family == "encdec":
+        # sinusoidal position for the current (dynamic) step; handles scalar
+        # or per-sequence vector positions
+        if isinstance(pos, torch.Tensor):
+            posv = pos.to(h.device).reshape(-1)  # (1,) or (B,)
+        else:
+            posv = torch.full((1,), int(pos), device=h.device)
+        pe = sinusoidal_at(posv, cfg.d_model)
+        h = h + pe[:, None, :].to(h.dtype)
+    pattern = cfg.layer_pattern
+    for unit, unit_c in zip(params.units, caches):
+        for i, kind in enumerate(pattern):
+            h, _ = entry_decode(cfg, kind, i, unit[f"e{i}"], h,
+                                unit_c[f"e{i}"], pos)
+    h = rms_norm(h, params.final_norm, cfg.rms_eps)
+    return _logits(cfg, params, h[:, 0]), caches
+
+
+def serving_weights(cfg: ModelConfig, params: DecoderLM) -> DecoderLM:
+    """Cast, in place and once, every parameter whose every use first casts
+    it to ``cfg.dtype``: the matrices (attention, MLP, MoE, ``embed`` /
+    ``lm_head``, ``in_proj``, ``out_proj``) but ``conv_w``.  The vectors
+    (norm weights, ``A_log``, ``D``, ``dt_bias``, ``conv_b``) stay, and so
+    does ``conv_w``: the decode step uses it at the f32 of its conv cache.
+    The model's outputs do not change: a use of a cast weight reads the
+    values it would have cast."""
+    dt = getattr(torch, cfg.dtype)
+    for name, p in params.named_parameters():
+        if p.dim() >= 2 and not name.endswith("conv_w"):
+            p.data = p.data.to(dt)
+    return params

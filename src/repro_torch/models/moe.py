@@ -1,0 +1,124 @@
+"""Top-k Mixture-of-Experts with sort-based capacity dispatch.
+
+No per-expert ragged shapes: tokens pick top-k experts; a stable argsort
+groups (token, expert) assignments by expert; each expert processes a
+fixed-capacity slab gathered from the token stream; results scatter-add back
+weighted by the router gate.  Overflowing tokens beyond ``capacity_factor``
+drop (standard Switch/GShard semantics).
+
+The router load-balancing auxiliary loss (Switch §2.2) is returned alongside.
+The reference's data-shard-local dispatch (``_moe_sharded``, ``DistCtx``)
+waits for the sharding item: on one card every token is resident, which is
+``_moe_dense_dispatch``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .common import activation, frozen, normal_init
+
+__all__ = ["MoE", "init_moe", "moe_apply"]
+
+
+class MoE(nn.Module):
+    """router (D, E); w_up / w_gate (E, D, F); w_down (E, F, D)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        pd = getattr(torch, cfg.param_dtype)
+        E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+
+        def init(shape):
+            return frozen(normal_init(generator, shape, dtype=pd,
+                                      device=device))
+
+        self.router = init((D, E))
+        self.w_up = init((E, D, Fe))
+        self.w_down = init((E, Fe, D))
+        if cfg.mlp_gated:
+            self.w_gate = init((E, D, Fe))
+
+
+def init_moe(cfg: ModelConfig, generator=None, device=None) -> MoE:
+    return MoE(cfg, generator, device)
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert: ``max(1, ceil(N·K / E) · capacity_factor)``."""
+    E, K = cfg.n_experts, cfg.top_k
+    return int(max(1, -(-n_tokens * K // E) * cfg.capacity_factor))
+
+
+def moe_apply(
+    cfg: ModelConfig, params: MoE, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) → (out, aux_loss)."""
+    return _moe_dense_dispatch(cfg, params, x)
+
+
+def _moe_dense_dispatch(
+    cfg: ModelConfig, params: MoE, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    dt = x.dtype
+    dev = x.device
+    act = activation(cfg.act)
+
+    xt = x.reshape(N, D)
+    logits = (xt @ params.router.to(dt)).float()  # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, topk_idx = torch.topk(probs, K, dim=-1)  # (N, K)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9
+    )
+
+    # ---- load-balancing aux loss (fraction_tokens · fraction_router_prob) --
+    me = probs.mean(dim=0)  # (E,)
+    one_hot_top1 = F.one_hot(topk_idx[:, 0], E).float()
+    ce = one_hot_top1.mean(dim=0)
+    aux = (me * ce).sum() * E
+
+    # ---- sort-based capacity dispatch ---------------------------------------
+    capacity = moe_capacity(cfg, N)
+    flat_e = topk_idx.reshape(-1)  # (N·K,)
+    flat_g = gate_vals.reshape(-1)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    # position within the expert's group
+    group_start = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.arange(N * K, device=dev) - group_start
+    ok = pos < capacity
+    token_of = sort_idx // K
+
+    # slots (E, C): token index feeding each expert slot (N = dummy row).
+    # Overflowing assignments (column ``capacity``) are dropped.
+    e_ok, c_ok = sorted_e[ok], pos[ok]
+    slot_tok = torch.full((E, capacity), N, dtype=torch.int64, device=dev)
+    slot_tok[e_ok, c_ok] = token_of[ok]
+    slot_gate = torch.zeros((E, capacity), dtype=torch.float32, device=dev)
+    slot_gate[e_ok, c_ok] = flat_g[sort_idx][ok]
+
+    x_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
+    xe = x_pad[slot_tok]  # (E, C, D)
+
+    up = torch.bmm(xe, params.w_up.to(dt))
+    if cfg.mlp_gated:
+        gate = act(torch.bmm(xe, params.w_gate.to(dt)))
+        h = gate * up
+    else:
+        h = act(up)
+    ye = torch.bmm(h, params.w_down.to(dt))
+    ye = ye * slot_gate[..., None].to(dt)
+
+    # combine: scatter-add expert outputs back to tokens
+    out = torch.zeros((N + 1, D), dtype=dt, device=dev)
+    out.index_add_(0, slot_tok.reshape(-1), ye.reshape(-1, D))
+    return out[:N].reshape(B, S, D), aux

@@ -170,6 +170,77 @@ def test_mine_cli_refuses_a_missing_card():
     assert "CUDA" in out.stderr and out.stdout == ""
 
 
+SERVING_BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.models import count_params, init_params
+from repro_torch.serve import ServeEngine
+import repro_torch.launch.serve, repro_torch.models.convert
+
+assert count_params(get_config("gemma2-9b")) == 9_241_705_984
+cfg = get_config("jamba-v0.1-52b").reduced()
+eng = ServeEngine(cfg, init_params(cfg, torch.Generator().manual_seed(0)),
+                  max_batch=2, max_cache=32, device="cpu")
+res = eng.generate([[1, 2, 3], [4, 5], [6]], max_new_tokens=3)
+psi = eng.mine_telemetry().value
+summary = repro_torch.launch.serve.main(
+    ["--arch", "olmoe-1b-7b", "--requests", "2", "--max-new", "2",
+     "--device", "cpu"])
+assert summary["generated_tokens"] == 4, summary
+print(len(res), int(psi.sum()), sorted(m for m in sys.modules
+                                       if m.startswith("jax")))
+"""
+
+
+def test_serving_runs_with_jax_and_the_reference_blocked():
+    """The LM zoo, the serving engine with its self-mined telemetry and the
+    serving CLI run on the host with JAX and the reference blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", SERVING_BLOCKED_RUN],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n, pairs, jax_modules = out.stdout.strip().splitlines()[-1].split(
+        maxsplit=2)
+    assert int(n) == 3 and int(pairs) > 0 and jax_modules.strip() == "[]"
+
+
+def test_serve_engine_refuses_a_missing_card(monkeypatch):
+    """``ServeEngine`` runs on the card unless it is given ``device="cpu"``:
+    without a card the default raises, with no fallback to the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("starcoder2-3b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_serve_cli_refuses_a_missing_card():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2-9b", "--requests", "2"],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and out.stdout == ""
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path, where):
     """Run without a card (or from a directory holding only the script), the
