@@ -120,6 +120,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    --arch gemma2-9b --requests 6``; with init seconds, weight bytes, peak
    device memory, each wave's prefill seconds, the median decode step
    beside its bytes bound, tokens/s, and the logits product both ways;
+3j. the LM training path: ``repro_torch.launch.train`` in-process on
+   starcoder2-3b at its published width and depth (30 layers, d_model
+   3,072, vocab 49,152; 3,029,523,456 parameters), ``--preset full
+   --steps 8 --batch 2 --seq 4096 --lr 3e-4 --mine`` (``train_4k``'s
+   sequence length, one card's batch of 2; f32 master weights, bf16
+   compute, ``remat`` full, no checkpoint: one would write 36.4 GB): every
+   loss finite, the first within 0.5 of ln V + d_model · 0.02² / 2, the
+   last below the first; the median step beside its FLOP bound (bf16 peak)
+   and AdamW's bytes, the peak device memory; step 0's loss and gradients
+   of a fresh init in bf16 and f32 compute (within 2e-2 relative, the grad
+   norms printed) and the bf16 one under ``torch.profiler`` (busy share,
+   device time by class of kernel, top kernels); ``matmul_f32``'s hand-written gradient on the card
+   against the host's products; every arch ``.reduced()`` in f32, loss,
+   gradients and 3 ``Trainer`` steps on the card against the host (atol =
+   rtol = 1e-4); ``remat`` none, full and dots bit for bit on the card
+   (bf16); the golden restart on the card (crash at 7, restore 5, bit for
+   bit); the trainer's telemetry mined: ``--mine`` (one
+   ``dfg_count``) and a windowed DFG on a ``tiny_pairs=0`` engine (one
+   ``dfg_count_diced``), each Ψ against a count of the collector's events,
+   launches against ``PREDICTED_3J``;
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -138,10 +158,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own, 3 to 3i); the last line
+``launches_by_phase`` each phase's own, 3 to 3j); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
-of phases 2-3h has tolerance 0; phase 3i states its model tolerances.
+of phases 2-3h has tolerance 0; phases 3i and 3j state their model
+tolerances.
 """
 
 from __future__ import annotations
@@ -3751,6 +3772,7 @@ def _logits_product_ms(torch, h, w):
     bf16-in / f32-out GEMM the port uses, and an f32 GEMM of upcast
     operands (TF32 off), CUDA events over 20 calls each."""
     out = {}
+    w = w.detach()  # the model's parameters take gradients
     cases = {
         "bf16_in_f32_out": lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
         "upcast_f32": lambda: h.float() @ w.float().t(),
@@ -4042,6 +4064,475 @@ def phase_lm_serving(torch, card):
         f"device memory of the full-width run "
         f"{peak / 1e9:.2f} GB above the {base_alloc / 1e9:.2f} GB held "
         f"before (torch.cuda.max_memory_allocated)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 3j — the LM training path
+# ---------------------------------------------------------------------------
+
+#: phase 3j's full-width run: starcoder2-3b at its published width and depth
+#: (``configs/starcoder2_3b.py``), ``train_4k``'s sequence length, one card's
+#: batch of 2 (``train_4k``'s global batch of 256 cut), 8 steps
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_PARAMS = 3_029_523_456
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4096
+#: ``TrainHParams``' default peak learning rate; the CLI's default 3e-3 is
+#: the tiny preset's
+TRAIN_LR = 3e-4
+#: the first loss sits within this of ln V + d_model · 0.02² / 2: random
+#: N(0, 0.02²) tied embeddings against a unit-RMS final state give logits
+#: of variance d_model · 0.02², whose log-sum-exp adds half of it to ln V
+TRAIN_FIRST_LOSS_TOL = 0.5
+#: step 0's loss in f32 and in bf16 compute, relative
+TRAIN_DTYPE_RTOL = 2e-2
+#: the CPU tests' f32 tolerance, card against host
+TRAIN_F32_TOL = 1e-4
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the bound
+BF16_FLOPS = 989e12
+#: launches of phase 3j: one B1 for the CLI's ``--mine`` and one B2 for a
+#: windowed DFG of the trainer's log on a ``tiny_pairs=0`` engine
+PREDICTED_3J = {"dfg_count": 1, "dfg_count_diced": 1, "segment_count": 0,
+                "align_dp": 0}
+
+
+def _train_flops(cfg, batch, seq):
+    """FLOPs of one training step of ``cfg`` under ``remat="full"``: the
+    matrix products (every matrix but the embedding gather, plus the tied
+    vocabulary product) and the causal attention's two products, each run
+    forward, again in the backward's recompute (units and loss chunks), and
+    twice in the backward."""
+    from repro_torch.models.model import DecoderLM
+
+    model = DecoderLM(cfg, None, "meta")
+    tokens = batch * seq
+    mats = sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() >= 2 and n != "embed")
+    vocab = cfg.vocab_size * cfg.d_model
+    window = min(cfg.window or seq, seq)
+    pairs = sum(min(i + 1, window) for i in range(seq))  # causal (q, k)
+    attn = 2 * 2 * batch * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers
+    forward = 2 * tokens * (mats + vocab) + attn
+    return 4 * forward, mats + vocab
+
+
+#: kernel-name fragments (lower case) of the step profile's classes, the
+#: first match wins; the rest is "other"
+KERNEL_CLASSES = (
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "wgmma")),
+    ("softmax", ("softmax", "cunn_soft")),
+    ("copy", ("memcpy", "copy")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _train_step_profile(torch, cfg, params, batch):
+    """One bf16 loss + backward of step 0 under ``torch.profiler``: the
+    wall (profiled), the device's busy share (the kernels' summed device
+    time over the wall; None when the profiler records no device time),
+    the kernel count, the device time by class of kernel
+    (``KERNEL_CLASSES``, ms) and the five kernels with the most device time
+    (name, ms, launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import train_loss
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_loss(cfg, params, batch, q_chunk=1024).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    params.zero_grad(set_to_none=True)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            rows.append((e.key, us / 1e3, e.count))
+    total_ms = sum(ms for _, ms, _ in rows)
+    if not total_ms:
+        return wall, None, 0, {}, []
+    classes = {}
+    for key, ms, _ in rows:
+        name = next((c for c, frags in KERNEL_CLASSES
+                     if any(f in key.lower() for f in frags)), "other")
+        classes[name] = classes.get(name, 0.0) + ms
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    return (wall, total_ms / 1e3 / wall, sum(n for _, _, n in rows),
+            classes, top)
+
+
+def _reduced_training_on_card(torch, np, arch, tmp):
+    """``arch``'s ``.reduced()`` config in f32 with the same weights on the
+    card and on the host: the loss and every gradient of one batch, then 3
+    ``Trainer`` steps.  Returns the largest |card − host| over the loss,
+    gradients and the 3 losses."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.train import Trainer, init_opt_state
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = TokenPipeline(vocab_size=cfg.vocab_size, batch=2, seq_len=16,
+                           seed=3, branching=4)
+    rng = np.random.default_rng(0)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision_embeds"] = rng.normal(
+            size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+    def data(step):
+        return {**tokens(step), **extra}
+
+    def on(dev):
+        model = DecoderLM(cfg, None, "meta").to_empty(device=dev)
+        model.load_state_dict(host.state_dict())
+        return model
+
+    out = {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        model = on(dev)
+        loss = train_loss(cfg, model, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in data(0).items()},
+                          q_chunk=8)
+        loss.backward()
+        flat = [loss.detach()] + [p.grad for p in model.parameters()]
+        trainer = Trainer(
+            cfg, TrainHParams(learning_rate=3e-3, warmup_steps=2,
+                              total_steps=200),
+            data, os.path.join(tmp, f"{arch}-{where}"), ckpt_every=50,
+            q_chunk=8, device=dev)
+        trainer.init_state = lambda m=on(dev): (m, init_opt_state(m))
+        hist = trainer.run(3)["history"]
+        out[where] = [x.float().cpu().numpy() for x in flat] + [
+            np.asarray(hist)]
+    worst = 0.0
+    for g, c in zip(out["card"], out["host"]):
+        check(g.shape == c.shape and bool(np.isfinite(g).all()),
+              f"{arch}: card training output {g.shape} vs host {c.shape}")
+        excess = np.abs(g - c) - (TRAIN_F32_TOL + TRAIN_F32_TOL * np.abs(c))
+        check(float(excess.max()) <= 0.0,
+              f"{arch}: card and host training differ by "
+              f"{np.abs(g - c).max():.3g} (atol = rtol = {TRAIN_F32_TOL})")
+        worst = max(worst, float(np.abs(g - c).max()))
+    return worst
+
+
+def _remat_modes_on_card(torch, np):
+    """starcoder2 and jamba ``.reduced()`` in bf16 on the card (the f32
+    logits and scores through ``matmul_f32``'s hand-written gradient):
+    the loss and every gradient under ``remat`` none, full and dots.
+    Returns the number of gradient leaves compared."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.models import init_params, train_loss
+
+    leaves = 0
+    for arch in (TRAIN_ARCH, "jamba-v0.1-52b"):
+        base = get_config(arch).reduced()
+        params = init_params(base, torch.Generator(device="cuda")
+                             .manual_seed(0))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+            vocab_size=base.vocab_size, batch=2, seq_len=40, seed=1)(0)
+            .items()}
+        out = {}
+        for remat in ("none", "full", "dots"):
+            loss = train_loss(dataclasses.replace(base, remat=remat), params,
+                              batch, q_chunk=16)
+            loss.backward()
+            out[remat] = [loss.detach()] + [p.grad for p in params.parameters()]
+            params.zero_grad(set_to_none=True)
+        for remat in ("full", "dots"):
+            for a, b in zip(out["none"], out[remat]):
+                check(torch.equal(a, b), f"{arch} bf16 remat {remat} "
+                      "differs from none on the card")
+        leaves += len(out["none"]) - 1
+    return leaves
+
+
+def _golden_restart_on_card(torch, tmp):
+    """The golden restart on the card: the reduced starcoder2 of
+    ``tests/test_trainer_ft.py`` (vocab 64) crashes at step 7, restores
+    the step-5 checkpoint and replays; its last 3 losses against an
+    uninterrupted run's.  Returns (uninterrupted, restarted) histories."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.train import Trainer
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              vocab_size=64, loss_chunk=8)
+    hp = TrainHParams(learning_rate=3e-3, warmup_steps=2, total_steps=200,
+                      grad_clip=1.0)
+    data = TokenPipeline(vocab_size=64, batch=2, seq_len=16, seed=3,
+                         branching=4)
+    crashed = []
+
+    def injector(step):
+        if step == 7 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected node failure")
+
+    plain = Trainer(cfg, hp, data, os.path.join(tmp, "golden-plain"),
+                    ckpt_every=5, q_chunk=16).run(10)["history"]
+    restarted = Trainer(cfg, hp, data, os.path.join(tmp, "golden-ft"),
+                        ckpt_every=5, q_chunk=16,
+                        failure_injector=injector).run(10)["history"]
+    check(crashed == [7] and len(restarted) == 12,
+          f"golden restart: crashed {crashed}, {len(restarted)} losses")
+    return plain, restarted
+
+
+def _matmul_f32_grad_on_card(torch):
+    """The hand-written gradient of ``matmul_f32`` (bf16-in / f32-out
+    GEMMs) on the card against the same products on the host: ``a`` (256,
+    3,072), ``b`` (3,072, 4,096), both bf16, a seeded f32 cotangent.
+    Returns max |card − host| over both gradients, in bf16 ulps (2⁻⁷) of
+    the gradient's largest element (the two sum in other orders, so a
+    rounding may land one ulp apart), and the same distance from the
+    reference's rule (the f32 cotangent multiplied)."""
+    from repro_torch.models.common import matmul_f32
+
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((256, 3072), generator=gen).to(torch.bfloat16)
+    b = (0.02 * torch.randn((3072, 4096), generator=gen)).to(torch.bfloat16)
+    g = torch.randn((256, 4096), generator=gen)
+    ta = a.cuda().requires_grad_()
+    tb = b.cuda().requires_grad_()
+    y = matmul_f32(ta, tb)
+    check(y.dtype == torch.float32, f"matmul_f32 gave {y.dtype}")
+    y.backward(g.cuda())
+    gb = g.to(torch.bfloat16).float()
+    want = ((gb @ b.float().t()).to(torch.bfloat16),
+            (a.float().t() @ gb).to(torch.bfloat16))
+    rule = ((g @ b.float().t()).to(torch.bfloat16),
+            (a.float().t() @ g).to(torch.bfloat16))
+    dist, far = 0.0, 0.0
+    for got, w, r in zip((ta.grad, tb.grad), want, rule):
+        check(got.dtype == torch.bfloat16, f"gradient dtype {got.dtype}")
+        got = got.float().cpu()
+        unit = float(w.float().abs().max()) * 2 ** -7
+        dist = max(dist, float((got - w.float()).abs().max()) / unit)
+        far = max(far, float((got - r.float()).abs().max()) / unit)
+    check(dist <= 1.0, f"matmul_f32's card gradient is {dist:.2f} bf16 "
+          "ulps from the host's")
+    return dist, far
+
+
+def phase_lm_training(torch, card, tmp):
+    """The LM training path: the training CLI on starcoder2-3b at its
+    published width and depth (8 steps, S = 4,096, ``--mine``), step 0's
+    loss in f32 and bf16 compute, every arch ``.reduced()`` trained on the
+    card against the host, the golden restart on the card, ``matmul_f32``'s
+    hand-written gradient, and the trainer's telemetry mined with B1 and
+    B2.  Returns {kernel: launches}."""
+    import dataclasses
+    import math
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.telemetry import EventCollector
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import count_params, init_params, train_loss
+    from repro_torch.query import Q, QueryEngine
+    from repro_torch.train import global_norm
+
+    t_phase = time.perf_counter()
+    kernel_ops = (ops, seg_ops, dp_ops)
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    log(f"device memory held before the phase {base_alloc / 1e9:.2f} GB")
+
+    # ---- the CLI at full width -----------------------------------------------
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.window, cfg.tie_embeddings)
+          == (30, 3072, 24, 2, 12288, 49152, 4096, True)
+          and cfg.remat == "full" and cfg.loss_chunk == 512,
+          f"{TRAIN_ARCH} config is not the published one")
+    n_params = count_params(cfg)
+    check(n_params == TRAIN_PARAMS, f"{TRAIN_ARCH} counts {n_params} params")
+    collector = EventCollector("trainer")
+    ckpt_dir = os.path.join(tmp, "train-full")
+    argv = ["--arch", TRAIN_ARCH, "--preset", "full",
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--mine",
+            "--ckpt-dir", ckpt_dir]
+    log(f"repro_torch.launch.train {' '.join(argv)} (q_chunk 1024, "
+        f"loss_chunk {cfg.loss_chunk}, remat {cfg.remat}, f32 master "
+        f"weights, {cfg.dtype} compute; ckpt_every 50 > {TRAIN_STEPS} steps: "
+        f"a checkpoint of params + mu + nu would write "
+        f"{3 * 4 * n_params / 1e9:.1f} GB)")
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv, collector=collector)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    check(summary["params"] == TRAIN_PARAMS and summary["device"] == "cuda",
+          f"train CLI summary {summary['params']} on {summary['device']}")
+    check(not os.path.exists(ckpt_dir) or not os.listdir(ckpt_dir),
+          "the full-width run wrote a checkpoint")
+    hist = summary["history"]
+    expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    check(summary["steps"] == TRAIN_STEPS and len(hist) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in hist),
+          f"train CLI losses {hist}")
+    check(abs(hist[0] - expect) <= TRAIN_FIRST_LOSS_TOL,
+          f"first loss {hist[0]:.4f}, expected {expect:.4f} ± "
+          f"{TRAIN_FIRST_LOSS_TOL}")
+    check(hist[-1] < hist[0], f"the loss did not fall: {hist}")
+    after_cli = {}
+    for m in kernel_ops:
+        after_cli.update(m.launch_counts)
+    check(after_cli.get("dfg_count") == 1,
+          f"--mine launched {after_cli} (one dfg_count expected)")
+    step_s = [d for a, d in zip(collector._activities, collector._durations)
+              if a == "train_step"]
+    med = statistics.median(step_s)
+    flops, _ = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound_s = flops / BF16_FLOPS
+    adam_bytes = 28 * n_params  # read p, g, mu, nu; write p, mu, nu (f32)
+    log(f"{TRAIN_ARCH} [{card}]: {n_params:,} parameters; CLI "
+        f"{cli_s:.2f} s for {TRAIN_STEPS} steps of {TRAIN_BATCH} × "
+        f"{TRAIN_SEQ} tokens; losses {', '.join(f'{x:.4f}' for x in hist)} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}, expected first "
+        f"{expect:.4f}, bigram floor {summary['bigram_entropy_floor']:.4f})")
+    log(f"train_step [{card}]: first {step_s[0]:.4f} s, median {med:.4f} s "
+        f"(min {min(step_s):.4f}, max {max(step_s):.4f}); FLOP bound "
+        f"{flops:.4g} FLOP / {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 = "
+        f"{bound_s:.4f} s, {bound_s / med * 100:.1f}% of the median "
+        f"({flops / med / 1e12:.1f} TFLOP/s); AdamW's bytes "
+        f"{adam_bytes / 1e9:.1f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{adam_bytes / HBM_BYTES_PER_S:.4f} s; peak device memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+
+    # ---- step 0's loss in f32 and bf16 compute --------------------------------
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        seed=17)(0).items()}
+    first = {}
+    for dt in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        loss = train_loss(dataclasses.replace(cfg, dtype=dt), params, batch,
+                          q_chunk=1024)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        norms = {n: float(g.float().norm()) for n, g in grads.items()}
+        top = max(norms, key=norms.get)
+        first[dt] = (float(loss.detach()), float(global_norm(grads)), top,
+                     norms[top],
+                     time.perf_counter() - t0)
+        params.zero_grad(set_to_none=True)
+        del loss, grads
+    (l16, n16, top16, v16, s16), (l32, n32, top32, v32, s32) = (
+        first["bfloat16"], first["float32"])
+    check(abs(l32 - l16) <= TRAIN_DTYPE_RTOL * abs(l32),
+          f"step 0 loss f32 {l32:.5f} vs bf16 {l16:.5f}")
+    log(f"step 0 [{card}]: init {init_s:.2f} s (seed 0, f32 on the card); "
+        f"loss bf16 {l16:.5f} (the CLI's {hist[0]:.5f}, |diff| "
+        f"{abs(l16 - hist[0]):.3g}), f32 {l32:.5f}, relative "
+        f"{abs(l32 - l16) / abs(l32):.3g} (≤ {TRAIN_DTYPE_RTOL}); grad norm "
+        f"bf16 {n16:.4f}, f32 {n32:.4f}; largest leaf {top16} {v16:.4f} "
+        f"(f32: {top32} {v32:.4f}); loss + backward {s16:.2f} s bf16, "
+        f"{s32:.2f} s f32")
+    wall, busy, n_kernels, classes, top = _train_step_profile(
+        torch, cfg, params, batch)
+    if busy is None:
+        log(f"step 0 profile [{card}]: device time not measured (the "
+            "profiler saw no CUDA kernel)")
+    else:
+        log(f"step 0 profile [{card}] (bf16 loss + backward under "
+            f"torch.profiler): {wall:.3f} s, device busy {busy * 100:.1f}% "
+            f"(idle {100 - busy * 100:.1f}%), {n_kernels} kernels; device "
+            "ms by class: " + ", ".join(
+                f"{c} {ms:.1f}" for c, ms in sorted(
+                    classes.items(), key=lambda kv: -kv[1]))
+            + "; top: " + "; ".join(f"{k[:48]} {ms:.1f} ms × {n}"
+                                    for k, ms, n in top))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # ---- matmul_f32's gradient, reduced archs, the golden restart -------------
+    dist, far = _matmul_f32_grad_on_card(torch)
+    log(f"matmul_f32 gradient [{card}] (256 × 3,072 · 3,072 × 4,096 bf16): "
+        f"max |diff| {dist:.3g} bf16 ulps of the largest element from the "
+        f"host's products, {far:.3g} from the reference's rule (the f32 "
+        f"cotangent multiplied)")
+    t0 = time.perf_counter()
+    for arch in sorted(ARCHS):
+        worst = _reduced_training_on_card(torch, np, arch, tmp)
+        log(f"  {arch}.reduced() f32 training: card vs host max |diff| "
+            f"{worst:.3g}")
+    log(f"reduced archs trained on the card: {time.perf_counter() - t0:.1f} s")
+    leaves = _remat_modes_on_card(torch, np)
+    log(f"remat none / full / dots on the card (starcoder2, jamba "
+        f".reduced(), bf16): the same loss and {leaves} gradient leaves, "
+        f"bit for bit")
+    plain, restarted = _golden_restart_on_card(torch, tmp)
+    check(restarted[-3:] == plain[-3:],
+          f"golden restart on the card: {restarted[-3:]} vs {plain[-3:]}")
+    log(f"golden restart [{card}]: crash at 7, restore 5, last 3 losses "
+        f"equal bit for bit ({', '.join(f'{x:.6f}' for x in plain[-3:])})")
+
+    # ---- the trainer's telemetry, mined with B1 and B2 ------------------------
+    repo = collector.to_repository()
+    names = list(summary["mined"]["activities"])
+    psi = np.asarray(summary["mined"]["psi"])
+    check(names == list(repo.activity_names)
+          and np.array_equal(psi, _events_psi(np, collector, names)),
+          "--mine's Ψ differs from the collector's count")
+    li, ti, gi = (names.index(a) for a in ("load_batch", "train_step", "log"))
+    check(psi[li, ti] == TRAIN_STEPS and psi[ti, gi] == TRAIN_STEPS
+          and repo.num_traces == TRAIN_STEPS,
+          f"telemetry Ψ load→train {psi[li, ti]}, train→log {psi[ti, gi]}")
+    times = sorted(collector._times)
+    window = (times[2], times[-2])
+    diced = (Q.log(repo).using(QueryEngine(tiny_pairs=0))
+             .window(*window).dfg())
+    check(diced.physical.backend == "kernel" and diced.physical.fused_dicing,
+          f"windowed telemetry plan {diced.physical.describe()}")
+    want = _events_psi(np, collector, list(diced.names), window)
+    check(np.array_equal(np.asarray(diced.value), want),
+          "windowed telemetry Ψ differs from the collector's count")
+    counts = {}
+    for m in kernel_ops:
+        counts.update(m.launch_counts)
+    check(counts == PREDICTED_3J,
+          f"phase 3j launches {counts} differ from {PREDICTED_3J}")
+    log(f"telemetry: {repo.num_traces} traces, {len(collector)} spans, Ψ "
+        f"load→train {psi[li, ti]}, train→log {psi[ti, gi]}; windowed Ψ sum "
+        f"{int(want.sum())} of {int(psi.sum())}; launches {counts}")
+    log(f"phase 3j [{card}]: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4767,10 +5258,13 @@ def main() -> int:
                                                card, tmp)
         log("== phase 3i: the LM serving path, gemma2-9b at full width")
         lm_counts = phase_lm_serving(torch, card)
+        log("== phase 3j: the LM training path, starcoder2-3b at full width")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            train_counts = phase_lm_training(torch, card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
                     "3g": service_counts, "3h": transport_counts,
-                    "3i": lm_counts}
+                    "3i": lm_counts, "3j": train_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

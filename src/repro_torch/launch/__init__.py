@@ -1,1 +1,2 @@
-"""Launch entry points: mine.py (the mining CLI)."""
+"""Launch entry points: mine.py (the mining CLI), serve.py (LM serving),
+train.py (LM training)."""

@@ -1,7 +1,4 @@
-"""The LM model zoo's serving half: every family's prefill and decode.
-
-``train_loss`` (and ``chunked_cross_entropy``) wait for the training half of
-the port."""
+"""The LM model zoo: every family's training loss, prefill and decode."""
 
 from .model import (
     count_params,
@@ -9,9 +6,10 @@ from .model import (
     init_caches,
     init_params,
     prefill,
+    train_loss,
 )
 
 __all__ = [
     "count_params", "decode_step", "init_caches", "init_params",
-    "prefill",
+    "prefill", "train_loss",
 ]

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .common import (
-    apply_rope, frozen, matmul_f32, normal_init, rms_norm, softcap,
+    apply_rope, matmul_f32, normal_init, rms_norm, softcap,
 )
 
 __all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
@@ -62,7 +62,7 @@ class Attention(nn.Module):
         pd = getattr(torch, cfg.param_dtype)
 
         def init(shape):
-            return frozen(normal_init(generator, shape, dtype=pd,
+            return nn.Parameter(normal_init(generator, shape, dtype=pd,
                                       device=device))
 
         self.wq = init((D, H * hd))
@@ -70,8 +70,8 @@ class Attention(nn.Module):
         self.wv = init((D, KV * hd))
         self.wo = init((H * hd, D))
         if cfg.qk_norm:
-            self.q_norm = frozen(torch.zeros(hd, dtype=pd, device=device))
-            self.k_norm = frozen(torch.zeros(hd, dtype=pd, device=device))
+            self.q_norm = nn.Parameter(torch.zeros(hd, dtype=pd, device=device))
+            self.k_norm = nn.Parameter(torch.zeros(hd, dtype=pd, device=device))
 
 
 def init_attn(cfg: ModelConfig, generator=None, device=None) -> Attention:

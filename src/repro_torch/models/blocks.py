@@ -13,7 +13,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .attention import attn_decode, attn_train, init_attn, prefill_fill_cache
-from .common import frozen, rms_norm
+from .common import rms_norm
 from .mamba import init_mamba, mamba_decode, mamba_train
 from .mlp import init_mlp, mlp
 from .moe import init_moe, moe_apply
@@ -44,7 +44,7 @@ class Entry(nn.Module):
         D = cfg.d_model
 
         def norm():
-            return frozen(torch.zeros(D, dtype=pd, device=device))
+            return nn.Parameter(torch.zeros(D, dtype=pd, device=device))
 
         self.ln1 = norm()
         if kind == "mamba":

@@ -1,9 +1,5 @@
-"""Shared model components: norms, RoPE, activations, init, and the
-products whose output stays f32.
-
-``chunked_cross_entropy`` belongs to the training half of the zoo, which the
-port does not carry yet.
-"""
+"""Shared model components: norms, RoPE, activations, losses, init, and the
+products whose output stays f32."""
 
 from __future__ import annotations
 
@@ -13,6 +9,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "rms_norm",
@@ -21,15 +18,10 @@ __all__ = [
     "softcap",
     "activation",
     "sinusoidal_positions",
+    "chunked_cross_entropy",
     "normal_init",
     "matmul_f32",
-    "frozen",
 ]
-
-
-def frozen(t: torch.Tensor) -> torch.nn.Parameter:
-    """A parameter that takes no gradient: the port's models serve only."""
-    return torch.nn.Parameter(t, requires_grad=False)
 
 
 def normal_init(generator: Optional[torch.Generator], shape, scale: float = 0.02,
@@ -131,18 +123,109 @@ def sinusoidal_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16-in / f32-out GEMM of 2-D or batched 3-D operands (cuBLAS's
+    ``out_dtype``): on the card only."""
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of bf16 operands with an f32 result, and its gradient.
+
+    cuBLAS's ``out_dtype`` GEMM has no derivative in PyTorch, so the
+    backward is written here with the same products: the f32 cotangent is
+    rounded to the operands' dtype, multiplied by the other operand with an
+    f32 result, and the operand's gradient rounded to its dtype.  The
+    reference's ``jax.grad`` of its ``preferred_element_type=float32``
+    einsum multiplies the f32 cotangent itself (tests/test_torch_train_loss
+    holds the two apart on the host, the card run in ``chip_smoke.py``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm_f32(a.transpose(-1, -2), g).to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with an f32 result, for 2-D or batched 3-D operands: the
     reference's ``preferred_element_type=float32`` (products of the operands'
     values, summed in f32).  f32 operands multiply as they are; bf16
     operands on the card go through cuBLAS's bf16-in / f32-out GEMM
-    (``out_dtype``), so a weight is never upcast; elsewhere the operands are
-    upcast, which gives the same products (a bf16 × bf16 product is exact in
-    f32)."""
+    (``out_dtype``), so a weight is never upcast, with the gradient of
+    :class:`_MatmulF32`; elsewhere the operands are upcast, which gives the
+    same products (a bf16 × bf16 product is exact in f32) and autograd's
+    gradient, the reference's."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        if a.dim() == 2:
-            return torch.mm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(hc, w_vocab, lc, mc, final_softcap):
+    """One chunk's summed masked NLL: hc (B, c, D), w_vocab (V, D), lc / mc
+    (B, c)."""
+    B, c, D = hc.shape
+    logits = matmul_f32(hc.reshape(B * c, D), w_vocab.t()).reshape(B, c, -1)
+    logits = softcap(logits, final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc[..., None]).squeeze(-1)
+    return ((lse - ll) * mc).sum()
+
+
+def chunked_cross_entropy(
+    h: torch.Tensor,
+    w_vocab: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    chunk: int = 512,
+    final_softcap: Optional[float] = None,
+    label_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean NLL with the (B, S, V) logits never materialized for full S.
+
+    ``h`` (B, S, D); ``w_vocab`` (V, D); ``labels`` (B, S) integer.  Loops
+    over sequence chunks: per step the logits tensor is (B, chunk, V), and
+    each chunk runs under ``torch.utils.checkpoint`` (non-reentrant), so the
+    backward recomputes its logits: the (B, S, V) tensor never exists,
+    neither forward nor as saved tensors (the reference's
+    ``jax.checkpoint`` on its scan body).  The last chunk is padded with
+    masked positions, as the reference pads it.
+    """
+    B, S, D = h.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    lm = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+          if label_mask is None else label_mask.float())
+    labels = labels.long()
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        lm = F.pad(lm, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S + pad, c):
+        hc, lc, mc = h[:, i:i + c], labels[:, i:i + c], lm[:, i:i + c]
+        nll = checkpoint(_chunk_nll, hc, w_vocab, lc, mc, final_softcap,
+                         use_reentrant=False)
+        total = total + nll
+        denom = denom + mc.sum()
+    return total / torch.clamp(denom, min=1.0)

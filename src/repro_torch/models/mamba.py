@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import frozen, normal_init, rms_norm
+from .common import normal_init, rms_norm
 
 __all__ = ["Mamba2", "init_mamba", "mamba_train", "mamba_decode",
            "init_mamba_cache", "ssd_chunked"]
@@ -50,11 +50,11 @@ class Mamba2(nn.Module):
         proj_out = 2 * d_in + 2 * G * N + H
 
         def init(shape):
-            return frozen(normal_init(generator, shape, dtype=pd,
+            return nn.Parameter(normal_init(generator, shape, dtype=pd,
                                       device=device))
 
         def const(n, value):
-            return frozen(torch.full((n,), value, dtype=pd, device=device))
+            return nn.Parameter(torch.full((n,), value, dtype=pd, device=device))
 
         self.in_proj = init((cfg.d_model, proj_out))
         self.conv_w = init((cfg.conv_width, conv_ch))

@@ -6,7 +6,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import activation, frozen, normal_init
+from .common import activation, normal_init
 
 __all__ = ["MLP", "init_mlp", "mlp"]
 
@@ -20,7 +20,7 @@ class MLP(nn.Module):
         pd = getattr(torch, cfg.param_dtype)
 
         def init(shape):
-            return frozen(normal_init(generator, shape, dtype=pd,
+            return nn.Parameter(normal_init(generator, shape, dtype=pd,
                                       device=device))
 
         self.w_up = init((cfg.d_model, d_ff))

@@ -2,8 +2,9 @@
 encoder–decoder (whisper), built from ``n_units`` repetitions of the layer
 pattern.
 
-Public API (the serving half of the reference's):
+Public API (the reference's):
   init_params(cfg, generator, device)   → :class:`DecoderLM`
+  train_loss(cfg, params, batch)        → scalar loss (differentiable)
   prefill(cfg, params, batch, cache_len) → (caches, last_logits)
   decode_step(cfg, params, tokens, caches, pos) → (logits, caches)
   init_caches(cfg, batch, cache_len)    → zeroed caches
@@ -19,16 +20,20 @@ cache that went through a decode step holds the state after it.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from .attention import init_attn_cache
 from .blocks import entry_decode, entry_prefill, entry_train, init_entry
 from .common import (
-    frozen, matmul_f32, normal_init, rms_norm, sinusoidal_at,
+    chunked_cross_entropy, matmul_f32, normal_init, rms_norm, sinusoidal_at,
     sinusoidal_positions, softcap,
 )
 from .mamba import init_mamba_cache
@@ -36,6 +41,7 @@ from .mamba import init_mamba_cache
 __all__ = [
     "DecoderLM",
     "init_params",
+    "train_loss",
     "prefill",
     "decode_step",
     "init_caches",
@@ -73,16 +79,16 @@ class DecoderLM(nn.Module):
                                                 device)})
                 for _ in range(cfg.n_enc_layers)
             )
-            self.enc_norm = frozen(torch.zeros(cfg.d_model, dtype=pd,
-                                               device=device))
-        self.embed = frozen(normal_init(
+            self.enc_norm = nn.Parameter(
+                torch.zeros(cfg.d_model, dtype=pd, device=device))
+        self.embed = nn.Parameter(normal_init(
             generator, (cfg.vocab_size, cfg.d_model), dtype=pd, device=device))
         if not cfg.tie_embeddings:
-            self.lm_head = frozen(normal_init(
+            self.lm_head = nn.Parameter(normal_init(
                 generator, (cfg.vocab_size, cfg.d_model), dtype=pd,
                 device=device))
-        self.final_norm = frozen(torch.zeros(cfg.d_model, dtype=pd,
-                                             device=device))
+        self.final_norm = nn.Parameter(
+            torch.zeros(cfg.d_model, dtype=pd, device=device))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -114,6 +120,41 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the matrix products with
+    no batch dimension (``aten.mm``: ``x @ W`` and the f32 logits), recompute
+    the rest — the reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` when autograd records: ``"full"`` keeps
+    only the unit's inputs (non-reentrant ``torch.utils.checkpoint``),
+    ``"dots"`` also the outputs of its matrix products, ``"none"`` all."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_products)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _run_units(cfg: ModelConfig, units, x, entry_fn):
+    """The pattern units in order, each under ``cfg.remat``.
+    ``entry_fn(unit, x) -> (x, aux)``; returns (x, summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in units:
+        x, a = _remat_wrap(cfg, entry_fn)(unit, x)
+        aux = aux + a
+    return x, aux
+
+
 def _embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens):
     h = params.embed[tokens.long()].to(getattr(torch, cfg.dtype))
     if cfg.scale_embed:  # sqrt(d_model) in f32, rounded to the compute dtype
@@ -138,8 +179,11 @@ def _encode(cfg: ModelConfig, params: DecoderLM, frames):
     dt = getattr(torch, cfg.dtype)
     pos = torch.as_tensor(sinusoidal_positions(frames.shape[1], cfg.d_model))
     h = frames.to(dt) + pos.to(dtype=dt, device=frames.device)[None]
-    for unit in params.enc_units:
-        h, _ = entry_train(cfg, "global", 0, unit["e0"], h, causal=False)
+    h, _ = _run_units(
+        cfg, params.enc_units, h,
+        lambda unit, hh: entry_train(cfg, "global", 0, unit["e0"], hh,
+                                     causal=False),
+    )
     return rms_norm(h, params.enc_norm, cfg.rms_eps)
 
 
@@ -156,6 +200,48 @@ def _decoder_inputs(cfg: ModelConfig, params: DecoderLM, batch) -> Tuple[torch.T
         pos = torch.as_tensor(sinusoidal_positions(h.shape[1], cfg.d_model))
         h = h + pos.to(dtype=h.dtype, device=h.device)[None]
     return h, n_prefix
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def train_loss(
+    cfg: ModelConfig, params: DecoderLM, batch: Dict, *, q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE aux), differentiable with respect to
+    ``params``.  ``batch`` (tensors on the model's device):
+      tokens (B, S) int; labels (B, S) int
+      [vlm]  vision_embeds (B, P, D)
+      [encdec] frames (B, S_enc, D)
+    """
+    h, n_prefix = _decoder_inputs(cfg, params, batch)
+    enc_out = (
+        _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
+    )
+    pattern = cfg.layer_pattern
+
+    def entry_fn(unit, hh):
+        aux = torch.zeros((), dtype=torch.float32, device=hh.device)
+        for i, kind in enumerate(pattern):
+            hh, a = entry_train(cfg, kind, i, unit[f"e{i}"], hh,
+                                enc_out=enc_out, q_chunk=q_chunk)
+            aux = aux + a
+        return hh, aux
+
+    h, aux = _run_units(cfg, params.units, h, entry_fn)
+    h = rms_norm(h, params.final_norm, cfg.rms_eps)
+    if n_prefix:
+        h = h[:, n_prefix:]
+    loss = chunked_cross_entropy(
+        h,
+        _vocab_weight(cfg, params).to(h.dtype),
+        batch["labels"],
+        chunk=cfg.loss_chunk,
+        final_softcap=cfg.final_logit_softcap,
+    )
+    return loss + cfg.router_aux_coef * aux
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import activation, frozen, normal_init
+from .common import activation, normal_init
 
 __all__ = ["MoE", "init_moe", "moe_apply"]
 
@@ -35,7 +35,7 @@ class MoE(nn.Module):
         E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
 
         def init(shape):
-            return frozen(normal_init(generator, shape, dtype=pd,
+            return nn.Parameter(normal_init(generator, shape, dtype=pd,
                                       device=device))
 
         self.router = init((D, E))

@@ -256,3 +256,67 @@ def test_chip_smoke_fails_without_card_or_checkout(tmp_path, where):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+TRAINING_BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch.train, repro_torch.checkpoint, repro_torch.data.lm_data
+import repro_torch.launch.train
+
+summary = repro_torch.launch.train.main(
+    ["--arch", "mixtral-8x7b", "--preset", "tiny", "--device", "cpu",
+     "--steps", "3", "--batch", "2", "--seq", "16", "--mine",
+     "--ckpt-dir", sys.argv[1], "--ckpt-every", "2"])
+assert summary["steps"] == 3, summary
+print(sum(map(sum, summary["mined"]["psi"])),
+      sorted(m for m in sys.modules if m.startswith("jax")))
+"""
+
+
+def test_training_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The trainer, its checkpoints, the token pipeline and the training
+    CLI with ``--mine`` run on the host with JAX and the reference
+    blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", TRAINING_BLOCKED_RUN, str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    pairs, jax_modules = out.stdout.strip().splitlines()[-1].split(maxsplit=1)
+    assert int(pairs) > 0 and jax_modules.strip() == "[]"
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["step-2"]
+
+
+def test_trainer_refuses_a_missing_card(monkeypatch, tmp_path):
+    """``Trainer`` runs on the card unless it is given ``device="cpu"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.train import Trainer
+
+    cfg = get_config("starcoder2-3b").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, TrainHParams(), lambda step: {}, str(tmp_path))
+    assert Trainer(cfg, TrainHParams(), lambda step: {}, str(tmp_path),
+                   device="cpu").device.type == "cpu"
+
+
+def test_train_cli_refuses_a_missing_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "starcoder2-3b", "--steps", "2", "--ckpt-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and out.stdout == ""
+    assert not (tmp_path / "ck").exists()

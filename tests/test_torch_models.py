@@ -99,8 +99,10 @@ def _inputs(cfg, seed=0):
 
 
 def _np(x):
-    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
-                      dtype=np.float32)
+    """f32 numpy of a reference array or a port tensor (detached: the
+    port's parameters take gradients)."""
+    return np.asarray(x.detach().float() if isinstance(x, torch.Tensor)
+                      else x, dtype=np.float32)
 
 
 def _assert_caches_close(ref, port, where, **tol):
