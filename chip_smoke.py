@@ -140,6 +140,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``dfg_count``) and a windowed DFG on a ``tiny_pairs=0`` engine (one
    ``dfg_count_diced``), each Ψ against a count of the collector's events,
    launches against ``PREDICTED_3J``;
+3k. the sharded LM path (``repro_torch.launch.steps``) on a 1 × 1
+   ``DeviceMesh`` of a world-1 NCCL process group: olmoe-1b-7b at its
+   published width (d_model 2,048, 64 experts top-8, vocab 50,304), its
+   depth cut to 4 of 16 layers for training (1,884,310,528 parameters: the
+   step's f32 parameters, μ, ν and gradient sum need ~138 GB at 16), 3
+   ``make_train_step`` steps of ``train_4k``'s 4,096 tokens × one card's
+   batch of 2 in the config's 2 microbatches with ``DistCtx`` on
+   (``_moe_sharded``); every loss finite, the first within 0.5 of
+   ln V + d_model · 0.02² / 2; step 0 against ``train_loss`` per
+   microbatch, their mean and ``adamw_update`` composed by hand, bit for
+   bit under ``torch.use_deterministic_algorithms(True)``; the median step
+   beside ``model_flops`` over the bf16 peak and AdamW's bytes, the peak
+   device memory; at full depth (6,919,100,416 parameters, f32)
+   ``make_prefill_step`` of 32,760 tokens into a 32,768-position cache and
+   8 ``make_decode_step`` steps, the prefill logits and the first decode
+   logits equal ``prefill`` / ``decode_step`` with ``dist=None`` bit for
+   bit; the dry run (``python -m repro_torch.launch.dryrun``) of olmoe ×
+   ``train_4k`` × 16x16 and whisper-tiny × ``decode_32k`` × 2x16x16 in
+   child processes on the host (fake process groups), each artifact's
+   per-device bytes, ``fits_hbm``, dominant term and roofline fraction;
+   launches against ``PREDICTED_3K`` (none);
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -158,10 +179,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own, 3 to 3j); the last line
+``launches_by_phase`` each phase's own, 3 to 3k); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
-of phases 2-3h has tolerance 0; phases 3i and 3j state their model
+of phases 2-3h has tolerance 0; phases 3i, 3j and 3k state their model
 tolerances.
 """
 
@@ -177,11 +198,12 @@ import tempfile
 import time
 
 DAY = 86400.0
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet; it
-#: counts an FMA as two operations), for the operations bound
-FP32_OPS_PER_S = 67e12
+#: the H100's data-sheet rates (``repro_torch.roofline.hw``, bound in
+#: ``main`` once the port is importable): ``HBM_BW`` for the bytes bound,
+#: ``PEAK_FLOPS_FP32`` (float32 outside the tensor cores, an FMA counted as
+#: two operations) for the operations bound, ``PEAK_FLOPS_BF16`` (dense
+#: tensor cores) for the LM steps' FLOP bound
+hw = None
 #: the H100 SXM's SMs and FP32 lanes per SM, for the issue-rate bound of a
 #: kernel whose f32 operations are adds and mins (one per lane per clock)
 H100_SMS, FP32_LANES_PER_SM = 132, 128
@@ -3945,7 +3967,7 @@ def phase_lm_serving(torch, card):
     cache_bytes = sum(
         2 * LM_MAX_BATCH * LM_MAX_CACHE * cfg.n_kv_heads * cfg.head_dim * 2
         for _ in range(cfg.n_layers))
-    bound_ms = 1e3 * (weight_bytes + cache_bytes) / HBM_BYTES_PER_S
+    bound_ms = 1e3 * (weight_bytes + cache_bytes) / hw.HBM_BW
     log(f"served [{card}]: {len(first)} requests in {len(waves)} waves, "
         f"{generated} tokens in {wall:.3f} s = {generated / wall:.1f} "
         f"tokens/s; prefill per wave {', '.join(f'{s:.4f}' for s in prefill_s)}"
@@ -3953,7 +3975,7 @@ def phase_lm_serving(torch, card):
         f"(min {min(decode_ms):.3f}, max {max(decode_ms):.3f}) against a "
         f"bytes bound of {bound_ms:.3f} ms (weights {weight_bytes / 1e9:.2f} "
         f"GB + cache {cache_bytes / 1e9:.2f} GB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{hw.HBM_BW / 1e12:.2f} TB/s), "
         f"{bound_ms / decode_med * 100:.1f}% of it; served twice, identical "
         f"tokens")
 
@@ -4088,8 +4110,6 @@ TRAIN_FIRST_LOSS_TOL = 0.5
 TRAIN_DTYPE_RTOL = 2e-2
 #: the CPU tests' f32 tolerance, card against host
 TRAIN_F32_TOL = 1e-4
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the bound
-BF16_FLOPS = 989e12
 #: launches of phase 3j: one B1 for the CLI's ``--mine`` and one B2 for a
 #: windowed DFG of the trainer's log on a ``tiny_pairs=0`` engine
 PREDICTED_3J = {"dfg_count": 1, "dfg_count_diced": 1, "segment_count": 0,
@@ -4415,7 +4435,7 @@ def phase_lm_training(torch, card, tmp):
               if a == "train_step"]
     med = statistics.median(step_s)
     flops, _ = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    bound_s = flops / BF16_FLOPS
+    bound_s = flops / hw.PEAK_FLOPS_BF16
     adam_bytes = 28 * n_params  # read p, g, mu, nu; write p, mu, nu (f32)
     log(f"{TRAIN_ARCH} [{card}]: {n_params:,} parameters; CLI "
         f"{cli_s:.2f} s for {TRAIN_STEPS} steps of {TRAIN_BATCH} × "
@@ -4424,11 +4444,11 @@ def phase_lm_training(torch, card, tmp):
         f"{expect:.4f}, bigram floor {summary['bigram_entropy_floor']:.4f})")
     log(f"train_step [{card}]: first {step_s[0]:.4f} s, median {med:.4f} s "
         f"(min {min(step_s):.4f}, max {max(step_s):.4f}); FLOP bound "
-        f"{flops:.4g} FLOP / {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 = "
+        f"{flops:.4g} FLOP / {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 = "
         f"{bound_s:.4f} s, {bound_s / med * 100:.1f}% of the median "
         f"({flops / med / 1e12:.1f} TFLOP/s); AdamW's bytes "
-        f"{adam_bytes / 1e9:.1f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
-        f"{adam_bytes / HBM_BYTES_PER_S:.4f} s; peak device memory "
+        f"{adam_bytes / 1e9:.1f} GB / {hw.HBM_BW / 1e12:.2f} TB/s = "
+        f"{adam_bytes / hw.HBM_BW:.4f} s; peak device memory "
         f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
 
     # ---- step 0's loss in f32 and bf16 compute --------------------------------
@@ -4533,6 +4553,360 @@ def phase_lm_training(torch, card, tmp):
         f"load→train {psi[li, ti]}, train→log {psi[ti, gi]}; windowed Ψ sum "
         f"{int(want.sum())} of {int(psi.sum())}; launches {counts}")
     log(f"phase 3j [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 3k — the sharded LM path, the dry run and the H100 roofline
+# ---------------------------------------------------------------------------
+
+#: phase 3k's model: olmoe-1b-7b at its published width (d_model 2,048, 16
+#: × 128 heads, 64 experts top-8 of d_ff 1,024, vocab 50,304, QK-norm,
+#: untied), 16 layers for prefill and decode; the train steps cut the
+#: depth to 4 layers: the step keeps f32 parameters, μ, ν and a gradient
+#: sum (16 B a parameter) beside one microbatch's gradients, which at 16
+#: layers (6.92 B parameters) is ~138 GB against the card's 80 GB
+SHARD_ARCH = "olmoe-1b-7b"
+SHARD_LAYERS = 4
+SHARD_PARAMS = {16: 6_919_100_416, 4: 1_884_310_528}
+#: ``train_4k``'s sequence of 4,096, one card's batch of 2 (``train_4k``'s
+#: global batch of 256 cut), the config's 2 microbatches, 3 steps
+SHARD_STEPS, SHARD_BATCH, SHARD_SEQ = 3, 2, 4096
+#: ``prefill_32k`` / ``decode_32k``'s cache of 32,768 positions: a prompt
+#: of 32,760 tokens and 8 decode steps fill it (batch 1)
+SERVE_CACHE, SERVE_DECODE = 32_768, 8
+#: the dry run's cells, each in a child process under this time limit
+DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k", "single"),
+                ("whisper-tiny", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 300
+#: relative tolerance of step 0 against its hand composition if an
+#: operator of the step has no deterministic CUDA implementation (named
+#: then); bit for bit otherwise
+STEP_RTOL = 1e-6
+#: launches of phase 3k: the LM path runs none of the four kernels
+PREDICTED_3K = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
+                "align_dp": 0}
+
+
+def _cast_once(torch, cfg, name, t):
+    """The step's ``cast_params_once`` rule, written out: a matrix (stacked
+    rank ≥ 2: a unit's every leaf, a top-level matrix) outside the MoE
+    experts, in bf16."""
+    unit = name.startswith(("units.", "enc_units."))
+    if (cfg.cast_params_once and "moe" not in name.split(".")
+            and t.dim() + unit >= 2):
+        return t.to(torch.bfloat16)
+    return t
+
+
+def _hand_train_step(torch, cfg, hp, params, batch, k, dist_ctx):
+    """Step 0 composed by hand from the port's parts: ``train_loss`` of
+    each of the ``k`` microbatches on a module of the cast leaves, the
+    mean of the losses and of the f32 gradients, then ``adamw_update`` on
+    the f32 parameters.  Returns (loss, grad norm, {name: (param, mu, nu)}
+    on the host)."""
+    from repro_torch.models import train_loss
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
+
+    named = dict(params.named_parameters())
+    model = DecoderLM(cfg, None, "meta")
+    model.load_state_dict({n: _cast_once(torch, cfg, n, p.detach())
+                           for n, p in named.items()}, assign=True)
+    lsum = torch.zeros((), dtype=torch.float32, device="cuda")
+    gsum = {n: torch.zeros_like(p, dtype=torch.float32)
+            for n, p in named.items()}
+    for i in range(k):
+        mb = {key: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))[i]
+              for key, v in batch.items()}
+        model.zero_grad(set_to_none=True)
+        loss = train_loss(cfg, model, mb, q_chunk=1024, dist=dist_ctx)
+        loss.backward()
+        lsum = lsum + loss.detach()
+        for n, p in model.named_parameters():
+            gsum[n].add_(p.grad.float())
+    model.zero_grad(set_to_none=True)
+    del model
+    loss = lsum / k
+    for g in gsum.values():
+        g.div_(k)
+    opt = init_opt_state(params)
+    _, opt, metrics = adamw_update(hp, params, gsum, opt)
+    del gsum
+    host = {n: (p.detach().cpu(), opt.mu[n].cpu(), opt.nu[n].cpu())
+            for n, p in params.named_parameters()}
+    return loss.cpu(), metrics["grad_norm"].cpu(), host
+
+
+def _dryrun_cell(arch, shape, mesh, out_dir):
+    """``python -m repro_torch.launch.dryrun`` for one cell in a child
+    process; returns its artifact."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--tag", "chip_smoke", "--out",
+         out_dir], env=env, capture_output=True, text=True, cwd=root,
+        timeout=DRYRUN_TIMEOUT_S)
+    check(out.returncode == 0,
+          f"dry run {arch} × {shape} × {mesh}: {out.stderr[-2000:]}")
+    tag = "16x16" if mesh == "single" else "2x16x16"
+    with open(os.path.join(out_dir, f"{arch}__{shape}__{tag}__chip_smoke.json")) as f:
+        art = json.load(f)
+    art["wall_s"] = time.perf_counter() - t0
+    return art
+
+
+def phase_sharded_lm(torch, card, tmp):
+    """The sharded LM path on a 1 × 1 ``DeviceMesh`` of a world-1 process
+    group: olmoe-1b-7b at full width cut to 4 layers, 3 steps of
+    ``make_train_step`` (``DistCtx`` on, so ``_moe_sharded`` runs), step 0
+    against its hand composition; at full depth ``make_prefill_step`` and
+    8 ``make_decode_step`` steps against ``prefill`` / ``decode_step`` with
+    ``dist=None``; the dry run of two cells in child processes.  Returns
+    {kernel: launches}."""
+    import dataclasses
+    import math
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.utils.deterministic
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig, TrainHParams
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (
+        make_decode_step, make_prefill_step, make_train_step,
+        train_microbatches,
+    )
+    from repro_torch.models import count_params, decode_step, init_params, prefill
+    from repro_torch.models.moe import DistCtx
+    from repro_torch.roofline import model_flops
+    from repro_torch.train.optimizer import init_opt_state
+
+    t_phase = time.perf_counter()
+    kernel_ops = (ops, seg_ops, dp_ops)
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    log(f"device memory held before the phase {base_alloc / 1e9:.2f} GB")
+
+    full = get_config(SHARD_ARCH)
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+           full.head_dim, full.n_experts, full.top_k, full.d_ff_expert,
+           full.vocab_size, full.qk_norm, full.tie_embeddings,
+           full.microbatches)
+          == (16, 2048, 16, 16, 128, 64, 8, 1024, 50304, True, False, 2),
+          f"{SHARD_ARCH} config is not the published one")
+    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS)
+    n_full, n_cut = count_params(full), count_params(cfg)
+    check({16: n_full, SHARD_LAYERS: n_cut} == SHARD_PARAMS,
+          f"{SHARD_ARCH} counts {n_full} / {n_cut} parameters")
+    k = train_microbatches(cfg)
+    check(k == 2, f"{k} microbatches")
+    hp = TrainHParams()
+    shape = ShapeConfig("train_4k", SHARD_SEQ, SHARD_BATCH, "train")
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=SHARD_BATCH,
+                         seq_len=SHARD_SEQ, seed=17)
+    batches = [{key: torch.from_numpy(v).cuda() for key, v in pipe(s).items()}
+               for s in range(SHARD_STEPS)]
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    was_filling = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # every output is written before it is read: no NaN fill of new memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "pg-3k"),
+        world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+        check(type(mesh).__name__ == "DeviceMesh"
+              and tuple(mesh.mesh_dim_names) == ("data", "model"),
+              f"the 1 × 1 mesh is {mesh!r}")
+        dist_ctx = DistCtx(mesh, ("data",), sp_axes=("model",))
+
+        # ---- step 0 by hand, then the step builder's 3 steps --------------
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+            t0 = time.perf_counter()
+            h_loss, h_norm, hand = _hand_train_step(
+                torch, cfg, hp, params, batches[0], k, dist_ctx)
+            hand_s = time.perf_counter() - t0
+            del params
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+            opt = init_opt_state(params)
+            fn, in_sh, out_sh, _, donate = make_train_step(cfg, shape, mesh, hp)
+            check(donate == (0, 1), f"train step donates {donate}")
+            losses, step_s, norms = [], [], []
+            for step in range(SHARD_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss, metrics = fn(params, opt, batches[step])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                norms.append(float(metrics["grad_norm"]))
+                if step == 0:
+                    s_loss, s_norm = loss.cpu(), metrics["grad_norm"].cpu()
+                    worst, unequal = 0.0, 0
+                    for n, p in params.named_parameters():
+                        for got, want in zip((p.detach(), opt.mu[n], opt.nu[n]),
+                                             hand[n]):
+                            w = want.cuda()
+                            if not torch.equal(got, w):
+                                unequal += 1
+                                worst = max(worst, float(
+                                    ((got - w).abs() / w.abs().clamp_min(1e-30)).max()))
+                    del hand
+        peak = torch.cuda.max_memory_allocated() - base_alloc
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+        if nondet:
+            check(unequal == 0 or worst <= STEP_RTOL,
+                  f"step 0 vs hand: {unequal} tensors differ, worst relative "
+                  f"{worst:.3g} (non-deterministic: {nondet})")
+        else:
+            check(unequal == 0 and torch.equal(s_loss, h_loss)
+                  and torch.equal(s_norm, h_norm),
+                  f"step 0 vs hand: {unequal} tensors differ (worst relative "
+                  f"{worst:.3g}), loss "
+                  f"{float(s_loss)!r} vs {float(h_loss)!r}")
+        expect = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+        check(all(math.isfinite(x) for x in losses),
+              f"train losses {losses}")
+        check(abs(losses[0] - expect) <= TRAIN_FIRST_LOSS_TOL,
+              f"first loss {losses[0]:.4f}, expected {expect:.4f} ± "
+              f"{TRAIN_FIRST_LOSS_TOL}")
+        med = statistics.median(step_s)
+        flops = model_flops(cfg, shape)
+        bound_s = flops / hw.PEAK_FLOPS_BF16
+        adam_bytes = 28 * n_cut  # read p, g, mu, nu; write p, mu, nu (f32)
+        log(f"{SHARD_ARCH} at {SHARD_LAYERS} of 16 layers [{card}]: "
+            f"{n_cut:,} parameters (16 layers: {n_full:,}); make_train_step "
+            f"on the 1 × 1 DeviceMesh (world-1 NCCL group, DistCtx on: "
+            f"_moe_sharded, aux all-reduced over a group of 1), {k} "
+            f"microbatches of {SHARD_BATCH // k} × {SHARD_SEQ}; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)} (expected first "
+            f"{expect:.4f}); grad norms {', '.join(f'{x:.4f}' for x in norms)}")
+        log(f"step 0 vs hand [{card}]: "
+            + ("bit for bit (loss, grad norm and every parameter, μ and ν; "
+               "torch.use_deterministic_algorithms(True))" if not nondet else
+               f"{unequal} tensors differ, worst relative {worst:.3g} ≤ "
+               f"{STEP_RTOL} (operators without a deterministic CUDA "
+               f"implementation: {nondet})")
+            + f"; hand step {hand_s:.2f} s")
+        log(f"train step [{card}]: first {step_s[0]:.4f} s, median {med:.4f} s "
+            f"(all {', '.join(f'{x:.4f}' for x in step_s)}); model_flops "
+            f"{flops:.4g} FLOP / {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 = "
+            f"{bound_s:.4f} s, {bound_s / med * 100:.2f}% of the median; AdamW's "
+            f"bytes {adam_bytes / 1e9:.1f} GB / {hw.HBM_BW / 1e12:.2f} TB/s = "
+            f"{adam_bytes / hw.HBM_BW:.4f} s; peak device memory "
+            f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+        del params, opt, batches
+        torch.cuda.empty_cache()
+
+        # ---- prefill and decode at full depth ----------------------------
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(full, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pshape = ShapeConfig("prefill_32k", SERVE_CACHE, 1, "prefill")
+        dshape = ShapeConfig("decode_32k", SERVE_CACHE, 1, "decode")
+        pfn, _, _, _, _ = make_prefill_step(full, pshape, mesh)
+        dfn, _, _, _, ddonate = make_decode_step(full, dshape, mesh)
+        check(ddonate == (2,), f"decode step donates {ddonate}")
+        n_prompt = SERVE_CACHE - SERVE_DECODE
+        prompt = torch.from_numpy(np.random.default_rng(23).integers(
+            0, full.vocab_size, (1, n_prompt)).astype(np.int32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, last = pfn(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        first_tok = tok.clone()
+        step_logits, dec_s = [], []
+        for i in range(SERVE_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = dfn(params, tok, caches, n_prompt + i)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            step_logits.append(logits)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        check(all(bool(torch.isfinite(x).all()) for x in step_logits),
+              "decode logits are not finite")
+        del caches
+        d_caches, d_last = prefill(full, params, {"tokens": prompt},
+                                   SERVE_CACHE, q_chunk=512)
+        d_logits, _ = decode_step(full, params, first_tok, d_caches, n_prompt)
+        check(torch.equal(d_last, last),
+              "prefill step's logits differ from prefill(dist=None)")
+        check(torch.equal(d_logits, step_logits[0]),
+              "first decode step's logits differ from decode_step(dist=None): "
+              f"max |diff| {float((d_logits - step_logits[0]).abs().max()):.3g}")
+        serve_peak = torch.cuda.max_memory_allocated() - base_alloc
+        weight_bytes = 4 * n_full
+        log(f"{SHARD_ARCH} full depth [{card}]: {n_full:,} parameters, init "
+            f"{init_s:.2f} s (f32, {weight_bytes / 1e9:.1f} GB); "
+            f"make_prefill_step of {n_prompt:,} tokens into a "
+            f"{SERVE_CACHE:,}-position cache {prefill_s:.3f} s; "
+            f"make_decode_step × {SERVE_DECODE}: median "
+            f"{statistics.median(dec_s) * 1e3:.2f} ms (first "
+            f"{dec_s[0] * 1e3:.2f} ms); the prefill logits and the first "
+            f"decode logits equal prefill / decode_step with dist=None bit "
+            f"for bit; peak device memory {serve_peak / 1e9:.2f} GB")
+        del params, d_caches, step_logits
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(was_deterministic)
+        torch.utils.deterministic.fill_uninitialized_memory = was_filling
+
+    # ---- the dry run, on the host ---------------------------------------------
+    out_dir = os.path.join(tmp, "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    for arch, shape_name, mesh_name in DRYRUN_CELLS:
+        art = _dryrun_cell(arch, shape_name, mesh_name, out_dir)
+        check(art["chips"] == (256 if mesh_name == "single" else 512)
+              and art["dominant_term"] in ("compute", "memory", "collective")
+              and art["model_flops_global"] == model_flops(
+                  get_config(arch), get_shape(shape_name)),
+              f"dry run artifact {arch} × {shape_name}: {art}")
+        log(f"dry run {arch} × {shape_name} × {art['mesh']} ({art['wall_s']:.1f} "
+            f"s in a child process): per_device_bytes "
+            f"{art['per_device_bytes']:,} ({art['per_device_bytes'] / 1e9:.2f} "
+            f"GB), fits_hbm {art['fits_hbm']}, dominant_term "
+            f"{art['dominant_term']}, roofline_fraction "
+            f"{art['roofline_fraction']:.4g} (compute {art['compute_s']} s, "
+            f"memory {art['memory_s']} s, collective {art['collective_s']} s; "
+            f"{art['collectives']['num_collectives']} collectives)")
+
+    counts = {}
+    for m in kernel_ops:
+        counts.update(m.launch_counts)
+    counts = {name: counts.get(name, 0) for name in KERNELS}
+    check(counts == PREDICTED_3K,
+          f"phase 3k launches {counts} differ from {PREDICTED_3K}")
+    log(f"phase 3k [{card}]: launches {counts}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4980,29 +5354,29 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         "dfg_count_diced": _distinct_bytes(src_d, dst_d, valid_d, ts_src, ts_dst),
     }
     bound = {
-        name: (b + 8 * a * a) / HBM_BYTES_PER_S * 1e3 for name, b in read.items()
+        name: (b + 8 * a * a) / hw.HBM_BW * 1e3 for name, b in read.items()
     }
     sep_bound = ((_distinct_bytes(src_sep, dst_sep, valid_sep) + 8 * a * a)
-                 / HBM_BYTES_PER_S * 1e3)
+                 / hw.HBM_BW * 1e3)
     cli_bound = {
         "dfg_count": _distinct_bytes(*cli_args),
         "dfg_count_diced": _distinct_bytes(*cli_args, *cli_diced[:2]),
     }
     cli_bound = {
-        name: (b + 8 * a_cli * a_cli) / HBM_BYTES_PER_S * 1e3
+        name: (b + 8 * a_cli * a_cli) / hw.HBM_BW * 1e3
         for name, b in cli_bound.items()
     }
     e = int(act_d.shape[0])
     seg_read = _distinct_bytes(act_d)
-    bound["segment_count"] = (seg_read + 8 * a) / HBM_BYTES_PER_S * 1e3
+    bound["segment_count"] = (seg_read + 8 * a) / hw.HBM_BW * 1e3
     seg_valid_bound = (
-        (_distinct_bytes(act_d, ones_d) + 8 * a) / HBM_BYTES_PER_S * 1e3
+        (_distinct_bytes(act_d, ones_d) + 8 * a) / hw.HBM_BW * 1e3
     )
     log(f"bytes bound: inputs read once, {read['dfg_count'] / n:.4f} B/pair "
         f"plain and {read['dfg_count_diced'] / n:.4f} B/pair diced, "
         f"+ {8 * a * a} B of int64 output; segment_count "
         f"{seg_read / e:.4f} B/id (+1 with valid) + {8 * a} B of int64 "
-        f"output; at {HBM_BYTES_PER_S:.3g} B/s")
+        f"output; at {hw.HBM_BW:.3g} B/s")
     # align_dp: per active (variant, layer, state) two f32 adds and one min
     # (d + Mt and its min into the sync, d + 1), then one add and one min
     # per (variant, state) for the end; the select form's count (two mins
@@ -5015,11 +5389,11 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
     dp_adds = 2 * s_n * sum_len + s_n * v_n
     dp_mins = s_n * sum_len + s_n * v_n
     dp_ops_n = dp_adds + dp_mins
-    dp_select_ms = 2 * dp_adds / FP32_OPS_PER_S * 1e3
+    dp_select_ms = 2 * dp_adds / hw.PEAK_FLOPS_FP32 * 1e3
     dp_bytes = (4 * sum_len + 8 * (v_n + 1) + mt_d.numel() * 4 + 8 * s_n
                 + 4 * v_n)
-    dp_ops_ms = dp_ops_n / FP32_OPS_PER_S * 1e3
-    dp_bytes_ms = dp_bytes / HBM_BYTES_PER_S * 1e3
+    dp_ops_ms = dp_ops_n / hw.PEAK_FLOPS_FP32 * 1e3
+    dp_bytes_ms = dp_bytes / hw.HBM_BW * 1e3
     bound["align_dp"] = max(dp_ops_ms, dp_bytes_ms)
     check(dp_ops_ms >= dp_bytes_ms, "align_dp is bound by bytes, not operations")
     try:
@@ -5147,7 +5521,7 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
         f"kernel {fmt_ms(t, 'ms')} (device {fmt_ms(t, 'device_ms')}), plain "
         f"{fmt_ms(t, 'plain_ms')}, no single PyTorch call computes this DP "
         f"(library_ms null); operations bound {dp_ops_n:.4g} f32 ops (two "
-        f"adds and one min per state) at {FP32_OPS_PER_S:.3g}/s = "
+        f"adds and one min per state) at {hw.PEAK_FLOPS_FP32:.3g}/s = "
         f"{dp_ops_ms:.4f} ms ({dp_ops_ms / t['ms'] * 100:.1f}% of the bound; "
         f"the select form's count, two mins per state, {2 * dp_adds:.4g} ops = "
         f"{dp_select_ms:.4f} ms, {dp_select_ms / t['ms'] * 100:.1f}%), "
@@ -5209,7 +5583,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, src_dir)
+    global hw
     from repro_torch.kernels import build
+    from repro_torch.roofline import hw
     from repro_torch.kernels.align_dp import ops as dp_ops
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.kernels.segment_count import ops as seg_ops
@@ -5261,10 +5637,15 @@ def main() -> int:
         log("== phase 3j: the LM training path, starcoder2-3b at full width")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             train_counts = phase_lm_training(torch, card, tmp)
+        log("== phase 3k: the sharded LM path and the dry run, olmoe-1b-7b "
+            "at full width")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            sharded_lm_counts = phase_sharded_lm(torch, card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
                     "3g": service_counts, "3h": transport_counts,
-                    "3i": lm_counts, "3j": train_counts}
+                    "3i": lm_counts, "3j": train_counts,
+                    "3k": sharded_lm_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

@@ -1,4 +1,4 @@
-from . import ops
+from . import ops, ref
 from .ops import (
     dfg_count,
     dfg_count_diced,
@@ -7,10 +7,12 @@ from .ops import (
     launch_counts,
     reset_launch_counts,
 )
+from .ref import dfg_count_diced_ref, dfg_count_ref
 
 __all__ = [
-    "ops",
+    "ops", "ref",
     "dfg_count", "dfg_count_diced",
     "dfg_count_plain", "dfg_count_diced_plain",
     "launch_counts", "reset_launch_counts",
+    "dfg_count_ref", "dfg_count_diced_ref",
 ]

@@ -1,0 +1,425 @@
+"""Step functions + abstract inputs + placements per (cfg, shape, mesh).
+
+Used by the dry run (one rank's step on ``meta`` tensors) and by a real
+run on the cards — the same code path.  Each builder returns the
+reference's 5-tuple: the step function, its input and output shardings
+(:class:`~repro_torch.sharding.spec.NamedSharding` trees, whose
+``placements()`` are DTensor placements), its abstract arguments (global
+shapes, on ``meta``) and the indices of the arguments it donates (updates
+in place).
+
+The state at rest is laid out as the reference's rules say (FSDP over the
+batch axes for training, tensor-parallel dimensions over ``model``).  The
+port's step computes data-parallel: each rank all-gathers the parameters
+it needs whole (bf16 for the matrices under ``cast_params_once``, as the
+reference casts before its gathers), runs its batch shard through the
+model with the MoE dispatch local to that shard (``DistCtx``), and
+reduce-scatters the gradients (their mean over the batch axes) back to its
+shards before AdamW updates them in place.  Ranks along ``model`` hold
+different shards of the state but compute the same batch shard: the port
+has no tensor-parallel compute.  On a mesh of one position every
+placement is the whole tensor and no collective runs except the MoE
+auxiliary loss's all-reduce over a group of one.
+
+A step's arguments are one rank's local tensors: ``params`` a
+``DecoderLM`` whose parameters are its shards, an ``OptState`` of shards,
+the batch shard; :func:`local_abstract_args` gives them on ``meta``.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainHParams
+from repro_torch.models import init_caches, train_loss
+from repro_torch.models import decode_step as _decode_step
+from repro_torch.models import prefill as _prefill
+from repro_torch.models.model import DecoderLM
+from repro_torch.models.moe import DistCtx
+from repro_torch.sharding.spec import (
+    P,
+    NamedSharding,
+    batch_shardings,
+    cache_shardings,
+    make_rules,
+    mesh_axis_sizes,
+    param_shardings,
+)
+from repro_torch.train.optimizer import (
+    OptState, adamw_update, init_opt_state, stacked_rank,
+)
+
+__all__ = [
+    "make_train_step",
+    "make_prefill_step",
+    "make_decode_step",
+    "abstract_train_args",
+    "abstract_prefill_args",
+    "abstract_decode_args",
+    "abstract_params",
+    "local_abstract_args",
+    "train_microbatches",
+]
+
+
+def abstract_params(cfg: ModelConfig) -> DecoderLM:
+    """The model's parameters on ``meta`` (global shapes, no memory)."""
+    return DecoderLM(cfg, None, "meta")
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _abstract_batch(cfg: ModelConfig, shape: ShapeConfig, with_labels: bool):
+    B, S = shape.global_batch, shape.seq_len
+    s_text = S - (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = {"tokens": _meta((B, s_text), torch.int32)}
+    if with_labels:
+        batch["labels"] = _meta((B, s_text), torch.int32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = _meta((B, cfg.n_patches, cfg.d_model),
+                                       torch.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((B, cfg.enc_seq, cfg.d_model), torch.float32)
+    return batch
+
+
+def _q_chunk(shape: ShapeConfig, cfg: ModelConfig = None) -> int:
+    if cfg is not None and cfg.q_chunk:
+        return cfg.q_chunk
+    return 512 if shape.seq_len > 8192 else 1024
+
+
+def train_microbatches(cfg: ModelConfig) -> int:
+    """Gradient-accumulation microbatches: MoE dispatch transients scale
+    with per-device tokens — accumulate to stay inside device memory."""
+    return cfg.microbatches or (
+        4 if cfg.top_k >= 8 else (2 if cfg.n_experts else 1)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Layout: local shards ↔ whole tensors
+# ---------------------------------------------------------------------------
+
+
+def _split(sh: NamedSharding) -> bool:
+    """Whether ``sh`` splits any dimension over an axis of more than one
+    position (else a rank's shard is the whole tensor)."""
+    sizes = mesh_axis_sizes(sh.mesh)
+    for entry in sh.spec:
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if any(sizes[a] > 1 for a in axes):
+            return True
+    return False
+
+
+def _relayout(t: torch.Tensor, have: NamedSharding, want: NamedSharding,
+              partial_axes=()) -> torch.Tensor:
+    """This rank's part of ``t`` laid out as ``want``, from ``t`` laid out
+    as ``have`` and, on ``partial_axes``, holding a partial sum (DTensor's
+    redistribute: all-gathers, reduce-scatters, local chunks)."""
+    sizes = mesh_axis_sizes(have.mesh)
+    if not (_split(have) or _split(want)
+            or any(sizes[a] > 1 for a in partial_axes)):
+        return t
+    from torch.distributed.tensor import DTensor
+
+    d = DTensor.from_local(t, have.mesh, have.placements(partial_axes),
+                           run_check=False)
+    return d.redistribute(want.mesh, want.placements()).to_local()
+
+
+def _whole(mesh, ndim: int) -> NamedSharding:
+    return NamedSharding(mesh, P(*([None] * ndim)))
+
+
+def _module_with(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]) -> DecoderLM:
+    """A ``DecoderLM`` whose parameters are the given tensors (plain
+    attributes, so autograd reaches them as they are)."""
+    model = DecoderLM(cfg, None, "meta")
+    for name, t in tensors.items():
+        path, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(path) if path else model
+        del mod._parameters[leaf]
+        setattr(mod, leaf, t)
+    return model
+
+
+def _gathered(cfg, params: DecoderLM, p_sh) -> DecoderLM:
+    """``params`` whole on this rank: the module itself when no placement
+    splits it, else a module of all-gathered tensors."""
+    named = dict(params.named_parameters())
+    if not any(_split(p_sh[n]) for n in named):
+        return params
+    return _module_with(cfg, {
+        n: _relayout(t.detach(), p_sh[n], _whole(p_sh[n].mesh, t.dim()))
+        for n, t in named.items()})
+
+
+def _global_norm(grads, shardings, mesh) -> torch.Tensor:
+    """sqrt(Σ x²) over every rank's shards: local sums of squares, summed
+    over the axes that split each group of leaves."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    groups: Dict = {}
+    for n, g in grads.items():
+        key = shardings[n].placements()
+        sq = g.float().square().sum()
+        groups[key] = sq if key not in groups else groups[key] + sq
+    total = None
+    for key, sq in groups.items():
+        src = [Partial() if isinstance(pl, Shard) else Replicate()
+               for pl in key]
+        full = DTensor.from_local(sq, mesh, src, run_check=False).full_tensor()
+        total = full if total is None else total + full
+    return torch.sqrt(total)
+
+
+def local_abstract_args(args, in_shardings):
+    """The step's arguments as one rank holds them, on ``meta``: every
+    tensor of ``args`` (global shapes) replaced by its local shard under
+    ``in_shardings``.  A host scalar (the decode position) stays."""
+
+    def loc(x, sh):
+        if isinstance(x, DecoderLM):
+            m = copy.deepcopy(x)
+            for n, p in m.named_parameters():
+                p.data = _meta(sh[n].local_shape(p.shape), p.dtype)
+            return m
+        if isinstance(x, OptState):
+            return OptState(loc(x.step, sh.step), loc(x.mu, sh.mu),
+                            loc(x.nu, sh.nu))
+        if isinstance(x, dict):
+            return {k: loc(v, sh[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            return [loc(v, s) for v, s in zip(x, sh)]
+        if isinstance(x, torch.Tensor) and x.device.type == "meta":
+            return _meta(sh.local_shape(x.shape), x.dtype)
+        return x
+
+    return tuple(loc(a, s) for a, s in zip(args, in_shardings))
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def abstract_train_args(cfg, shape):
+    p = abstract_params(cfg)
+    o = init_opt_state(p)
+    b = _abstract_batch(cfg, shape, with_labels=True)
+    return p, o, b
+
+
+def _cast_once(cfg: ModelConfig, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The reference's ``cast_params_once``: a matrix (stacked rank ≥ 2)
+    outside the MoE experts goes to bf16 before it is gathered."""
+    if (cfg.cast_params_once and "moe" not in name.split(".")
+            and stacked_rank(name, t) >= 2):
+        return t.to(torch.bfloat16)
+    return t
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    mesh,
+    hp: TrainHParams = TrainHParams(),
+):
+    rules = make_rules(mesh, shape)
+    p, o, b = abstract_train_args(cfg, shape)
+    p_sh = param_shardings(rules, p, cfg)
+    o_sh = OptState(
+        step=rules.nd(P()),
+        mu=param_shardings(rules, o.mu, cfg),
+        nu=param_shardings(rules, o.nu, cfg),
+    )
+    b_sh = batch_shardings(rules, b)
+    scalar = rules.nd(P())
+    qc = _q_chunk(shape, cfg)
+    # all archs get the dist ctx for training: data-local MoE dispatch
+    # (moe_axes); sp_axes as the reference's
+    sp = ("model",) if rules.model_axis else ()
+    dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp)
+    k = train_microbatches(cfg)
+    entry = b_sh["tokens"].spec[0]
+    data_axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    n_data = rules.axes_size(data_axes)
+    split = n_data > 1 or any(_split(s) for s in p_sh.values())
+
+    def train_step(params, opt_state, batch):
+        leaves = {
+            n: _relayout(_cast_once(cfg, n, t.detach()), p_sh[n],
+                         _whole(mesh, t.dim())).requires_grad_()
+            for n, t in params.named_parameters()
+        }
+        model = _module_with(cfg, leaves)
+        names = list(leaves)
+
+        def loss_and_grads(bb):
+            loss = train_loss(cfg, model, bb, q_chunk=qc, dist=dist)
+            return loss, torch.autograd.grad(loss, [leaves[n] for n in names])
+
+        if k == 1:
+            loss, g = loss_and_grads(batch)
+            grads = dict(zip(names, g))
+        else:
+            mb = {key: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+                  for key, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            gsum = {n: torch.zeros(leaves[n].shape, dtype=torch.float32,
+                                   device=leaves[n].device) for n in names}
+            for i in range(k):
+                l, g = loss_and_grads({key: v[i] for key, v in mb.items()})
+                loss = loss + l.detach()
+                for n, gg in zip(names, g):
+                    gsum[n].add_(gg.float())
+                del g
+            loss = loss / k
+            for s in gsum.values():
+                s.div_(k)
+            grads = gsum
+        del model, leaves
+        grad_norm = None
+        if split:
+            grads = {n: _relayout(g, _whole(mesh, g.dim()), p_sh[n],
+                                  partial_axes=data_axes) / n_data
+                     for n, g in grads.items()}
+            loss = _relayout(loss, scalar, scalar, partial_axes=data_axes) / n_data
+            grad_norm = _global_norm(grads, p_sh, mesh)
+        new_p, new_o, metrics = adamw_update(hp, params, grads, opt_state,
+                                             grad_norm=grad_norm)
+        return new_p, new_o, loss.detach(), metrics
+
+    in_sh = (p_sh, o_sh, b_sh)
+    out_sh = (p_sh, o_sh, scalar, {"lr": scalar, "grad_norm": scalar})
+    return train_step, in_sh, out_sh, (p, o, b), (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def abstract_prefill_args(cfg, shape):
+    p = abstract_params(cfg)
+    b = _abstract_batch(cfg, shape, with_labels=False)
+    return p, b
+
+
+def _batch_local(rules, ndim: int, batch: int, batch_dim: int = 0) -> NamedSharding:
+    """A tensor whose dimension ``batch_dim`` is split as the batch is and
+    whose other dimensions are whole on each rank."""
+    spec = [None] * ndim
+    spec[batch_dim] = rules.batch_if(batch)
+    return rules.nd(P(*spec))
+
+
+def _any_split(sh) -> bool:
+    if isinstance(sh, dict):
+        return any(_any_split(v) for v in sh.values())
+    if isinstance(sh, list):
+        return any(_any_split(v) for v in sh)
+    return _split(sh)
+
+
+def _map2(fn, tree, sh):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, sh[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map2(fn, v, s) for v, s in zip(tree, sh)]
+    return fn(tree, sh)
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    rules = make_rules(mesh, shape)
+    p, b = abstract_prefill_args(cfg, shape)
+    p_sh = param_shardings(rules, p, cfg)
+    b_sh = batch_shardings(rules, b)
+    qc = _q_chunk(shape, cfg)
+    cache_len = shape.seq_len
+    B = shape.global_batch
+    # all archs: the head-shard hint + data-local MoE dispatch
+    sp = ("model",) if rules.model_axis else ()
+    dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp, head_shard=True)
+
+    caches_shape = init_caches(cfg, B, cache_len, device="meta")
+    c_sh = cache_shardings(rules, caches_shape)
+    logits_sh = rules.nd(
+        P(
+            rules.batch_if(shape.global_batch),
+            rules.model_if(cfg.vocab_size),
+        )
+    )
+
+    def prefill_step(params, batch):
+        model = _gathered(cfg, params, p_sh)
+        caches, logits = _prefill(cfg, model, batch, cache_len, q_chunk=qc,
+                                  dist=dist)
+        caches = _map2(lambda c, sh: _relayout(
+            c, _batch_local(rules, c.dim(), B), sh), caches, c_sh)
+        logits = _relayout(logits, _batch_local(rules, 2, B), logits_sh)
+        return caches, logits
+
+    return prefill_step, (p_sh, b_sh), (c_sh, logits_sh), (p, b), ()
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def abstract_decode_args(cfg, shape):
+    """Parameters, tokens and caches on ``meta``; the position is a host
+    scalar (the last slot of the cache: the port's decode step reads it on
+    the host)."""
+    p = abstract_params(cfg)
+    B = shape.global_batch
+    toks = _meta((B, 1), torch.int32)
+    caches = init_caches(cfg, B, shape.seq_len, device="meta")
+    pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
+    return p, toks, caches, pos
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    rules = make_rules(mesh, shape)
+    p, toks, caches, pos = abstract_decode_args(cfg, shape)
+    p_sh = param_shardings(rules, p, cfg)
+    c_sh = cache_shardings(rules, caches)
+    B = shape.global_batch
+    b = rules.batch_if(B)
+    tok_sh = rules.nd(P(b, None))
+    pos_sh = rules.nd(P())
+    logits_sh = rules.nd(P(b, rules.model_if(cfg.vocab_size)))
+    dist = (
+        DistCtx(mesh, rules.batch_axes)
+        if cfg.n_experts and rules.batch_axes
+        else None
+    )
+
+    split_cache = _any_split(c_sh)
+
+    def serve_step(params, tokens, cache, position):
+        model = _gathered(cfg, params, p_sh)
+        if not split_cache:  # one position: the caller's caches, in place
+            logits, cache = _decode_step(cfg, model, tokens, cache, position,
+                                         dist=dist)
+            return _relayout(logits, _batch_local(rules, 2, B), logits_sh), cache
+        whole = _map2(lambda c, sh: _relayout(
+            c, sh, _batch_local(rules, c.dim(), B)), cache, c_sh)
+        logits, whole = _decode_step(cfg, model, tokens, whole, position,
+                                     dist=dist)
+        cache = _map2(lambda c, sh: _relayout(
+            c, _batch_local(rules, c.dim(), B), sh), whole, c_sh)
+        logits = _relayout(logits, _batch_local(rules, 2, B), logits_sh)
+        return logits, cache
+
+    in_sh = (p_sh, tok_sh, c_sh, pos_sh)
+    out_sh = (logits_sh, c_sh)
+    return serve_step, in_sh, out_sh, (p, toks, caches, pos), (2,)

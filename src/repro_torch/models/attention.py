@@ -9,8 +9,9 @@ per q-chunk — (B, KV, G, chunk, S_k) — which bounds activation memory;
 local layers additionally slice keys to the window, so their compute is
 O(S · W), not O(S²).
 
-The reference's explicit head-axis sharding (``_head_shard``) does nothing
-on one card and waits for the sharding item.
+The reference's explicit head-axis sharding (``_head_shard``) is a
+placement hint for its compiler; the port's ranks compute every head of
+their batch shard, so the hint places nothing here.
 
 Cache contract: :func:`attn_decode` writes the new key / value into the
 cache tensors **in place** and returns the same dict.
@@ -32,6 +33,14 @@ __all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
            "init_attn_cache", "prefill_fill_cache"]
 
 NEG_INF = -2.0**30  # large-but-finite: keeps fully-masked rows NaN-free
+
+
+def _head_shard(cfg: ModelConfig, dist, q, k, v):
+    """The reference pins q / k / v to a head-axis sharding over ``model``
+    (``dist.head_shard``).  The port has no tensor-parallel compute: each
+    rank holds all heads of its batch shard, so ``q``, ``k`` and ``v``
+    come back as they are."""
+    return q, k, v
 
 
 def _rope_base(cfg: ModelConfig, kind: str) -> float:
@@ -147,6 +156,7 @@ def attn_train(
     causal: bool = True,
     kv_source: Optional[torch.Tensor] = None,
     return_kv: bool = False,
+    dist=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence attention (forward of training / prefill).
 
@@ -182,6 +192,7 @@ def attn_train(
         )
         k = apply_rope(k, pos, base)
 
+    q, k, v = _head_shard(cfg, dist, q, k, v)
     scale = _scale(cfg)
     cap = cfg.attn_logit_softcap
     window = cfg.window if kind == "local" else None

@@ -16,7 +16,7 @@ from .attention import attn_decode, attn_train, init_attn, prefill_fill_cache
 from .common import rms_norm
 from .mamba import init_mamba, mamba_decode, mamba_train
 from .mlp import init_mlp, mlp
-from .moe import init_moe, moe_apply
+from .moe import DistCtx, init_moe, moe_apply
 
 __all__ = ["Entry", "init_entry", "entry_train", "entry_prefill",
            "entry_decode"]
@@ -72,13 +72,13 @@ def init_entry(cfg: ModelConfig, kind: str, idx: int, generator=None,
     return Entry(cfg, kind, idx, generator, device, cross)
 
 
-def _ffn_apply(cfg, idx, p, x):
+def _ffn_apply(cfg, idx, p, x, dist=None):
     ffn = _has_ffn(cfg, idx)
     if ffn is None:
         return x, 0.0
     h = rms_norm(x, p.ln2, cfg.rms_eps)
     if ffn == "moe":
-        h, aux = moe_apply(cfg, p.moe, h)
+        h, aux = moe_apply(cfg, p.moe, h, dist)
     else:
         h, aux = mlp(cfg, p.mlp, h), 0.0
     if cfg.post_norms:
@@ -96,13 +96,15 @@ def entry_train(
     causal: bool = True,
     enc_out: Optional[torch.Tensor] = None,
     q_chunk: int = 1024,
+    dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (x, aux_loss)."""
     h = rms_norm(x, p.ln1, cfg.rms_eps)
     if kind == "mamba":
         h = mamba_train(cfg, p.mamba, h)
     else:
-        h = attn_train(cfg, p.attn, h, kind, causal=causal, q_chunk=q_chunk)
+        h = attn_train(cfg, p.attn, h, kind, causal=causal, q_chunk=q_chunk,
+                       dist=dist)
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
@@ -111,7 +113,7 @@ def entry_train(
         h = attn_train(cfg, p.xattn, h, "global", kv_source=enc_out,
                        causal=False, q_chunk=q_chunk)
         x = x + h
-    return _ffn_apply(cfg, idx, p, x)
+    return _ffn_apply(cfg, idx, p, x, dist)
 
 
 def entry_prefill(
@@ -125,6 +127,7 @@ def entry_prefill(
     enc_out: Optional[torch.Tensor] = None,
     q_chunk: int = 1024,
     cache_dtype=torch.bfloat16,
+    dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Forward + build this entry's decode cache."""
     h = rms_norm(x, p.ln1, cfg.rms_eps)
@@ -132,7 +135,7 @@ def entry_prefill(
         h, cache = mamba_train(cfg, p.mamba, h, return_cache=True)
     else:
         h, (k, v) = attn_train(cfg, p.attn, h, kind, q_chunk=q_chunk,
-                               return_kv=True)
+                               return_kv=True, dist=dist)
         cache = prefill_fill_cache(cfg, kind, k, v, cache_len, cache_dtype)
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
@@ -149,7 +152,7 @@ def entry_prefill(
         x = x + h
         cache = {"self": cache, "cross_k": kx.to(cache_dtype),
                  "cross_v": vx.to(cache_dtype)}
-    x, _ = _ffn_apply(cfg, idx, p, x)
+    x, _ = _ffn_apply(cfg, idx, p, x, dist)
     return x, cache
 
 
@@ -161,6 +164,7 @@ def entry_decode(
     x: torch.Tensor,  # (B, 1, D)
     cache: Dict,
     pos,
+    dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token; updates ``cache`` in place and returns it."""
     h = rms_norm(x, p.ln1, cfg.rms_eps)
@@ -180,5 +184,5 @@ def entry_decode(
             cross_kv=(cache["cross_k"], cache["cross_v"]),
         )
         x = x + h
-    x, _ = _ffn_apply(cfg, idx, p, x)
+    x, _ = _ffn_apply(cfg, idx, p, x, dist)
     return x, cache

@@ -15,7 +15,8 @@ entry's cache a dict of tensors.  :func:`decode_step` **updates the caches
 in place** (the cache tensors and the dicts) and returns the same list, so a
 cache that went through a decode step holds the state after it.
 
-``train_loss`` waits for the training half of the port.
+``dist`` (a :class:`~repro_torch.models.moe.DistCtx`) makes the MoE dispatch
+local to the rank's batch shard; ``dist=None`` is the single-device model.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from .common import (
     sinusoidal_positions, softcap,
 )
 from .mamba import init_mamba_cache
+from .moe import DistCtx
 
 __all__ = [
     "DecoderLM",
@@ -209,6 +211,7 @@ def _decoder_inputs(cfg: ModelConfig, params: DecoderLM, batch) -> Tuple[torch.T
 
 def train_loss(
     cfg: ModelConfig, params: DecoderLM, batch: Dict, *, q_chunk: int = 1024,
+    dist: Optional[DistCtx] = None,
 ) -> torch.Tensor:
     """Next-token cross-entropy (+ MoE aux), differentiable with respect to
     ``params``.  ``batch`` (tensors on the model's device):
@@ -226,7 +229,7 @@ def train_loss(
         aux = torch.zeros((), dtype=torch.float32, device=hh.device)
         for i, kind in enumerate(pattern):
             hh, a = entry_train(cfg, kind, i, unit[f"e{i}"], hh,
-                                enc_out=enc_out, q_chunk=q_chunk)
+                                enc_out=enc_out, q_chunk=q_chunk, dist=dist)
             aux = aux + a
         return hh, aux
 
@@ -289,6 +292,7 @@ def prefill(
     *,
     q_chunk: int = 1024,
     cache_dtype=torch.bfloat16,
+    dist: Optional[DistCtx] = None,
     last_index: Optional[torch.Tensor] = None,
 ) -> Tuple[List[Dict], torch.Tensor]:
     """Run the full prompt, build caches, return f32 logits at the last
@@ -305,6 +309,7 @@ def prefill(
             h, c = entry_prefill(
                 cfg, kind, i, unit[f"e{i}"], h, cache_len,
                 enc_out=enc_out, q_chunk=q_chunk, cache_dtype=cache_dtype,
+                dist=dist,
             )
             unit_c[f"e{i}"] = c
         caches.append(unit_c)
@@ -324,6 +329,8 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1)
     caches: List[Dict],
     pos,  # int / 0-d tensor, or (B,) tensor: tokens already in cache
+    *,
+    dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One token per sequence: f32 logits (B, V), and ``caches`` updated in
     place (returned for convenience)."""
@@ -341,7 +348,7 @@ def decode_step(
     for unit, unit_c in zip(params.units, caches):
         for i, kind in enumerate(pattern):
             h, _ = entry_decode(cfg, kind, i, unit[f"e{i}"], h,
-                                unit_c[f"e{i}"], pos)
+                                unit_c[f"e{i}"], pos, dist=dist)
     h = rms_norm(h, params.final_norm, cfg.rms_eps)
     return _logits(cfg, params, h[:, 0]), caches
 

@@ -7,14 +7,22 @@ weighted by the router gate.  Overflowing tokens beyond ``capacity_factor``
 drop (standard Switch/GShard semantics).
 
 The router load-balancing auxiliary loss (Switch §2.2) is returned alongside.
-The reference's data-shard-local dispatch (``_moe_sharded``, ``DistCtx``)
-waits for the sharding item: on one card every token is resident, which is
-``_moe_dense_dispatch``.
+
+Distribution (``dist.moe_axes``, the reference's ``_moe_sharded``): each
+rank routes only the tokens of its own batch shard, with a per-shard
+capacity (GShard semantics), and the auxiliary loss is averaged over the
+ranks of the batch axes.  Raw tokens never leave their rank.  On a mesh of
+one position (or a group of one rank) this is the dense dispatch, bit for
+bit.
+
+The dispatch has no shape that depends on the data (overflowing
+assignments write to a spare slot column that is dropped), so it runs on
+``meta`` tensors, as the dry run needs, and never waits for the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +31,20 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .common import activation, normal_init
 
-__all__ = ["MoE", "init_moe", "moe_apply"]
+__all__ = ["MoE", "init_moe", "moe_apply", "DistCtx"]
+
+
+class DistCtx(NamedTuple):
+    """Static distribution context threaded through the model."""
+
+    mesh: object  # a DeviceMesh, or any mesh with ``.shape`` / axis names
+    moe_axes: Tuple[str, ...]  # mesh axes carrying the token batch
+    # sequence-parallel axes of the reference's inter-layer activations; the
+    # port's ranks hold their batch shard's whole sequence (no constraint)
+    sp_axes: Tuple[str, ...] = ()
+    # the reference's explicit attention head-shard hint (a no-op here: see
+    # ``attention._head_shard``)
+    head_shard: bool = False
 
 
 class MoE(nn.Module):
@@ -56,10 +77,59 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
 
 
 def moe_apply(
-    cfg: ModelConfig, params: MoE, x: torch.Tensor
+    cfg: ModelConfig, params: MoE, x: torch.Tensor,
+    dist: "DistCtx | None" = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) → (out, aux_loss)."""
+    """x: (B, S, D) → (out, aux_loss).  With ``dist`` the dispatch is
+    local to the rank's batch shard (see the module's docstring)."""
+    if dist is not None and dist.moe_axes:
+        return _moe_sharded(cfg, params, x, dist)
     return _moe_dense_dispatch(cfg, params, x)
+
+
+def moe_groups(dist: DistCtx):
+    """One process group per batch axis of ``dist`` that is a dimension of
+    its ``DeviceMesh`` (none for a mesh that holds no process group, such
+    as a mesh of one position outside ``torch.distributed``)."""
+    names = getattr(dist.mesh, "mesh_dim_names", None) or ()
+    return [dist.mesh.get_group(a) for a in dist.moe_axes if a in names]
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """The sum of a tensor over every rank of ``groups`` (all-reduced axis
+    by axis); its gradient is the sum of the ranks' gradients, the same
+    all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.groups), None
+
+
+def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    out = x.clone()
+    for group in groups:
+        torch.distributed.all_reduce(out, group=group)
+    return out
+
+
+def _moe_sharded(cfg: ModelConfig, params: MoE, x: torch.Tensor,
+                 dist: DistCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` is this rank's batch shard: its tokens go through the dense
+    dispatch here, and ``aux`` becomes the mean of every rank's over the
+    batch axes."""
+    out, aux = _moe_dense_dispatch(cfg, params, x)
+    groups = moe_groups(dist)
+    if groups:
+        size = 1
+        for group in groups:
+            size *= torch.distributed.get_world_size(group)
+        aux = _SumOverGroups.apply(aux, groups) / size
+    return out, aux
 
 
 def _moe_dense_dispatch(
@@ -99,12 +169,16 @@ def _moe_dense_dispatch(
     token_of = sort_idx // K
 
     # slots (E, C): token index feeding each expert slot (N = dummy row).
-    # Overflowing assignments (column ``capacity``) are dropped.
-    e_ok, c_ok = sorted_e[ok], pos[ok]
-    slot_tok = torch.full((E, capacity), N, dtype=torch.int64, device=dev)
-    slot_tok[e_ok, c_ok] = token_of[ok]
-    slot_gate = torch.zeros((E, capacity), dtype=torch.float32, device=dev)
-    slot_gate[e_ok, c_ok] = flat_g[sort_idx][ok]
+    # Overflowing assignments write to the spare column ``capacity``, which
+    # is dropped.
+    col = torch.where(ok, pos, capacity)
+    slot_tok = torch.full((E, capacity + 1), N, dtype=torch.int64, device=dev)
+    slot_tok[sorted_e, col] = token_of
+    slot_tok = slot_tok[:, :capacity]
+    slot_gate = torch.zeros((E, capacity + 1), dtype=torch.float32,
+                            device=dev)
+    slot_gate[sorted_e, col] = flat_g[sort_idx]
+    slot_gate = slot_gate[:, :capacity]
 
     x_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
     xe = x_pad[slot_tok]  # (E, C, D)

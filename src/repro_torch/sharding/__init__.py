@@ -1,7 +1,19 @@
-"""``repro_torch.sharding`` — how case-partitioned event logs map onto
-shards and cards (the graph half of the reference's ``repro.sharding``;
-the model-parallel rules come with the LM model zoo)."""
+"""``repro_torch.sharding`` — the LM's logical-axis sharding rules (specs,
+and their DTensor placements on a ``DeviceMesh``) and how case-partitioned
+event logs map onto shards and cards."""
 
-from .spec import GraphShardSpec, graph_mesh, shard_of_cases
+from .spec import (
+    GraphShardSpec,
+    ShardingRules,
+    batch_shardings,
+    cache_shardings,
+    graph_mesh,
+    make_rules,
+    param_shardings,
+    shard_of_cases,
+)
 
-__all__ = ["GraphShardSpec", "graph_mesh", "shard_of_cases"]
+__all__ = [
+    "ShardingRules", "batch_shardings", "cache_shardings", "make_rules",
+    "param_shardings", "GraphShardSpec", "graph_mesh", "shard_of_cases",
+]

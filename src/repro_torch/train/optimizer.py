@@ -88,15 +88,20 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(
     hp: TrainHParams, params, grads: Mapping[str, torch.Tensor],
-    state: OptState,
+    state: OptState, grad_norm: "torch.Tensor | None" = None,
 ) -> Tuple[object, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place: the parameters and ``state``'s moments are
     updated where they are.  Returns ``(params, new_state, metrics)``:
     the same parameters, an ``OptState`` with the next step holding the
-    same moment tensors, and ``{"lr", "grad_norm"}`` (0-d tensors)."""
+    same moment tensors, and ``{"lr", "grad_norm"}`` (0-d tensors).
+
+    ``grad_norm`` is the global norm of the gradients when ``grads`` hold
+    only this rank's shards of them (a sharded step computes it across the
+    ranks); by default it is :func:`global_norm` of ``grads``."""
     named = _named(params)
     step = state.step + 1
-    gnorm = global_norm({n: grads[n] for n in named})
+    gnorm = (global_norm({n: grads[n] for n in named}) if grad_norm is None
+             else grad_norm)
     scale = torch.clamp(hp.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(hp, step)
     b1, b2 = hp.beta1, hp.beta2

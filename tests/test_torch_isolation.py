@@ -320,3 +320,88 @@ def test_train_cli_refuses_a_missing_card(tmp_path):
     assert out.returncode != 0
     assert "CUDA" in out.stderr and out.stdout == ""
     assert not (tmp_path / "ck").exists()
+
+
+SHARDED_BLOCKED_RUN = r"""
+import importlib.abc, os, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+env = dict(os.environ)
+import torch, torch.distributed as dist
+import repro_torch.launch.dryrun as dryrun
+import repro_torch.launch.mesh, repro_torch.launch.steps, repro_torch.roofline
+import repro_torch.sharding, repro_torch.kernels.dfg_count.ref
+assert dict(os.environ) == env and not dist.is_initialized()
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.steps import local_abstract_args, make_train_step
+from repro_torch.models import init_params
+from repro_torch.roofline import analyze_step
+from repro_torch.train import init_opt_state
+
+cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(), vocab_size=64,
+                          loss_chunk=8, q_chunk=8, dtype="float32")
+shape = ShapeConfig("t", seq_len=16, global_batch=2, kind="train")
+fn, in_sh, _, args, donate = make_train_step(cfg, shape,
+                                             make_test_mesh((1, 1), device_type="cpu"))
+model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32),
+         "labels": torch.ones((2, 16), dtype=torch.int32)}
+_, _, loss, _ = fn(model, init_opt_state(model), batch)
+res = analyze_step(fn, local_abstract_args(args, in_sh), cfg, shape,
+                   make_test_mesh((1, 1), device_type="cpu"), donate=donate)
+assert res["flops_per_device"] > 0 and torch.isfinite(loss)
+env = dict(os.environ)  # (remat's checkpoint imports torch._dynamo, which
+                        # sets TORCHINDUCTOR_CACHE_DIR on first use)
+dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--mesh",
+             "single", "--tag", "blocked", "--out", sys.argv[1]])
+assert not dist.is_initialized() and dict(os.environ) == env
+print(sorted(m for m in sys.modules if m.startswith("jax")))
+"""
+
+
+def test_sharded_lm_path_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The step builders, the roofline and the dry run import and run with
+    JAX and the reference blocked; importing the dry run changes no
+    environment variable and starts no process group, and its ``main``
+    leaves none behind."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", SHARDED_BLOCKED_RUN, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "whisper-tiny__decode_32k__16x16__blocked.json").exists()
+
+
+def test_meshes_without_a_process_group():
+    """With no process group the 1 × 1 test mesh is the port's plain
+    ``Mesh``; anything larger, and the production mesh, refuse with the
+    reference's message."""
+    import torch.distributed as dist
+
+    from repro_torch.core.compat import Mesh
+    from repro_torch.launch.mesh import (
+        make_production_mesh, make_test_mesh, mesh_devices,
+    )
+
+    assert not dist.is_initialized()
+    mesh = make_test_mesh((1, 1), device_type="cpu")
+    assert isinstance(mesh, Mesh) and mesh_devices(mesh) == 1
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        make_test_mesh((2, 1), device_type="cpu")
+    with pytest.raises(RuntimeError, match="need 256 devices for the "
+                                           "production mesh, have 0"):
+        make_production_mesh(device_type="cpu")
+    with pytest.raises(RuntimeError, match="need 512 devices"):
+        make_production_mesh(multi_pod=True, device_type="cpu")
+    assert not dist.is_initialized()

@@ -8,10 +8,15 @@ CPU, ``.reduced()`` sizes, the reference's weights carried across.
 Tolerances in bf16: the loss within ``atol = 5e-2``; a gradient leaf
 within ``atol = 5e-2 · max(1, max |reference leaf|)``, ``rtol = 0``, but
 jamba's within ``1e-1 ·`` that scale.  At ``5e-2 ·`` this test failed on
-jamba alone, on its mamba ``conv_b`` (0.053 of the leaf's scale): a sum of
-bf16 cotangents over every position, which the two packages round in
-other orders; and in bf16 a near tie of the router's logits can send a
-token to another expert in each package.
+jamba alone, on its mamba ``conv_b`` (0.053 of the leaf's scale between
+the packages).  Measured against each package's own f32 gradients (same
+weights and batch, same scale): the reference's bf16 ``conv_b`` is off by
+up to 0.0631 of the scale, the port's by up to 0.0462 (the largest of
+jamba's 14 ``conv_b`` leaves, ``units.0.e1``, in both) — the reference
+itself is past ``5e-2`` there, so the looser bound measures bf16 rounding
+of a sum of cotangents over every position, not a fault of the port.
+``tests/test_torch_bf16_error.py`` holds the port's error to no more than
+the reference's.
 """
 
 import jax
