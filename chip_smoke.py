@@ -161,6 +161,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    child processes on the host (fake process groups), each artifact's
    per-device bytes, ``fits_hbm``, dominant term and roofline fraction;
    launches against ``PREDICTED_3K`` (none);
+3l. one rank of olmoe-1b-7b × ``train_4k`` × 16x16, tensor-parallel: in a
+   child process (this script with ``--rank0-of-16x16``, under
+   ``TP_TIMEOUT_S``) a fake process group of 256 ranks, the production
+   16 × 16 ``DeviceMesh`` on the card, rank 0's local state of the
+   published config at all 16 layers from a seed, 3 ``make_train_step``
+   steps of the rank's batch shard (16 × 4,096 tokens, 2 microbatches);
+   the peak device memory within 80 GB and beside 3k's dry-run
+   ``per_device_bytes``, the median step, the collectives of step 0 equal
+   kind by kind to the dry run's, launches against ``PREDICTED_3L``
+   (none); the losses printed, not gated (the fake collectives fill
+   nothing);
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -179,7 +190,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own, 3 to 3k); the last line
+``launches_by_phase`` each phase's own, 3 to 3l); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
 of phases 2-3h has tolerance 0; phases 3i, 3j and 3k state their model
@@ -4148,25 +4159,32 @@ KERNEL_CLASSES = (
 
 
 def _train_step_profile(torch, cfg, params, batch):
-    """One bf16 loss + backward of step 0 under ``torch.profiler``: the
-    wall (profiled), the device's busy share (the kernels' summed device
-    time over the wall; None when the profiler records no device time),
-    the kernel count, the device time by class of kernel
-    (``KERNEL_CLASSES``, ms) and the five kernels with the most device time
-    (name, ms, launches)."""
+    """One bf16 loss + backward of step 0 under ``torch.profiler``
+    (:func:`_device_profile`)."""
+    from repro_torch.models import train_loss
+
+    out = _device_profile(
+        torch, lambda: train_loss(cfg, params, batch, q_chunk=1024).backward())
+    params.zero_grad(set_to_none=True)
+    return out
+
+
+def _device_profile(torch, run):
+    """``run()`` once under ``torch.profiler``: the wall (profiled), the
+    device's busy share (the kernels' summed device time over the wall;
+    None when the profiler records no device time), the kernel count, the
+    device time by class of kernel (``KERNEL_CLASSES``, ms) and the five
+    kernels with the most device time (name, ms, launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import train_loss
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_loss(cfg, params, batch, q_chunk=1024).backward()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    params.zero_grad(set_to_none=True)
     rows = []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -4666,7 +4684,7 @@ def phase_sharded_lm(torch, card, tmp):
     against its hand composition; at full depth ``make_prefill_step`` and
     8 ``make_decode_step`` steps against ``prefill`` / ``decode_step`` with
     ``dist=None``; the dry run of two cells in child processes.  Returns
-    {kernel: launches}."""
+    ({kernel: launches}, {(arch, shape, mesh): dry-run artifact})."""
     import dataclasses
     import math
     import statistics
@@ -4883,8 +4901,10 @@ def phase_sharded_lm(torch, card, tmp):
     # ---- the dry run, on the host ---------------------------------------------
     out_dir = os.path.join(tmp, "dryrun")
     os.makedirs(out_dir, exist_ok=True)
+    arts = {}
     for arch, shape_name, mesh_name in DRYRUN_CELLS:
-        art = _dryrun_cell(arch, shape_name, mesh_name, out_dir)
+        art = arts[arch, shape_name, mesh_name] = _dryrun_cell(
+            arch, shape_name, mesh_name, out_dir)
         check(art["chips"] == (256 if mesh_name == "single" else 512)
               and art["dominant_term"] in ("compute", "memory", "collective")
               and art["model_flops_global"] == model_flops(
@@ -4907,7 +4927,188 @@ def phase_sharded_lm(torch, card, tmp):
           f"phase 3k launches {counts} differ from {PREDICTED_3K}")
     log(f"phase 3k [{card}]: launches {counts}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, arts
+
+
+# ---------------------------------------------------------------------------
+# Phase 3l — one rank of olmoe-1b-7b × train_4k × 16x16
+# ---------------------------------------------------------------------------
+
+#: phase 3l's cell: rank 0 of the 16 × 16 ``("data", "model")`` mesh, the
+#: published olmoe-1b-7b at all 16 layers, ``train_4k``'s batch shard of
+#: 16 sequences of 4,096 tokens in the config's 2 microbatches, 3 steps
+TP_CELL = ("olmoe-1b-7b", "train_4k", "single")
+TP_STEPS, TP_WORLD = 3, 256
+#: the child process's time limit (its steps, its group and its imports)
+TP_TIMEOUT_S = 600
+#: launches of phase 3l: the LM path runs none of the four kernels
+PREDICTED_3L = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
+                "align_dp": 0}
+#: the child's argument (``python3 chip_smoke.py`` itself takes none)
+TP_CHILD_FLAG = "--rank0-of-16x16"
+
+
+def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
+    """The child of phase 3l: a fake process group of 256 ranks (this
+    process rank 0; its collectives move nothing and leave what they would
+    receive unfilled), the production 16 × 16 ``DeviceMesh`` on
+    ``device``, rank 0's local state of ``cfg`` (the published olmoe by
+    default) made from a seed, and ``steps`` steps of ``make_train_step``
+    on the rank's batch shard, the first under the dry run's collective
+    counter; on the card one more under ``torch.profiler``.  Writes what
+    it measured to ``out_path`` (JSON)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.kernels.align_dp import ops as dp_ops
+    from repro_torch.kernels.dfg_count import ops
+    from repro_torch.kernels.segment_count import ops as seg_ops
+    from repro_torch.launch.dryrun import _fake_process_group
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import local_abstract_args, make_train_step
+    from repro_torch.roofline.analyze import _collective_log_mode, _inventory
+    from repro_torch.train.optimizer import init_opt_state
+
+    arch, shape_name, _ = TP_CELL
+    cfg = cfg or get_config(arch)
+    shape = get_shape(shape_name)
+    kernel_ops = (ops, seg_ops, dp_ops)
+    for m in kernel_ops:
+        m.reset_launch_counts()
+    _fake_process_group(TP_WORLD)
+    try:
+        mesh = make_production_mesh(device_type=device)
+        fn, in_sh, _, args, _ = make_train_step(cfg, shape, mesh)
+        params, _, batch_meta = local_abstract_args(args, in_sh)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = params.to_empty(device=device)
+        with torch.no_grad():
+            for p in params.parameters():  # N(0, 0.02²) matrices, zero norms
+                if p.dim() >= 2:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device)
+                            * 0.02)
+                else:
+                    p.zero_()
+        opt = init_opt_state(params)
+        rows, seq = batch_meta["tokens"].shape
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=rows,
+                             seq_len=seq, seed=31)
+        batches = [{k: torch.from_numpy(v).to(device) for k, v in pipe(s).items()}
+                   for s in range(steps)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_s = [], [], []
+        for step in range(steps):
+            counter = _collective_log_mode() if step == 0 else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with counter:
+                params, opt, loss, metrics = fn(params, opt, batches[step])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            norms.append(float(metrics["grad_norm"]))
+            if step == 0:
+                coll = _inventory(counter.ops)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        profiled = None
+        if device == "cuda":
+            wall, busy, n_kernels, classes, top = _device_profile(
+                torch, lambda: fn(params, opt, batches[0]))
+            profiled = {"wall_s": wall, "busy": busy, "kernels": n_kernels,
+                        "classes_ms": classes, "top": top}
+        counts = {}
+        for m in kernel_ops:
+            counts.update(m.launch_counts)
+        result = {
+            "params_local": sum(p.numel() for p in params.parameters()),
+            "batch": [rows, seq], "step_s": step_s,
+            "median_s": statistics.median(step_s), "losses": losses,
+            "grad_norms": norms, "peak_bytes": peak,
+            "collectives": {k: v["count"] for k, v in coll["ops"].items()},
+            "collective_bytes": {k: v["bytes"] for k, v in coll["ops"].items()},
+            "launches": {name: counts.get(name, 0) for name in KERNELS},
+            "profile": profiled,
+        }
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def phase_tp_lm(torch, card, dry_art, tmp):
+    """Phase 3l: :func:`tp_rank0` in a child process under
+    ``TP_TIMEOUT_S``; its peak device memory against the card's 80 GB and
+    beside the dry run's ``per_device_bytes`` for the cell (``dry_art``,
+    phase 3k's artifact), its collectives against the dry run's, kind by
+    kind; no kernel launched.  Returns {kernel: launches}."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.roofline import model_flops
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "rank0.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), TP_CHILD_FLAG, out],
+        env=env, capture_output=True, text=True, cwd=root,
+        timeout=TP_TIMEOUT_S)
+    check(run.returncode == 0,
+          f"phase 3l child: {run.stdout[-1000:]} {run.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    arch, shape_name, _ = TP_CELL
+    cfg, shape = get_config(arch), get_shape(shape_name)
+    want = {k: v["count"] for k, v in dry_art["collectives"]["ops"].items()}
+    want_bytes = {k: v["bytes"] for k, v in dry_art["collectives"]["ops"].items()}
+    peak = res["peak_bytes"]
+    bound_s = model_flops(cfg, shape) / TP_WORLD / hw.PEAK_FLOPS_BF16
+    log(f"{arch} × {shape_name} × 16x16, rank 0 of a fake group of "
+        f"{TP_WORLD} [{card}]: all {cfg.n_layers} layers, "
+        f"{res['params_local']:,} parameters on the rank, batch shard "
+        f"{res['batch'][0]} × {res['batch'][1]} in "
+        f"{cfg.microbatches} microbatches; losses "
+        f"{', '.join(f'{x:.4f}' for x in res['losses'])} and grad norms "
+        f"{', '.join(f'{x:.4g}' for x in res['grad_norms'])} (not gated: "
+        "the fake collectives leave what they gather unfilled)")
+    log(f"rank 0 step [{card}]: median {res['median_s']:.4f} s (all "
+        f"{', '.join(f'{x:.4f}' for x in res['step_s'])}; collectives take "
+        f"no time); model_flops per rank {bound_s:.4f} s at "
+        f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 "
+        f"({bound_s / res['median_s'] * 100:.2f}% of the median); peak "
+        f"device memory {peak:,} B ({peak / 1e9:.2f} GB; "
+        "torch.cuda.max_memory_allocated) beside the dry run's "
+        f"per_device_bytes {dry_art['per_device_bytes']:,} "
+        f"({dry_art['per_device_bytes'] / 1e9:.2f} GB)")
+    prof = res["profile"]
+    if prof is not None and prof["busy"] is not None:
+        log(f"rank 0 step under torch.profiler [{card}]: {prof['wall_s']:.4f} "
+            f"s, {prof['kernels']:,} kernels, the card {prof['busy'] * 100:.1f}% "
+            "busy; device ms by class: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                prof["classes_ms"].items(), key=lambda kv: -kv[1]))
+            + "; top: " + "; ".join(f"{n[:60]} {ms:.1f} ms × {c}"
+                                    for n, ms, c in prof["top"]))
+    log(f"rank 0 collectives in one step [{card}]: {res['collectives']} "
+        f"(result bytes {res['collective_bytes']}); the dry run's {want} "
+        f"(bytes {want_bytes})")
+    check(peak <= hw.HBM_BYTES,
+          f"rank 0's peak {peak / 1e9:.2f} GB exceeds the card's "
+          f"{hw.HBM_BYTES / 1e9:.0f} GB")
+    check(res["collectives"] == want and res["collective_bytes"] == want_bytes,
+          f"rank 0's collectives {res['collectives']} (bytes "
+          f"{res['collective_bytes']}) differ from the dry run's {want} "
+          f"(bytes {want_bytes})")
+    check(res["launches"] == PREDICTED_3L,
+          f"phase 3l launches {res['launches']} differ from {PREDICTED_3L}")
+    log(f"phase 3l [{card}]: launches {res['launches']}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -5570,6 +5771,9 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
 
 
 def main() -> int:
+    if sys.argv[1:2] == [TP_CHILD_FLAG]:  # phase 3l's child
+        tp_rank0(sys.argv[2])
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -5640,12 +5844,16 @@ def main() -> int:
         log("== phase 3k: the sharded LM path and the dry run, olmoe-1b-7b "
             "at full width")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            sharded_lm_counts = phase_sharded_lm(torch, card, tmp)
+            sharded_lm_counts, dry_arts = phase_sharded_lm(torch, card, tmp)
+        log("== phase 3l: one rank of olmoe-1b-7b × train_4k × 16x16, "
+            "tensor-parallel")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            tp_counts = phase_tp_lm(torch, card, dry_arts[TP_CELL], tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
                     "3g": service_counts, "3h": transport_counts,
                     "3i": lm_counts, "3j": train_counts,
-                    "3k": sharded_lm_counts}
+                    "3k": sharded_lm_counts, "3l": tp_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

@@ -10,16 +10,20 @@ in place).
 
 The state at rest is laid out as the reference's rules say (FSDP over the
 batch axes for training, tensor-parallel dimensions over ``model``).  The
-port's step computes data-parallel: each rank all-gathers the parameters
-it needs whole (bf16 for the matrices under ``cast_params_once``, as the
-reference casts before its gathers), runs its batch shard through the
-model with the MoE dispatch local to that shard (``DistCtx``), and
-reduce-scatters the gradients (their mean over the batch axes) back to its
-shards before AdamW updates them in place.  Ranks along ``model`` hold
-different shards of the state but compute the same batch shard: the port
-has no tensor-parallel compute.  On a mesh of one position every
+train step computes as the reference's partition does
+(:mod:`repro_torch.sharding.parallel`): each rank runs its batch shard
+through the columns, heads, experts and vocabulary rows that its
+``model`` shards hold, with the residual stream split over ``model`` on
+its sequence dimension between the units; a unit's leaves are cast (bf16
+for the matrices under ``cast_params_once``) and all-gathered over the
+batch axes inside the unit's rematerialised function, and the backward
+reduce-scatters each unit's gradients back to the shards as it finishes,
+in f32, so no rank ever holds the whole model's parameters or gradients.
+AdamW then updates the shards in place.  On a mesh of one position every
 placement is the whole tensor and no collective runs except the MoE
-auxiliary loss's all-reduce over a group of one.
+auxiliary loss's all-reduce over a group of one.  Prefill and decode
+still gather every parameter whole on every rank and compute
+data-parallel.
 
 A step's arguments are one rank's local tensors: ``params`` a
 ``DecoderLM`` whose parameters are its shards, an ``OptState`` of shards,
@@ -39,9 +43,13 @@ from repro_torch.models import decode_step as _decode_step
 from repro_torch.models import prefill as _prefill
 from repro_torch.models.model import DecoderLM
 from repro_torch.models.moe import DistCtx
+from repro_torch.sharding.parallel import (
+    FSDP, LeafPlan, Leaves, ShardedUnit, TensorParallel, all_reduce,
+)
 from repro_torch.sharding.spec import (
     P,
     NamedSharding,
+    _entry_axes,
     batch_shardings,
     cache_shardings,
     make_rules,
@@ -226,6 +234,44 @@ def _cast_once(cfg: ModelConfig, name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _leaf_plans(cfg: ModelConfig, p, p_sh, rules) -> Dict[str, LeafPlan]:
+    """Each leaf's :class:`LeafPlan`: its ``cast_params_once`` dtype, the
+    dimension its spec splits over the batch axes, and whether ``model``
+    splits it (on an axis of more than one position)."""
+    plans = {}
+    for n, t in p.named_parameters():
+        fsdp_dim, model_split = None, False
+        for d, entry in enumerate(p_sh[n].spec):
+            axes = _entry_axes(entry)
+            if axes and set(axes) <= set(rules.fsdp_axes):
+                fsdp_dim = d
+            model_split |= "model" in axes and rules.model_size > 1
+        cast = _cast_once(cfg, n, t)
+        plans[n] = LeafPlan(cast.dtype if cast.dtype != t.dtype else None,
+                            fsdp_dim, model_split)
+    return plans
+
+
+def _sharded_model(leaves: Dict[str, torch.Tensor], plans, fsdp: FSDP) -> Leaves:
+    """The model ``train_loss`` reads: the top-level leaves gathered (once
+    per microbatch: a tied embedding is one tensor for both of its uses),
+    each unit a :class:`ShardedUnit` that gathers itself when it runs."""
+    top, stacks = {}, {}
+    for n, t in leaves.items():
+        stack, _, rest = n.partition(".")
+        if stack in ("units", "enc_units"):
+            u, _, rel = rest.partition(".")
+            stacks.setdefault(stack, {}).setdefault(int(u), {})[rel] = t
+        else:
+            top[n] = fsdp.gather(t, plans[n])
+    units = {
+        stack: [ShardedUnit(shards, {rel: plans[f"{stack}.{u}.{rel}"]
+                                     for rel in shards}, fsdp)
+                for u, shards in sorted(by_unit.items())]
+        for stack, by_unit in stacks.items()}
+    return Leaves(top, **units)
+
+
 def make_train_step(
     cfg: ModelConfig,
     shape: ShapeConfig,
@@ -243,26 +289,27 @@ def make_train_step(
     b_sh = batch_shardings(rules, b)
     scalar = rules.nd(P())
     qc = _q_chunk(shape, cfg)
-    # all archs get the dist ctx for training: data-local MoE dispatch
-    # (moe_axes); sp_axes as the reference's
+    sizes = mesh_axis_sizes(mesh)
+    # the reference's DistCtx (sequence-parallel activations, the
+    # data-local MoE dispatch) and, where ``model`` has more than one
+    # position, tensor parallelism
+    tp = TensorParallel(mesh) if rules.model_size > 1 else None
     sp = ("model",) if rules.model_axis else ()
-    dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp)
+    dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp, tp=tp)
+    batch_groups = [mesh.get_group(a) for a in rules.fsdp_axes if sizes[a] > 1]
+    fsdp = FSDP(batch_groups, tp.group if tp is not None else None)
+    plans = _leaf_plans(cfg, p, p_sh, rules)
     k = train_microbatches(cfg)
-    entry = b_sh["tokens"].spec[0]
-    data_axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-    n_data = rules.axes_size(data_axes)
+    n_data = rules.axes_size(rules.fsdp_axes)
     split = n_data > 1 or any(_split(s) for s in p_sh.values())
 
     def train_step(params, opt_state, batch):
-        leaves = {
-            n: _relayout(_cast_once(cfg, n, t.detach()), p_sh[n],
-                         _whole(mesh, t.dim())).requires_grad_()
-            for n, t in params.named_parameters()
-        }
-        model = _module_with(cfg, leaves)
+        leaves = {n: t.detach().requires_grad_()
+                  for n, t in params.named_parameters()}
         names = list(leaves)
 
         def loss_and_grads(bb):
+            model = _sharded_model(leaves, plans, fsdp)
             loss = train_loss(cfg, model, bb, q_chunk=qc, dist=dist)
             return loss, torch.autograd.grad(loss, [leaves[n] for n in names])
 
@@ -285,13 +332,14 @@ def make_train_step(
             for s in gsum.values():
                 s.div_(k)
             grads = gsum
-        del model, leaves
+        del leaves
         grad_norm = None
+        if n_data > 1:  # the gathers' backward summed over the batch axes
+            grads = {n: g / n_data for n, g in grads.items()}
+            for group in batch_groups:
+                loss = all_reduce(loss, group)
+            loss = loss / n_data
         if split:
-            grads = {n: _relayout(g, _whole(mesh, g.dim()), p_sh[n],
-                                  partial_axes=data_axes) / n_data
-                     for n, g in grads.items()}
-            loss = _relayout(loss, scalar, scalar, partial_axes=data_axes) / n_data
             grad_norm = _global_norm(grads, p_sh, mesh)
         new_p, new_o, metrics = adamw_update(hp, params, grads, opt_state,
                                              grad_norm=grad_norm)

@@ -9,9 +9,10 @@ per q-chunk — (B, KV, G, chunk, S_k) — which bounds activation memory;
 local layers additionally slice keys to the window, so their compute is
 O(S · W), not O(S²).
 
-The reference's explicit head-axis sharding (``_head_shard``) is a
-placement hint for its compiler; the port's ranks compute every head of
-their batch shard, so the hint places nothing here.
+Under tensor parallelism (``dist.tp``, the sharded train step) a rank
+computes the heads its ``model`` shards hold (:func:`_head_shard`): the
+projections are column-parallel, ``wo`` row-parallel, and the output is
+the rank's partial sum of the layer's output.
 
 Cache contract: :func:`attn_decode` writes the new key / value into the
 cache tensors **in place** and returns the same dict.
@@ -35,12 +36,49 @@ __all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
 NEG_INF = -2.0**30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
-def _head_shard(cfg: ModelConfig, dist, q, k, v):
-    """The reference pins q / k / v to a head-axis sharding over ``model``
-    (``dist.head_shard``).  The port has no tensor-parallel compute: each
-    rank holds all heads of its batch shard, so ``q``, ``k`` and ``v``
-    come back as they are."""
-    return q, k, v
+def _head_shard(cfg: ModelConfig, tp, x, src, params: Attention):
+    """q, k and v of the heads this rank computes under tensor parallelism
+    (``tp``, the ``model`` axis), the reference's head-axis sharding
+    written out, and the rows of ``wo`` that meet them: (B, S, Hl·hd)
+    queries and (B, Sk, KVl·hd) keys / values, Hl a multiple of KVl, query
+    head ``j`` reading key head ``j // (Hl / KVl)``.
+
+    The rank's query heads are its block of the heads (its shard of
+    ``wq`` where the heads divide the axis, else its heads of ``wq``
+    all-gathered); its key heads are its shard of ``wk`` / ``wv`` where
+    both divide, else the groups its query heads read, from ``wk`` / ``wv``
+    all-gathered (one key head per query head where a group straddles two
+    ranks).  With fewer heads than ranks (whisper) every head runs on every
+    rank, from q, k and v all-gathered, and the caller keeps the rank's
+    block of the output's columns."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    if H < tp.size:
+        q, k, v = (tp.full(inp @ w.to(dt), -1, n * hd) for inp, w, n in (
+            (x, params.wq, H), (src, params.wk, KV), (src, params.wv, KV)))
+        return q, k, v, tp.cols(params.wo, 0, H * hd)
+    a, b = tp.block(H)
+    if H % tp.size == 0:
+        q = x @ tp.cols(params.wq, 1, H * hd).to(dt)
+        wo = tp.cols(params.wo, 0, H * hd)
+        if KV % tp.size == 0:
+            k = src @ tp.cols(params.wk, 1, KV * hd).to(dt)
+            v = src @ tp.cols(params.wv, 1, KV * hd).to(dt)
+            return q, k, v, wo
+    else:
+        q = x @ tp.full(params.wq, 1, H * hd)[:, a * hd:b * hd].to(dt)
+        wo = tp.full(params.wo, 0, H * hd)[a * hd:b * hd]
+    G, Hl = H // KV, b - a
+    heads = [j // G for j in range(a, b)]
+    k0, n = heads[0], heads[-1] - heads[0] + 1
+    k = src @ tp.full(params.wk, 1, KV * hd)[:, k0 * hd:(k0 + n) * hd].to(dt)
+    v = src @ tp.full(params.wv, 1, KV * hd)[:, k0 * hd:(k0 + n) * hd].to(dt)
+    if Hl % n == 0 and heads == [k0 + j // (Hl // n) for j in range(Hl)]:
+        return q, k, v, wo  # whole groups
+    B, Sk = k.shape[:2]  # one key head per query head
+    pick = torch.tensor([h - k0 for h in heads], device=k.device)
+    return (q, k.reshape(B, Sk, n, hd)[:, :, pick].reshape(B, Sk, Hl * hd),
+            v.reshape(B, Sk, n, hd)[:, :, pick].reshape(B, Sk, Hl * hd), wo)
 
 
 def _rope_base(cfg: ModelConfig, kind: str) -> float:
@@ -172,9 +210,18 @@ def attn_train(
 
     src = x if kv_source is None else kv_source
     Sk = src.shape[1]
-    q = (x @ params.wq.to(dt)).reshape(B, S, KV, G, hd)
-    k = (src @ params.wk.to(dt)).reshape(B, Sk, KV, hd)
-    v = (src @ params.wv.to(dt)).reshape(B, Sk, KV, hd)
+    tp = dist.tp if dist is not None else None
+    if tp is None:
+        q = (x @ params.wq.to(dt)).reshape(B, S, KV, G, hd)
+        k = (src @ params.wk.to(dt)).reshape(B, Sk, KV, hd)
+        v = (src @ params.wv.to(dt)).reshape(B, Sk, KV, hd)
+    else:
+        q, k, v, wo = _head_shard(cfg, tp, x, src, params)
+        KV = k.shape[-1] // hd
+        G = q.shape[-1] // hd // KV
+        q = q.reshape(B, S, KV, G, hd)
+        k = k.reshape(B, Sk, KV, hd)
+        v = v.reshape(B, Sk, KV, hd)
 
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.rms_eps)
@@ -192,7 +239,6 @@ def attn_train(
         )
         k = apply_rope(k, pos, base)
 
-    q, k, v = _head_shard(cfg, dist, q, k, v)
     scale = _scale(cfg)
     cap = cfg.attn_logit_softcap
     window = cfg.window if kind == "local" else None
@@ -237,8 +283,11 @@ def attn_train(
             outs.append(
                 _attend_chunk(q[:, i * qc:(i + 1) * qc], k, v, m, scale, cap))
 
-    out = torch.cat(outs, dim=1).reshape(B, S + pad, H * hd)[:, :S]
-    out = out @ params.wo.to(dt)
+    out = torch.cat(outs, dim=1).reshape(B, S + pad, KV * G * hd)[:, :S]
+    if tp is None:
+        out = out @ params.wo.to(dt)
+    else:  # row-parallel: this rank's heads (or columns), a partial sum
+        out = tp.cols(out, -1, H * hd) @ wo.to(dt)
     if return_kv:
         return out, (k, v)
     return out

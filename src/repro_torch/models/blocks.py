@@ -72,15 +72,31 @@ def init_entry(cfg: ModelConfig, kind: str, idx: int, generator=None,
     return Entry(cfg, kind, idx, generator, device, cross)
 
 
+def _enter(dist, h):
+    """A tensor-parallel region's input: the whole sequence (see
+    :class:`~repro_torch.sharding.parallel.TensorParallel`)."""
+    if dist is None or dist.tp is None:
+        return h
+    return dist.tp.enter(h, bool(dist.sp_axes))
+
+
+def _exit(dist, y):
+    """A region's output (a partial sum) in the residual stream's layout."""
+    if dist is None or dist.tp is None:
+        return y
+    return dist.tp.exit(y, bool(dist.sp_axes))
+
+
 def _ffn_apply(cfg, idx, p, x, dist=None):
     ffn = _has_ffn(cfg, idx)
     if ffn is None:
         return x, 0.0
-    h = rms_norm(x, p.ln2, cfg.rms_eps)
+    h = _enter(dist, rms_norm(x, p.ln2, cfg.rms_eps))
     if ffn == "moe":
         h, aux = moe_apply(cfg, p.moe, h, dist)
     else:
-        h, aux = mlp(cfg, p.mlp, h), 0.0
+        h, aux = mlp(cfg, p.mlp, h, dist.tp if dist is not None else None), 0.0
+    h = _exit(dist, h)
     if cfg.post_norms:
         h = rms_norm(h, p.ln2_post, cfg.rms_eps)
     return x + h, aux
@@ -98,20 +114,27 @@ def entry_train(
     q_chunk: int = 1024,
     dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (x, aux_loss)."""
-    h = rms_norm(x, p.ln1, cfg.rms_eps)
+    """Full-sequence forward. Returns (x, aux_loss).
+
+    Under tensor parallelism (``dist.tp``) ``x`` is this rank's part of the
+    residual stream (its sequence slice where ``dist.sp_axes``) and each
+    mixer and FFN runs on the rank's shards between :func:`_enter` and
+    :func:`_exit`."""
+    h = _enter(dist, rms_norm(x, p.ln1, cfg.rms_eps))
     if kind == "mamba":
-        h = mamba_train(cfg, p.mamba, h)
+        h = _exit(dist, mamba_train(cfg, p.mamba, h,
+                                    tp=dist.tp if dist is not None else None))
     else:
-        h = attn_train(cfg, p.attn, h, kind, causal=causal, q_chunk=q_chunk,
-                       dist=dist)
+        h = _exit(dist, attn_train(cfg, p.attn, h, kind, causal=causal,
+                                   q_chunk=q_chunk, dist=dist))
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
     if enc_out is not None:  # whisper decoder cross-attention
-        h = rms_norm(x, p.ln_x, cfg.rms_eps)
-        h = attn_train(cfg, p.xattn, h, "global", kv_source=enc_out,
-                       causal=False, q_chunk=q_chunk)
+        h = _enter(dist, rms_norm(x, p.ln_x, cfg.rms_eps))
+        h = _exit(dist, attn_train(cfg, p.xattn, h, "global",
+                                   kv_source=enc_out, causal=False,
+                                   q_chunk=q_chunk, dist=dist))
         x = x + h
     return _ffn_apply(cfg, idx, p, x, dist)
 

@@ -191,6 +191,23 @@ def _chunk_nll(hc, w_vocab, lc, mc, final_softcap):
     return ((lse - ll) * mc).sum()
 
 
+def _chunk_nll_tp(hc, rows, lc, mc, v0, tp, final_softcap):
+    """:func:`_chunk_nll` against this rank's vocabulary rows ``rows``
+    (token ids ``v0`` onwards) under tensor parallelism (``tp``): the max
+    and the sum of exponentials all-reduced over ``model``, the label's
+    logit from the rank that holds it."""
+    B, c, D = hc.shape
+    logits = matmul_f32(hc.reshape(B * c, D), rows.t()).reshape(B, c, -1)
+    logits = softcap(logits, final_softcap)
+    top = tp.max(logits.detach().amax(dim=-1))
+    lse = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(-1)))
+    idx = lc - v0
+    mine = (idx >= 0) & (idx < logits.shape[-1])
+    ll = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])
+    ll = tp.reduce(torch.where(mine, ll.squeeze(-1), 0.0))
+    return ((lse - ll) * mc).sum()
+
+
 def chunked_cross_entropy(
     h: torch.Tensor,
     w_vocab: torch.Tensor,
@@ -199,6 +216,8 @@ def chunked_cross_entropy(
     chunk: int = 512,
     final_softcap: Optional[float] = None,
     label_mask: Optional[torch.Tensor] = None,
+    tp=None,
+    v0: int = 0,
 ) -> torch.Tensor:
     """Mean NLL with the (B, S, V) logits never materialized for full S.
 
@@ -209,6 +228,11 @@ def chunked_cross_entropy(
     neither forward nor as saved tensors (the reference's
     ``jax.checkpoint`` on its scan body).  The last chunk is padded with
     masked positions, as the reference pads it.
+
+    Under tensor parallelism (``tp``) ``h`` is whole on every rank of
+    ``model`` and ``w_vocab`` is this rank's rows of the vocabulary
+    matrix, from token id ``v0`` (:func:`_chunk_nll_tp`); the mean NLL is
+    every rank's.
     """
     B, S, D = h.shape
     c = min(chunk, S)
@@ -224,8 +248,12 @@ def chunked_cross_entropy(
     denom = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S + pad, c):
         hc, lc, mc = h[:, i:i + c], labels[:, i:i + c], lm[:, i:i + c]
-        nll = checkpoint(_chunk_nll, hc, w_vocab, lc, mc, final_softcap,
-                         use_reentrant=False)
+        if tp is None:
+            nll = checkpoint(_chunk_nll, hc, w_vocab, lc, mc, final_softcap,
+                             use_reentrant=False)
+        else:
+            nll = checkpoint(_chunk_nll_tp, hc, w_vocab, lc, mc, v0, tp,
+                             final_softcap, use_reentrant=False)
         total = total + nll
         denom = denom + mc.sum()
     return total / torch.clamp(denom, min=1.0)

@@ -70,6 +70,42 @@ def init_mamba(cfg: ModelConfig, generator=None, device=None) -> Mamba2:
     return Mamba2(cfg, generator, device)
 
 
+def _head_block(cfg: ModelConfig, params: Mamba2, tp):
+    """This rank's block of the mixer's heads under tensor parallelism
+    (``tp``): the weights all-gathered over ``model`` (the fused columns of
+    ``in_proj`` and the conv's channels do not follow the heads), cut to
+    the rank's heads and the groups they read.  Returns (weights, d_inner,
+    heads, groups) of the block."""
+    from ..sharding.parallel import Leaves
+
+    d_in, H, P, N, G, conv_ch = _dims(cfg)
+    dims = {"in_proj": (1, 2 * d_in + 2 * G * N + H), "conv_w": (1, conv_ch),
+            "conv_b": (0, conv_ch), "A_log": (0, H), "D": (0, H),
+            "dt_bias": (0, H), "norm_w": (0, d_in), "out_proj": (0, d_in)}
+    w = {name: tp.full(getattr(params, name), dim, n)
+         for name, (dim, n) in dims.items()}
+    h0, h1 = tp.block(H)
+    g0, g1 = h0 * G // H, (h1 - 1) * G // H + 1
+    if (h1 - h0) % (g1 - g0):
+        raise ValueError(f"{h1 - h0} heads over {g1 - g0} groups")
+    dev = w["in_proj"].device
+
+    def span(a, b):
+        return torch.arange(a, b, device=dev)
+
+    xs, gs = span(h0 * P, h1 * P), span(g0 * N, g1 * N)
+    proj = torch.cat([xs, d_in + xs, 2 * d_in + gs, 2 * d_in + G * N + gs,
+                      2 * d_in + 2 * G * N + span(h0, h1)])
+    conv = torch.cat([xs, d_in + gs, d_in + G * N + gs])
+    block = Leaves({
+        "in_proj": w["in_proj"][:, proj], "conv_w": w["conv_w"][:, conv],
+        "conv_b": w["conv_b"][conv], "A_log": w["A_log"][h0:h1],
+        "D": w["D"][h0:h1], "dt_bias": w["dt_bias"][h0:h1],
+        "norm_w": w["norm_w"][h0 * P:h1 * P],
+        "out_proj": w["out_proj"][h0 * P:h1 * P]})
+    return block, (h1 - h0) * P, h1 - h0, g1 - g0
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                      device=None) -> Dict:
     d_in, H, P, N, G, conv_ch = _dims(cfg)
@@ -179,14 +215,21 @@ def mamba_train(
     x: torch.Tensor,
     *,
     return_cache: bool = False,
+    tp=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
-    """Full-sequence SSD forward. x: (B, L, D)."""
+    """Full-sequence SSD forward. x: (B, L, D).  Under tensor parallelism
+    (``tp``) this rank computes its block of the heads (:func:`_head_block`)
+    on the whole sequence: the gated norm's mean square is all-reduced over
+    ``model`` and the output is the rank's partial sum."""
     Bsz, L, D = x.shape
     d_in, H, P, N, G, conv_ch = _dims(cfg)
+    d_inner = d_in
+    if tp is not None:
+        params, d_in, H, G = _head_block(cfg, params, tp)
     dt_ = x.dtype
 
     proj = x @ params.in_proj.to(dt_)
-    z, xBC, dt_raw = _split_proj(cfg, proj)
+    z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, H], dim=-1)
     xBC = _causal_conv(xBC, params.conv_w.to(dt_), params.conv_b.to(dt_))
     xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
     xs = xs.reshape(Bsz, L, H, P)
@@ -198,7 +241,11 @@ def mamba_train(
     y, last_state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xs.float() * params.D.float()[None, None, :, None]
     y = y.reshape(Bsz, L, d_in).to(dt_)
-    y = rms_norm(y * F.silu(z), params.norm_w, cfg.rms_eps)
+    if tp is None:
+        y = rms_norm(y * F.silu(z), params.norm_w, cfg.rms_eps)
+    else:
+        y = _rms_norm_tp(y * F.silu(z), params.norm_w, cfg.rms_eps, tp,
+                         d_inner)
     out = y @ params.out_proj.to(dt_)
     if return_cache:
         # conv cache holds the *pre-conv* channel inputs of the last
@@ -211,6 +258,16 @@ def mamba_train(
         cache = {"conv": xBC_tail.float(), "state": last_state}
         return out, cache
     return out
+
+
+def _rms_norm_tp(x, weight, eps: float, tp, n: int) -> torch.Tensor:
+    """:func:`rms_norm` of a tensor whose last dimension (``n`` whole) is
+    split over ``model``: the sum of squares all-reduced."""
+    dt = x.dtype
+    x = x.float()
+    var = tp.reduce(x.square().sum(dim=-1, keepdim=True)) / n
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dt)
 
 
 def mamba_decode(

@@ -33,13 +33,21 @@ def init_mlp(cfg: ModelConfig, generator=None, device=None) -> MLP:
     return MLP(cfg, generator, device)
 
 
-def mlp(cfg: ModelConfig, params: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, params: MLP, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The block's output; under tensor parallelism (``tp``) this rank's
+    block of F (``w_up`` / ``w_gate`` column-parallel, ``w_down``
+    row-parallel), whose output is a partial sum."""
     dt = x.dtype
     act = activation(cfg.act)
-    up = x @ params.w_up.to(dt)
+
+    def w(name, dim):
+        t = getattr(params, name)
+        return (t if tp is None else tp.cols(t, dim, cfg.d_ff)).to(dt)
+
+    up = x @ w("w_up", 1)
     if cfg.mlp_gated:
-        gate = act(x @ params.w_gate.to(dt))
+        gate = act(x @ w("w_gate", 1))
         h = gate * up
     else:
         h = act(up)
-    return h @ params.w_down.to(dt)
+    return h @ w("w_down", 0)

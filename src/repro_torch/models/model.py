@@ -17,6 +17,10 @@ cache that went through a decode step holds the state after it.
 
 ``dist`` (a :class:`~repro_torch.models.moe.DistCtx`) makes the MoE dispatch
 local to the rank's batch shard; ``dist=None`` is the single-device model.
+With ``dist.tp`` (the sharded train step's) :func:`train_loss` computes the
+rank's part of the tensor-parallel model, and a unit given as a
+:class:`~repro_torch.sharding.parallel.ShardedUnit` is gathered inside its
+rematerialised function.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ModelConfig
+from ..sharding.parallel import ShardedUnit
 from .attention import init_attn_cache
 from .blocks import entry_decode, entry_prefill, entry_train, init_entry
 from .common import (
@@ -147,12 +152,22 @@ def _remat_wrap(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
+def _gathering(entry_fn):
+    def run(unit, x):
+        return entry_fn(unit.gather(), x)
+
+    return run
+
+
 def _run_units(cfg: ModelConfig, units, x, entry_fn):
     """The pattern units in order, each under ``cfg.remat``.
-    ``entry_fn(unit, x) -> (x, aux)``; returns (x, summed aux)."""
+    ``entry_fn(unit, x) -> (x, aux)``; returns (x, summed aux).  A
+    :class:`ShardedUnit` is gathered inside the rematerialised function:
+    its leaves live while the unit runs, forward and again backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit in units:
-        x, a = _remat_wrap(cfg, entry_fn)(unit, x)
+        fn = _gathering(entry_fn) if isinstance(unit, ShardedUnit) else entry_fn
+        x, a = _remat_wrap(cfg, fn)(unit, x)
         aux = aux + a
     return x, aux
 
@@ -176,17 +191,26 @@ def _logits(cfg: ModelConfig, params: DecoderLM, h: torch.Tensor):
     return softcap(matmul_f32(h, w.t()), cfg.final_logit_softcap)
 
 
-def _encode(cfg: ModelConfig, params: DecoderLM, frames):
-    """Whisper encoder over stub frame embeddings (B, S_enc, D)."""
+def _encode(cfg: ModelConfig, params: DecoderLM, frames,
+            dist: Optional[DistCtx] = None):
+    """Whisper encoder over stub frame embeddings (B, S_enc, D).  Under
+    tensor parallelism (``dist.tp``) the encoder's stream is split over
+    ``model`` where its sequence divides; the output is whole."""
     dt = getattr(torch, cfg.dtype)
     pos = torch.as_tensor(sinusoidal_positions(frames.shape[1], cfg.d_model))
     h = frames.to(dt) + pos.to(dtype=dt, device=frames.device)[None]
+    tp = dist.tp if dist is not None else None
+    if tp is not None:
+        split = tp.splits(h.shape[1])
+        dist = dist._replace(sp_axes=("model",) if split else ())
+        h = tp.seq_slice(h) if split else h
     h, _ = _run_units(
         cfg, params.enc_units, h,
         lambda unit, hh: entry_train(cfg, "global", 0, unit["e0"], hh,
-                                     causal=False),
+                                     causal=False, dist=dist),
     )
-    return rms_norm(h, params.enc_norm, cfg.rms_eps)
+    h = rms_norm(h, params.enc_norm, cfg.rms_eps)
+    return h if tp is None else tp.enter(h, split)
 
 
 def _decoder_inputs(cfg: ModelConfig, params: DecoderLM, batch) -> Tuple[torch.Tensor, int]:
@@ -209,20 +233,9 @@ def _decoder_inputs(cfg: ModelConfig, params: DecoderLM, batch) -> Tuple[torch.T
 # ---------------------------------------------------------------------------
 
 
-def train_loss(
-    cfg: ModelConfig, params: DecoderLM, batch: Dict, *, q_chunk: int = 1024,
-    dist: Optional[DistCtx] = None,
-) -> torch.Tensor:
-    """Next-token cross-entropy (+ MoE aux), differentiable with respect to
-    ``params``.  ``batch`` (tensors on the model's device):
-      tokens (B, S) int; labels (B, S) int
-      [vlm]  vision_embeds (B, P, D)
-      [encdec] frames (B, S_enc, D)
-    """
-    h, n_prefix = _decoder_inputs(cfg, params, batch)
-    enc_out = (
-        _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
-    )
+def _decoder_units(cfg: ModelConfig, params, h, enc_out, q_chunk: int,
+                   dist: Optional[DistCtx]):
+    """The decoder's units over ``h``: (h, the summed MoE aux)."""
     pattern = cfg.layer_pattern
 
     def entry_fn(unit, hh):
@@ -233,7 +246,26 @@ def train_loss(
             aux = aux + a
         return hh, aux
 
-    h, aux = _run_units(cfg, params.units, h, entry_fn)
+    return _run_units(cfg, params.units, h, entry_fn)
+
+
+def train_loss(
+    cfg: ModelConfig, params: DecoderLM, batch: Dict, *, q_chunk: int = 1024,
+    dist: Optional[DistCtx] = None,
+) -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE aux), differentiable with respect to
+    ``params``.  ``batch`` (tensors on the model's device):
+      tokens (B, S) int; labels (B, S) int
+      [vlm]  vision_embeds (B, P, D)
+      [encdec] frames (B, S_enc, D)
+    """
+    if dist is not None and dist.tp is not None:
+        return _train_loss_tp(cfg, params, batch, q_chunk, dist)
+    h, n_prefix = _decoder_inputs(cfg, params, batch)
+    enc_out = (
+        _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
+    )
+    h, aux = _decoder_units(cfg, params, h, enc_out, q_chunk, dist)
     h = rms_norm(h, params.final_norm, cfg.rms_eps)
     if n_prefix:
         h = h[:, n_prefix:]
@@ -245,6 +277,58 @@ def train_loss(
         final_softcap=cfg.final_logit_softcap,
     )
     return loss + cfg.router_aux_coef * aux
+
+
+def _train_loss_tp(cfg: ModelConfig, params, batch: Dict, q_chunk: int,
+                   dist: DistCtx) -> torch.Tensor:
+    """:func:`train_loss` under tensor parallelism (``dist.tp``): this
+    rank's part of the reference's partition.  The embedding lookup is
+    vocabulary-parallel (each rank its rows, masked; the partial sums
+    reduce-scattered to the rank's sequence slice where the sequence
+    divides the axis, else all-reduced), the units run on the rank's
+    shards (:func:`~repro_torch.models.blocks.entry_train`), the final
+    norm's output is all-gathered and the cross-entropy is
+    vocabulary-parallel.  The loss is every rank's, its gradient shared
+    out (:meth:`~repro_torch.sharding.parallel.TensorParallel.share`)."""
+    tp = dist.tp
+    dt = getattr(torch, cfg.dtype)
+    tokens = batch["tokens"]
+    vis = batch.get("vision_embeds") if cfg.family == "vlm" else None
+    n_prefix = 0 if vis is None else vis.shape[1]
+    S = tokens.shape[1] + n_prefix
+    split = tp.splits(S)
+    dist = dist._replace(sp_axes=("model",) if split else ())
+
+    rows, v0 = tp.vocab_rows(params.embed, cfg.vocab_size, cfg.d_model)
+    idx = tokens.long() - v0
+    mine = (idx >= 0) & (idx < rows.shape[0])
+    h = torch.where(mine[..., None], rows[idx.clamp(0, rows.shape[0] - 1)],
+                    0).to(dt)
+    if vis is not None:  # the patches, counted once in the sum
+        vis = vis.to(h.dtype)
+        h = torch.cat([vis if tp.rank == 0 else torch.zeros_like(vis), h],
+                      dim=1)
+    h = tp.exit(h, split)
+    if cfg.scale_embed:
+        scale = torch.full((), float(cfg.d_model), dtype=torch.float32,
+                           device=h.device).sqrt()
+        h = h * scale.to(h.dtype)
+    if cfg.family == "encdec":
+        a, b = tp.block(S) if split else (0, S)
+        pos = torch.as_tensor(sinusoidal_positions(S, cfg.d_model))[a:b]
+        h = h + pos.to(dtype=h.dtype, device=h.device)[None]
+    enc_out = (_encode(cfg, params, batch["frames"], dist)
+               if cfg.family == "encdec" else None)
+    h, aux = _decoder_units(cfg, params, h, enc_out, q_chunk, dist)
+    h = tp.enter(rms_norm(h, params.final_norm, cfg.rms_eps), split)
+    if n_prefix:
+        h = h[:, n_prefix:]
+    rows, v0 = tp.vocab_rows(_vocab_weight(cfg, params), cfg.vocab_size,
+                             cfg.d_model)
+    loss = chunked_cross_entropy(
+        h, rows.to(h.dtype), batch["labels"], chunk=cfg.loss_chunk,
+        final_softcap=cfg.final_logit_softcap, tp=tp, v0=v0)
+    return tp.share(loss + cfg.router_aux_coef * aux)
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,13 @@ The router load-balancing auxiliary loss (Switch §2.2) is returned alongside.
 Distribution (``dist.moe_axes``, the reference's ``_moe_sharded``): each
 rank routes only the tokens of its own batch shard, with a per-shard
 capacity (GShard semantics), and the auxiliary loss is averaged over the
-ranks of the batch axes.  Raw tokens never leave their rank.  On a mesh of
-one position (or a group of one rank) this is the dense dispatch, bit for
-bit.
+ranks of the batch axes.  Raw tokens never leave their batch shard.  On a
+mesh of one position (or a group of one rank) this is the dense dispatch,
+bit for bit.  Under tensor parallelism (``dist.tp``) every rank of
+``model`` routes the same tokens (its batch shard's, the whole sequence)
+alike, then runs only its own experts' capacity slabs where ``model``
+splits the experts (expert parallelism), else every expert on its block
+of the experts' F; its output is a partial sum.
 
 The dispatch has no shape that depends on the data (overflowing
 assignments write to a spare slot column that is dropped), so it runs on
@@ -39,12 +43,17 @@ class DistCtx(NamedTuple):
 
     mesh: object  # a DeviceMesh, or any mesh with ``.shape`` / axis names
     moe_axes: Tuple[str, ...]  # mesh axes carrying the token batch
-    # sequence-parallel axes of the reference's inter-layer activations; the
-    # port's ranks hold their batch shard's whole sequence (no constraint)
+    # sequence-parallel axes of the inter-layer activations: under ``tp``
+    # the residual stream is split over them on its sequence dimension
+    # (empty where the sequence does not divide); without ``tp`` each rank
+    # holds its batch shard's whole sequence
     sp_axes: Tuple[str, ...] = ()
-    # the reference's explicit attention head-shard hint (a no-op here: see
-    # ``attention._head_shard``)
+    # the reference's explicit attention head-shard hint (its compiler's
+    # placement; the port's heads follow ``tp``, ``attention._head_shard``)
     head_shard: bool = False
+    # tensor parallelism over ``model`` (a ``sharding.parallel.
+    # TensorParallel``; the sharded train step's), or None
+    tp: object = None
 
 
 class MoE(nn.Module):
@@ -122,7 +131,7 @@ def _moe_sharded(cfg: ModelConfig, params: MoE, x: torch.Tensor,
     """``x`` is this rank's batch shard: its tokens go through the dense
     dispatch here, and ``aux`` becomes the mean of every rank's over the
     batch axes."""
-    out, aux = _moe_dense_dispatch(cfg, params, x)
+    out, aux = _moe_dense_dispatch(cfg, params, x, dist.tp)
     groups = moe_groups(dist)
     if groups:
         size = 1
@@ -133,7 +142,7 @@ def _moe_sharded(cfg: ModelConfig, params: MoE, x: torch.Tensor,
 
 
 def _moe_dense_dispatch(
-    cfg: ModelConfig, params: MoE, x: torch.Tensor
+    cfg: ModelConfig, params: MoE, x: torch.Tensor, tp=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -180,16 +189,27 @@ def _moe_dense_dispatch(
     slot_gate[sorted_e, col] = flat_g[sort_idx]
     slot_gate = slot_gate[:, :capacity]
 
+    w_up, w_down = params.w_up, params.w_down
+    w_gate = params.w_gate if cfg.mlp_gated else None
+    if tp is not None and w_up.shape[0] != E:  # this rank's experts
+        e0 = tp.rank * w_up.shape[0]
+        slot_tok = slot_tok[e0:e0 + w_up.shape[0]]
+        slot_gate = slot_gate[e0:e0 + w_up.shape[0]]
+    elif tp is not None:  # every expert, this rank's block of F
+        Fe = cfg.d_ff_expert
+        w_up, w_down = tp.cols(w_up, 2, Fe), tp.cols(w_down, 1, Fe)
+        w_gate = tp.cols(w_gate, 2, Fe) if cfg.mlp_gated else None
+
     x_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
     xe = x_pad[slot_tok]  # (E, C, D)
 
-    up = torch.bmm(xe, params.w_up.to(dt))
+    up = torch.bmm(xe, w_up.to(dt))
     if cfg.mlp_gated:
-        gate = act(torch.bmm(xe, params.w_gate.to(dt)))
+        gate = act(torch.bmm(xe, w_gate.to(dt)))
         h = gate * up
     else:
         h = act(up)
-    ye = torch.bmm(h, params.w_down.to(dt))
+    ye = torch.bmm(h, w_down.to(dt))
     ye = ye * slot_gate[..., None].to(dt)
 
     # combine: scatter-add expert outputs back to tokens

@@ -8,8 +8,12 @@ the reference's analysis of a small compiled step), the right ``chips``,
 ``fits_hbm``, a ``dominant_term`` of the three, ``model_flops_global``
 equal to the reference's ``model_flops``; olmoe's argument bytes are the
 exact sum of rank 0's local shards under the reference's specs (f32
-parameters, μ and ν, the int32 step, the batch shard).  The pytest process
-imports no ``repro.launch.dryrun`` and starts no process group."""
+parameters, μ and ν, the int32 step, the batch shard), and its step, which
+computes tensor-parallel and gathers one unit at a time, fits the H100's
+80 GB within twice the reference's bytes (7.24 GB, the reference's dry
+run of the cell) and spends at least 0.4 of its FLOPs on ``model_flops``
+(the reference's 0.561).  The pytest process imports no
+``repro.launch.dryrun`` and starts no process group."""
 
 import dataclasses
 import json
@@ -54,6 +58,14 @@ def _dryrun(tmp_path, arch, shape, mesh):
 
 
 @pytest.fixture(scope="module")
+def olmoe_train(tmp_path_factory):
+    """The artifact of olmoe-1b-7b × ``train_4k`` × 16x16 (one child
+    process for the module's tests)."""
+    return _dryrun(tmp_path_factory.mktemp("olmoe_dryrun"), "olmoe-1b-7b",
+                   "train_4k", "single")
+
+
+@pytest.fixture(scope="module")
 def reference_keys():
     """``analyze_compiled``'s keys, from the reference's analysis of a
     small decode step compiled on its 1 × 1 mesh."""
@@ -84,8 +96,8 @@ def test_dryrun_cell_on_production_mesh(tmp_path, mesh, reference_keys):
     assert d["flops_per_device"] > 0 and d["bytes_accessed_per_device"] > 0
 
 
-def test_dryrun_argument_bytes_are_the_local_shards(tmp_path, monkeypatch):
-    d = _dryrun(tmp_path, "olmoe-1b-7b", "train_4k", "single")
+def test_dryrun_argument_bytes_are_the_local_shards(olmoe_train, monkeypatch):
+    d = olmoe_train
     assert d["chips"] == 256 and d["kind"] == "train"
     assert d["model_flops_global"] == model_flops(ref_config("olmoe-1b-7b"),
                                                   ref_shape("train_4k"))
@@ -116,3 +128,11 @@ def test_dryrun_argument_bytes_are_the_local_shards(tmp_path, monkeypatch):
     want = 3 * params + 4 + batch  # f32 params, μ, ν; the int32 step
     assert d["memory_analysis"]["argument_bytes"] == want
     assert d["memory_analysis"]["alias_bytes"] == 3 * params
+
+
+def test_dryrun_tensor_parallel_step_fits_the_card(olmoe_train):
+    d = olmoe_train
+    assert d["fits_hbm"] is True
+    assert d["per_device_bytes"] <= 14.5e9
+    assert d["useful_flops_ratio"] >= 0.4
+    assert d["collectives"]["ops"]["reduce-scatter"]["count"] > 0

@@ -1,5 +1,10 @@
-"""Rank launcher for ``tests/test_torch_launch_steps.py``: starts 2 gloo
-ranks on the CPU (``spawn``), each on the same seeded inputs:
+"""Rank launcher for ``tests/test_torch_launch_steps.py`` and
+``tests/test_torch_tensor_parallel.py``: starts gloo ranks on the CPU
+(``spawn``), each on the same seeded inputs.
+
+    python tests/torch_lm_ranks.py OUT_DIR
+
+starts 2 ranks:
 
 * ``moe`` — ``models.moe._moe_sharded`` on a 1-D ``("data",)`` mesh of 2,
   rank ``r`` routing half ``r`` of the batch; saves its output and ``aux``;
@@ -9,11 +14,21 @@ ranks on the CPU (``spawn``), each on the same seeded inputs:
   saves the loss, the gradient norm and the new parameters and moments,
   all-gathered whole.
 
-    python tests/torch_lm_ranks.py OUT_DIR
+    python tests/torch_lm_ranks.py OUT_DIR tp
 
-Rendezvous is a ``file://`` path inside ``OUT_DIR``; every rank destroys
-its process group in a ``finally``, and the launcher exits non-zero when a
-rank fails or outlives ``RANK_TIMEOUT_S``."""
+starts 4 ranks: one train step of each arch of ``TP_ARCHS`` (reduced, f32,
+cut so that each takes the tensor-parallel path named beside it) on a
+(2, 2) ``("data", "model")`` mesh, saved as above; on rank 0 a hook
+counts, per unit, the storages of the leaves the step gathers and of the
+gradients its gathers' backward receives (``tp_gathers.json``).  Then
+the launcher itself, once the ranks are gone, starts a fake process group
+of 4, counts reduced olmoe's step on a (2, 2) mesh of it on ``meta``
+(``roofline.analyze.analyze_step``) and writes ``tp_analysis.json``.
+
+Rendezvous is a ``file://`` path inside ``OUT_DIR``; every rank (and the
+launcher's fake group) destroys its process group in a ``finally``, and
+the launcher exits non-zero when a rank fails or outlives
+``RANK_TIMEOUT_S``."""
 
 import dataclasses
 import datetime
@@ -26,6 +41,40 @@ RANK_TIMEOUT_S = 120
 WORLD = 2
 TRAIN_ARCH = "starcoder2-3b"
 B, S = 4, 32
+TP_WORLD = 4
+#: the MoE archs' cut: a capacity of every assignment and one microbatch.
+#: A data shard routes its own tokens (the reference's GShard semantics:
+#: capacity and auxiliary loss per shard), which equals routing the whole
+#: batch only where no assignment overflows and the shards hold alike
+#: tokens, so these archs' batch is two sequences, each on both shards
+#: (``tp_inputs``)
+_EVERY_ASSIGNMENT = {"microbatches": 1, "capacity_factor": 4.0}
+#: each arch's cut of its reduced config (4 heads, 2 KV heads, 4 experts)
+#: and the path it takes on the (2, 2) mesh
+TP_ARCHS = {
+    # expert parallelism (4 experts over 2), local heads
+    "olmoe-1b-7b": dict(_EVERY_ASSIGNMENT),
+    # 3 experts: each splits F; 6 query heads over 3 key heads, so a rank's
+    # 3 query heads read key heads 0, 0, 1 (keys all-gathered, picked)
+    "mixtral-8x7b": {"n_experts": 3, "n_heads": 6, "n_kv_heads": 3,
+                     **_EVERY_ASSIGNMENT},
+    # one key head for a rank's 2 query heads; both softcaps, post-norms,
+    # the scaled, tied embedding; 2 microbatches
+    "gemma2-9b": {"n_kv_heads": 1, "microbatches": 2},
+    # 3 query heads do not divide 2: rank 0 computes 1, rank 1 2, from
+    # wq / wk / wv / wo all-gathered
+    "starcoder2-3b": {"n_heads": 3, "n_kv_heads": 1},
+    # mamba mixers split by heads (the gated norm's mean square
+    # all-reduced), MoE expert-parallel
+    "jamba-v0.1-52b": dict(_EVERY_ASSIGNMENT),
+    # a vocabulary of 127 (the embedding splits D), 15 encoder frames (the
+    # encoder's stream whole on every rank), one head: fewer than the
+    # ranks, so every rank computes it
+    "whisper-tiny": {"vocab_size": 127, "enc_seq": 15, "n_heads": 1,
+                     "n_kv_heads": 1},
+    # 8 patches before the text: the prefix counted once in the sum
+    "llava-next-34b": {},
+}
 
 
 def moe_config():
@@ -60,6 +109,44 @@ def train_inputs(cfg):
             "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
 
 
+def tp_config(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(
+        cfg, **{"vocab_size": 128, "loss_chunk": 16, "q_chunk": 16,
+                "microbatches": 2 if cfg.n_experts else 1, "ssm_chunk": 8,
+                "dtype": "float32", "cast_params_once": False,
+                **TP_ARCHS[arch]})
+
+
+def analysis_config():
+    """Reduced olmoe made wide enough (d_model 256, experts of F = 512)
+    that its parameters, not its activations, hold most of a rank's
+    bytes, as at full size."""
+    import dataclasses
+
+    return dataclasses.replace(tp_config("olmoe-1b-7b"), d_model=256,
+                               head_dim=64, d_ff_expert=512)
+
+
+def tp_inputs(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    s_text = S - cfg.n_patches
+    rows = B // 2 if cfg.n_experts else B  # MoE: 2 sequences, each twice
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (rows, s_text)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (rows, s_text)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = rng.normal(size=(rows, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(rows, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: np.concatenate([v] * (B // rows)) for k, v in out.items()}
+
+
 def init_model(cfg):
     import torch
 
@@ -68,7 +155,7 @@ def init_model(cfg):
     return init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-def _train_on(mesh_shape, rank, out_dir):
+def _train_on(mesh_shape, rank, out_dir, cfg=None, inputs=None, tag=None):
     import numpy as np
     import torch
 
@@ -77,7 +164,8 @@ def _train_on(mesh_shape, rank, out_dir):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train.optimizer import init_opt_state
 
-    cfg = train_config()
+    cfg = cfg or train_config()
+    inputs = inputs or train_inputs(cfg)
     shape = ShapeConfig("t", seq_len=S, global_batch=B, kind="train")
     mesh = make_test_mesh(mesh_shape, device_type="cpu")
     fn, in_sh, _, _, _ = make_train_step(cfg, shape, mesh)
@@ -88,7 +176,7 @@ def _train_on(mesh_shape, rank, out_dir):
             p.data = _shard(p.data, p_sh[n], mesh)
     opt = init_opt_state(model)
     batch = {k: _shard(torch.from_numpy(v), b_sh[k], mesh)
-             for k, v in train_inputs(cfg).items()}
+             for k, v in inputs.items()}
     new_p, new_o, loss, metrics = fn(model, opt, batch)
     whole = {}
     for n, p in new_p.named_parameters():
@@ -96,7 +184,7 @@ def _train_on(mesh_shape, rank, out_dir):
         whole["mu:" + n] = _unshard(new_o.mu[n], o_sh.mu[n], mesh)
         whole["nu:" + n] = _unshard(new_o.nu[n], o_sh.nu[n], mesh)
     if rank == 0:
-        tag = "x".join(map(str, mesh_shape))
+        tag = tag or "x".join(map(str, mesh_shape))
         np.savez(os.path.join(out_dir, f"train_{tag}.npz"),
                  loss=loss.numpy(), grad_norm=metrics["grad_norm"].numpy(),
                  **{k: v.numpy() for k, v in whole.items()})
@@ -146,11 +234,134 @@ def rank_main(rank, out_dir):
         dist.destroy_process_group()
 
 
+class _GatherCount:
+    """Counts, per unit, the live storages of the leaves ``ShardedUnit``
+    gathers and of the gradients its gathers' backward receives; keeps the
+    most units alive at once of each, and the gradients' shapes."""
+
+    def __init__(self):
+        import weakref
+
+        from repro_torch.sharding import parallel
+
+        self.live = {"leaves": {}, "grads": {}}
+        self.most = {"leaves": 0, "grads": 0}
+        self.unit_of = {}  # id of a gathered leaf's grad_fn → its unit
+        self.units = 0
+        gather, backward = parallel.ShardedUnit.gather, parallel._GatherParam.backward
+        count = self
+
+        def counted_gather(unit):
+            leaves = gather(unit)
+            if not hasattr(unit, "counted_as"):  # gathered again backward
+                unit.counted_as = count.units
+                count.units += 1
+            tag = unit.counted_as
+            rest = {t.untyped_storage()._cdata for t in unit.shards.values()}
+            for t in _tensors_of(leaves):
+                if t.untyped_storage()._cdata in rest:
+                    continue  # a view of the shard itself: nothing gathered
+                count.unit_of[id(t.grad_fn)] = tag
+                count._hold("leaves", tag, t)
+            return leaves
+
+        def counted_backward(ctx, g):
+            tag = count.unit_of.get(id(ctx))
+            if tag is not None:
+                count._hold("grads", tag, g)
+            return backward(ctx, g)
+
+        self._weakref = weakref
+        self._restore = (gather, parallel._GatherParam.__dict__["backward"])
+        parallel.ShardedUnit.gather = counted_gather
+        parallel._GatherParam.backward = staticmethod(counted_backward)
+
+    def close(self):
+        from repro_torch.sharding import parallel
+
+        parallel.ShardedUnit.gather, parallel._GatherParam.backward = self._restore
+
+    def _hold(self, kind, tag, t):
+        live = self.live[kind]
+        st = t.untyped_storage()
+        key = st._cdata
+        live.setdefault(tag, set()).add(key)
+        self.most[kind] = max(self.most[kind],
+                              sum(1 for keys in live.values() if keys))
+        self._weakref.finalize(st, live[tag].discard, key)
+
+
+def _tensors_of(leaves):
+    tree = leaves.__dict__["_tree"]
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            if isinstance(v, dict):
+                stack.append(v)
+            elif v.grad_fn is not None:
+                yield v
+
+
+def tp_rank_main(rank, out_dir):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'rendezvous')}",
+        world_size=TP_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+    )
+    try:
+        for arch in TP_ARCHS:
+            count = _GatherCount() if rank == 0 and arch == "olmoe-1b-7b" else None
+            cfg = tp_config(arch)
+            _train_on((2, 2), rank, out_dir, cfg, tp_inputs(cfg), f"tp_{arch}")
+            if count is not None:
+                count.close()
+                with open(os.path.join(out_dir, "tp_gathers.json"), "w") as f:
+                    json.dump({"most": count.most, "units": count.units}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_analysis(out_dir):
+    """Reduced olmoe's step on a (2, 2) mesh of a fake group of 4 ranks,
+    counted on ``meta`` (this process is rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import _fake_process_group
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import local_abstract_args, make_train_step
+    from repro_torch.roofline.analyze import analyze_step
+
+    cfg = analysis_config()
+    shape = ShapeConfig("t", seq_len=S, global_batch=B, kind="train")
+    _fake_process_group(TP_WORLD)
+    try:
+        mesh = make_test_mesh((2, 2), device_type="cpu")
+        fn, in_sh, _, args, donate = make_train_step(cfg, shape, mesh)
+        res = analyze_step(fn, local_abstract_args(args, in_sh), cfg, shape,
+                           mesh, donate=donate)
+        whole = 4 * sum(p.numel() for p in args[0].parameters())
+        with open(os.path.join(out_dir, "tp_analysis.json"), "w") as f:
+            json.dump({"memory_analysis": res["memory_analysis"],
+                       "whole_model_bytes": whole,
+                       "collectives": res["collectives"]["num_collectives"]}, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv):
     out_dir = argv[0]
+    tp = argv[1:] == ["tp"]
+    world, target = (TP_WORLD, tp_rank_main) if tp else (WORLD, rank_main)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_main, args=(r, out_dir))
-             for r in range(WORLD)]
+    procs = [ctx.Process(target=target, args=(r, out_dir))
+             for r in range(world)]
     for p in procs:
         p.start()
     codes = []
@@ -160,8 +371,11 @@ def main(argv):
             p.kill()
             p.join()
         codes.append(p.exitcode)
+    ok = all(c == 0 for c in codes)
+    if tp and ok:
+        tp_analysis(out_dir)
     print(json.dumps({"exitcodes": codes}))
-    return 0 if all(c == 0 for c in codes) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
