@@ -172,6 +172,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    kind by kind to the dry run's, launches against ``PREDICTED_3L``
    (none); the losses printed, not gated (the fake collectives fill
    nothing);
+3m. one rank of each serving cell of ``SERVE_CELLS`` × 16x16, prefill and
+   decode tensor-parallel with the caches split as they rest: the three
+   cells' dry runs on ``meta``, side by side in child processes on the
+   host; then each cell in a child process (this script with
+   ``--serve-rank0-of-16x16``, under ``SERVE_TIMEOUT_S``) that starts a
+   fake process group of 256 ranks and the production 16 × 16
+   ``DeviceMesh`` on the card, makes rank 0's local parameters and caches
+   (or batch shard) of the published config at full depth from a seed and
+   runs gemma2-27b × ``decode_32k`` (8 sequences, 1 KV head a rank, caches
+   filled to position 32,000, 8 decode steps), gemma2-9b × ``prefill_32k``
+   (2 sequences of 32,768 tokens, the caches' slots split over ``model``,
+   3 prefills) and gemma2-9b × ``long_500k`` (1 sequence, 524,288 slots
+   split 256 ways, 8 decode steps), and one more decode step under
+   ``torch.profiler``; each peak device memory within 80 GB and beside the
+   dry run's ``per_device_bytes``, the median step, the first step's
+   collectives equal kind by kind (count and bytes) to the dry run's,
+   launches against ``PREDICTED_3M`` (none); the logits printed, not
+   gated;
 4. the mining CLI in-process (``repro_torch.launch.mine``), diced, plain
    and ``--distributed`` (the same ``total_pairs`` as the plain run);
 5. kernel, plain-version and library times at the main paths' shapes beside
@@ -190,7 +208,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is a JSON ``kernels`` report (``launches`` from
 the first path that runs the kernel: phase 3, 3b or 3c;
-``launches_by_phase`` each phase's own, 3 to 3l); the last line
+``launches_by_phase`` each phase's own, 3 to 3m); the last line
 is ``{"ok": true, "device": {...}}``.  Counts are exact integers and the
 alignment DP is f32 adds and mins in one fixed order, so every comparison
 of phases 2-3h has tolerance 0; phases 3i, 3j and 3k state their model
@@ -4656,25 +4674,45 @@ def _hand_train_step(torch, cfg, hp, params, batch, k, dist_ctx):
     return loss.cpu(), metrics["grad_norm"].cpu(), host
 
 
-def _dryrun_cell(arch, shape, mesh, out_dir):
-    """``python -m repro_torch.launch.dryrun`` for one cell in a child
-    process; returns its artifact."""
+def _dryrun_start(arch, shape, mesh, out_dir):
+    """``python -m repro_torch.launch.dryrun`` for one cell, started in a
+    child process on the host (read with :func:`_dryrun_read`)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
                OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape, "--mesh", mesh, "--tag", "chip_smoke", "--out",
-         out_dir], env=env, capture_output=True, text=True, cwd=root,
-        timeout=DRYRUN_TIMEOUT_S)
-    check(out.returncode == 0,
-          f"dry run {arch} × {shape} × {mesh}: {out.stderr[-2000:]}")
+         out_dir], env=env, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_read(proc, arch, shape, mesh, out_dir, t0):
+    """The artifact of a dry run that :func:`_dryrun_start` started, with
+    its wall from ``t0``."""
+    _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    check(proc.returncode == 0, f"dry run {arch} × {shape} × {mesh}: {err[-2000:]}")
     tag = "16x16" if mesh == "single" else "2x16x16"
     with open(os.path.join(out_dir, f"{arch}__{shape}__{tag}__chip_smoke.json")) as f:
         art = json.load(f)
     art["wall_s"] = time.perf_counter() - t0
     return art
+
+
+def _dryrun_cells(cells, out_dir):
+    """The dry runs of ``cells`` (arch, shape, mesh), in child processes
+    on the host side by side; returns {cell: its artifact}, each with its
+    wall from their common start."""
+    t0 = time.perf_counter()
+    procs = {cell: _dryrun_start(*cell, out_dir) for cell in cells}
+    try:
+        return {cell: _dryrun_read(proc, *cell, out_dir, t0)
+                for cell, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 def phase_sharded_lm(torch, card, tmp):
@@ -4901,17 +4939,15 @@ def phase_sharded_lm(torch, card, tmp):
     # ---- the dry run, on the host ---------------------------------------------
     out_dir = os.path.join(tmp, "dryrun")
     os.makedirs(out_dir, exist_ok=True)
-    arts = {}
-    for arch, shape_name, mesh_name in DRYRUN_CELLS:
-        art = arts[arch, shape_name, mesh_name] = _dryrun_cell(
-            arch, shape_name, mesh_name, out_dir)
+    arts = _dryrun_cells(DRYRUN_CELLS, out_dir)
+    for (arch, shape_name, mesh_name), art in arts.items():
         check(art["chips"] == (256 if mesh_name == "single" else 512)
               and art["dominant_term"] in ("compute", "memory", "collective")
               and art["model_flops_global"] == model_flops(
                   get_config(arch), get_shape(shape_name)),
               f"dry run artifact {arch} × {shape_name}: {art}")
         log(f"dry run {arch} × {shape_name} × {art['mesh']} ({art['wall_s']:.1f} "
-            f"s in a child process): per_device_bytes "
+            f"s in a child process, side by side): per_device_bytes "
             f"{art['per_device_bytes']:,} ({art['per_device_bytes'] / 1e9:.2f} "
             f"GB), fits_hbm {art['fits_hbm']}, dominant_term "
             f"{art['dominant_term']}, roofline_fraction "
@@ -4948,97 +4984,173 @@ PREDICTED_3L = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
 TP_CHILD_FLAG = "--rank0-of-16x16"
 
 
-def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
-    """The child of phase 3l: a fake process group of 256 ranks (this
-    process rank 0; its collectives move nothing and leave what they would
-    receive unfilled), the production 16 × 16 ``DeviceMesh`` on
-    ``device``, rank 0's local state of ``cfg`` (the published olmoe by
-    default) made from a seed, and ``steps`` steps of ``make_train_step``
-    on the rank's batch shard, the first under the dry run's collective
-    counter; on the card one more under ``torch.profiler``.  Writes what
-    it measured to ``out_path`` (JSON)."""
-    import statistics
-
-    import torch
+def _on_rank0(device, run):
+    """``run(mesh)`` as rank 0 of a fake process group of ``TP_WORLD``
+    ranks (its collectives move nothing and leave what they would receive
+    unfilled), ``mesh`` the production 16 × 16 ``DeviceMesh`` on
+    ``device``, the four kernels' counts set to 0 before it; returns
+    ``run``'s dict of results with the kernels' ``launches`` added."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config, get_shape
-    from repro_torch.data.lm_data import TokenPipeline
     from repro_torch.kernels.align_dp import ops as dp_ops
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.kernels.segment_count import ops as seg_ops
     from repro_torch.launch.dryrun import _fake_process_group
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import local_abstract_args, make_train_step
-    from repro_torch.roofline.analyze import _collective_log_mode, _inventory
-    from repro_torch.train.optimizer import init_opt_state
 
-    arch, shape_name, _ = TP_CELL
-    cfg = cfg or get_config(arch)
-    shape = get_shape(shape_name)
     kernel_ops = (ops, seg_ops, dp_ops)
     for m in kernel_ops:
         m.reset_launch_counts()
     _fake_process_group(TP_WORLD)
     try:
-        mesh = make_production_mesh(device_type=device)
+        result = run(make_production_mesh(device_type=device))
+    finally:
+        dist.destroy_process_group()
+    counts = {}
+    for m in kernel_ops:
+        counts.update(m.launch_counts)
+    result["launches"] = {name: counts.get(name, 0) for name in KERNELS}
+    return result
+
+
+def _timed_steps(torch, device, steps, step, after, profile):
+    """``out = step(i)`` for each ``i < steps``, timed to the device's end
+    (the first under the dry run's collective counter), then ``after(i,
+    out)``, untimed; on the card, ``profile()`` once under
+    ``torch.profiler``.  Returns the results that the children of phases
+    3l and 3m share: the step times and their median, the peak device
+    memory from the first step on (None on the host), the first step's
+    collectives kind by kind (count and result bytes) and the profile."""
+    import statistics
+
+    from repro_torch.roofline.analyze import _collective_log_mode, _inventory
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(steps):
+        counter = _collective_log_mode() if i == 0 else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with counter:
+            out = step(i)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            coll = _inventory(counter.ops)["ops"]
+        after(i, out)
+        del out
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    profiled = None
+    if device == "cuda" and profile is not None:
+        wall, busy, n_kernels, classes, top = _device_profile(torch, profile)
+        profiled = {"wall_s": wall, "busy": busy, "kernels": n_kernels,
+                    "classes_ms": classes, "top": top}
+    return {"step_s": step_s, "median_s": statistics.median(step_s),
+            "peak_bytes": peak,
+            "collectives": {k: v["count"] for k, v in coll.items()},
+            "collective_bytes": {k: v["bytes"] for k, v in coll.items()},
+            "profile": profiled}
+
+
+def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
+    """The child of phase 3l: rank 0 of a fake group (:func:`_on_rank0`),
+    its local parameters of ``cfg`` (the published olmoe by default) made
+    from a seed (:func:`_random_fill`), and ``steps`` steps of
+    ``make_train_step`` on the rank's batch shard (:func:`_timed_steps`;
+    on the card one more under ``torch.profiler``).  Writes what it
+    measured to ``out_path`` (JSON)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data.lm_data import TokenPipeline
+    from repro_torch.launch.steps import local_abstract_args, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    arch, shape_name, _ = TP_CELL
+    cfg = cfg or get_config(arch)
+    shape = get_shape(shape_name)
+
+    def run(mesh):
         fn, in_sh, _, args, _ = make_train_step(cfg, shape, mesh)
         params, _, batch_meta = local_abstract_args(args, in_sh)
         gen = torch.Generator(device=device).manual_seed(0)
-        params = params.to_empty(device=device)
-        with torch.no_grad():
-            for p in params.parameters():  # N(0, 0.02²) matrices, zero norms
-                if p.dim() >= 2:
-                    p.copy_(torch.randn(p.shape, generator=gen, device=device)
-                            * 0.02)
-                else:
-                    p.zero_()
-        opt = init_opt_state(params)
+        params = _random_fill(torch, params, gen, device, cfg.vocab_size)
+        state = {"params": params, "opt": init_opt_state(params)}
+        del params
         rows, seq = batch_meta["tokens"].shape
         pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=rows,
                              seq_len=seq, seed=31)
         batches = [{k: torch.from_numpy(v).to(device) for k, v in pipe(s).items()}
                    for s in range(steps)]
-        if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        losses, norms, step_s = [], [], []
-        for step in range(steps):
-            counter = _collective_log_mode() if step == 0 else contextlib.nullcontext()
-            t0 = time.perf_counter()
-            with counter:
-                params, opt, loss, metrics = fn(params, opt, batches[step])
-            if device == "cuda":
-                torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
+        losses, norms = [], []
+
+        def after(i, out):
+            state["params"], state["opt"], loss, metrics = out
             losses.append(float(loss))
             norms.append(float(metrics["grad_norm"]))
-            if step == 0:
-                coll = _inventory(counter.ops)
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-        profiled = None
-        if device == "cuda":
-            wall, busy, n_kernels, classes, top = _device_profile(
-                torch, lambda: fn(params, opt, batches[0]))
-            profiled = {"wall_s": wall, "busy": busy, "kernels": n_kernels,
-                        "classes_ms": classes, "top": top}
-        counts = {}
-        for m in kernel_ops:
-            counts.update(m.launch_counts)
-        result = {
-            "params_local": sum(p.numel() for p in params.parameters()),
-            "batch": [rows, seq], "step_s": step_s,
-            "median_s": statistics.median(step_s), "losses": losses,
-            "grad_norms": norms, "peak_bytes": peak,
-            "collectives": {k: v["count"] for k, v in coll["ops"].items()},
-            "collective_bytes": {k: v["bytes"] for k, v in coll["ops"].items()},
-            "launches": {name: counts.get(name, 0) for name in KERNELS},
-            "profile": profiled,
-        }
-    finally:
-        dist.destroy_process_group()
+
+        def step(i):
+            return fn(state["params"], state["opt"], batches[i])
+
+        res = _timed_steps(torch, device, steps, step, after,
+                           lambda: step(0))
+        return {"params_local": sum(p.numel()
+                                    for p in state["params"].parameters()),
+                "batch": [rows, seq], "losses": losses, "grad_norms": norms,
+                **res}
+
+    result = _on_rank0(device, run)
     with open(out_path, "w") as f:
         json.dump(result, f)
+
+
+def _rank0_child(args, out, timeout, what):
+    """``python3 chip_smoke.py *args out`` (a child mode of this script)
+    under ``timeout``; returns the JSON it wrote to ``out``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), *args, out],
+        env=env, capture_output=True, text=True, cwd=root, timeout=timeout)
+    check(run.returncode == 0,
+          f"{what} child: {run.stdout[-1000:]} {run.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _check_rank0(res, art, predicted, cell, what, card):
+    """What phases 3l and 3m hold a child's results ``res`` to: its
+    profile and its first step's collectives logged; its peak device
+    memory within the card's 80 GB, its collectives those of its cell's
+    dry run (``art``) kind by kind, in count and result bytes, and its
+    launches ``predicted``."""
+    prof = res["profile"]
+    if prof is not None and prof["busy"] is not None:
+        log(f"rank 0 {what} under torch.profiler [{card}]: "
+            f"{prof['wall_s']:.4f} s, {prof['kernels']:,} kernels, the "
+            f"card {prof['busy'] * 100:.1f}% busy; device ms by class: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                prof["classes_ms"].items(), key=lambda kv: -kv[1]))
+            + "; top: " + "; ".join(f"{n[:60]} {ms:.1f} ms × {c}"
+                                    for n, ms, c in prof["top"]))
+    ops = art["collectives"]["ops"]
+    want = {k: v["count"] for k, v in ops.items()}
+    want_bytes = {k: v["bytes"] for k, v in ops.items()}
+    log(f"rank 0 collectives in the first {what} [{card}]: "
+        f"{res['collectives']} (result bytes {res['collective_bytes']}); "
+        f"the dry run's {want} (bytes {want_bytes})")
+    peak = res["peak_bytes"]
+    check(peak <= hw.HBM_BYTES,
+          f"{cell}: rank 0's peak {peak / 1e9:.2f} GB exceeds the card's "
+          f"{hw.HBM_BYTES / 1e9:.0f} GB")
+    check(res["collectives"] == want and res["collective_bytes"] == want_bytes,
+          f"{cell}: rank 0's collectives {res['collectives']} (bytes "
+          f"{res['collective_bytes']}) differ from the dry run's {want} "
+          f"(bytes {want_bytes})")
+    check(res["launches"] == predicted,
+          f"{cell}: launches {res['launches']} differ from {predicted}")
 
 
 def phase_tp_lm(torch, card, dry_art, tmp):
@@ -5046,26 +5158,16 @@ def phase_tp_lm(torch, card, dry_art, tmp):
     ``TP_TIMEOUT_S``; its peak device memory against the card's 80 GB and
     beside the dry run's ``per_device_bytes`` for the cell (``dry_art``,
     phase 3k's artifact), its collectives against the dry run's, kind by
-    kind; no kernel launched.  Returns {kernel: launches}."""
+    kind; no kernel launched (:func:`_check_rank0`).  Returns {kernel:
+    launches}."""
     from repro_torch.configs import get_config, get_shape
     from repro_torch.roofline import model_flops
 
     t_phase = time.perf_counter()
-    out = os.path.join(tmp, "rank0.json")
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    run = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), TP_CHILD_FLAG, out],
-        env=env, capture_output=True, text=True, cwd=root,
-        timeout=TP_TIMEOUT_S)
-    check(run.returncode == 0,
-          f"phase 3l child: {run.stdout[-1000:]} {run.stderr[-3000:]}")
-    with open(out) as f:
-        res = json.load(f)
+    res = _rank0_child([TP_CHILD_FLAG], os.path.join(tmp, "rank0.json"),
+                       TP_TIMEOUT_S, "phase 3l")
     arch, shape_name, _ = TP_CELL
     cfg, shape = get_config(arch), get_shape(shape_name)
-    want = {k: v["count"] for k, v in dry_art["collectives"]["ops"].items()}
-    want_bytes = {k: v["bytes"] for k, v in dry_art["collectives"]["ops"].items()}
     peak = res["peak_bytes"]
     bound_s = model_flops(cfg, shape) / TP_WORLD / hw.PEAK_FLOPS_BF16
     log(f"{arch} × {shape_name} × 16x16, rank 0 of a fake group of "
@@ -5085,30 +5187,191 @@ def phase_tp_lm(torch, card, dry_art, tmp):
         "torch.cuda.max_memory_allocated) beside the dry run's "
         f"per_device_bytes {dry_art['per_device_bytes']:,} "
         f"({dry_art['per_device_bytes'] / 1e9:.2f} GB)")
-    prof = res["profile"]
-    if prof is not None and prof["busy"] is not None:
-        log(f"rank 0 step under torch.profiler [{card}]: {prof['wall_s']:.4f} "
-            f"s, {prof['kernels']:,} kernels, the card {prof['busy'] * 100:.1f}% "
-            "busy; device ms by class: "
-            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
-                prof["classes_ms"].items(), key=lambda kv: -kv[1]))
-            + "; top: " + "; ".join(f"{n[:60]} {ms:.1f} ms × {c}"
-                                    for n, ms, c in prof["top"]))
-    log(f"rank 0 collectives in one step [{card}]: {res['collectives']} "
-        f"(result bytes {res['collective_bytes']}); the dry run's {want} "
-        f"(bytes {want_bytes})")
-    check(peak <= hw.HBM_BYTES,
-          f"rank 0's peak {peak / 1e9:.2f} GB exceeds the card's "
-          f"{hw.HBM_BYTES / 1e9:.0f} GB")
-    check(res["collectives"] == want and res["collective_bytes"] == want_bytes,
-          f"rank 0's collectives {res['collectives']} (bytes "
-          f"{res['collective_bytes']}) differ from the dry run's {want} "
-          f"(bytes {want_bytes})")
-    check(res["launches"] == PREDICTED_3L,
-          f"phase 3l launches {res['launches']} differ from {PREDICTED_3L}")
+    _check_rank0(res, dry_art, PREDICTED_3L, f"{arch} × {shape_name}",
+                 "train step", card)
     log(f"phase 3l [{card}]: launches {res['launches']}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3m — one rank of the serving cells, tensor-parallel, caches split
+# ---------------------------------------------------------------------------
+
+#: phase 3m's cells, each rank 0 of the 16 × 16 ``("data", "model")`` mesh
+#: at the published width and depth: gemma2-27b's decode (8 sequences a
+#: rank, 1 KV head: the KV heads split), gemma2-9b's prefill (2 sequences
+#: of 32,768 tokens: 8 KV heads, the caches' slots split over ``model``)
+#: and its long-context decode (1 sequence, 524,288 slots split 256 ways
+#: over ``data`` and ``model`` folded)
+SERVE_CELLS = (("gemma2-27b", "decode_32k"), ("gemma2-9b", "prefill_32k"),
+               ("gemma2-9b", "long_500k"))
+#: decode steps (from the position the caches are filled to) or prefills
+SERVE_STEPS = {"decode_32k": 8, "prefill_32k": 3, "long_500k": 8}
+SERVE_FILLED = {"decode_32k": 32_000, "long_500k": 524_000}
+#: each cell's child process's time limit (its dry run, its group, its
+#: steps and its imports)
+SERVE_TIMEOUT_S = 600
+#: launches of phase 3m: the LM path runs none of the four kernels
+PREDICTED_3M = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
+                "align_dp": 0}
+#: the child's argument, then the cell's arch and shape and the output path
+SERVE_CHILD_FLAG = "--serve-rank0-of-16x16"
+
+
+def _random_fill(torch, tree, gen, device, vocab):
+    """``tree``'s ``meta`` tensors (a module's parameters, mappings, lists
+    and tuples, which come back as lists)
+    made on ``device`` from ``gen``: N(0, 0.02²) matrices and zero vectors
+    for parameters, token ids below ``vocab``, N(0, 1) for the rest (the
+    caches and embeddings)."""
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.to_empty(device=device)
+        with torch.no_grad():
+            for p in tree.parameters():
+                if p.dim() >= 2:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=device)
+                            * 0.02)
+                else:
+                    p.zero_()
+        return tree
+    if isinstance(tree, dict):
+        return {k: _random_fill(torch, v, gen, device, vocab)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_random_fill(torch, v, gen, device, vocab) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.device.type == "meta":
+        if not tree.dtype.is_floating_point:
+            return torch.randint(0, vocab, tree.shape, generator=gen,
+                                 device=device, dtype=tree.dtype)
+        return torch.randn(tree.shape, generator=gen, device=device).to(tree.dtype)
+    return tree
+
+
+def serve_rank0(out_path, arch, shape_name, device="cuda", opts=None,
+                steps=None):
+    """The child of phase 3m for one cell: rank 0 of a fake group
+    (:func:`_on_rank0`), its local parameters and caches (or batch shard)
+    of the published config (``opts`` overrides it) made from a seed
+    (:func:`_random_fill`), and ``steps`` prefill or decode steps
+    (:func:`_timed_steps`; on the card one more decode step under
+    ``torch.profiler``: a prefill's 54,000 kernels would take the profiler
+    most of a minute).  Writes what it measured to ``out_path`` (JSON)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.steps import (
+        local_abstract_args, make_decode_step, make_prefill_step,
+    )
+    from repro_torch.roofline.analyze import _leaves, _storage_bytes, _tensors
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, **opts) if opts else cfg
+    shape = get_shape(shape_name)
+    steps = steps or SERVE_STEPS[shape_name]
+    decode = shape.kind == "decode"
+
+    def run(mesh):
+        build = make_decode_step if decode else make_prefill_step
+        fn, in_sh, _, args, _ = build(cfg, shape, mesh)
+        gen = torch.Generator(device=device).manual_seed(0)
+        local = list(_random_fill(torch, local_abstract_args(args, in_sh), gen,
+                                  device, cfg.vocab_size))
+        if decode:  # each step's tokens, and its position past the filled
+            toks = [torch.randint(0, cfg.vocab_size, local[1].shape,
+                                  generator=gen, device=device,
+                                  dtype=local[1].dtype) for _ in range(steps)]
+        seen = {"firsts": []}
+
+        def step(i):
+            if decode:
+                local[1], local[3] = toks[i], SERVE_FILLED[shape_name] + i
+            return fn(*local)
+
+        def after(i, out):
+            caches, logits = (out[1], out[0]) if decode else out
+            seen["firsts"].append(float(logits.flatten()[0]))
+            if i == 0:
+                seen["logits_local"] = list(logits.shape)
+                seen["cache_bytes"] = _storage_bytes(_tensors(_leaves(caches)))
+            if decode:
+                local[2] = caches  # updated in place
+
+        def profile():  # one more decode step
+            local[3] = SERVE_FILLED[shape_name] + steps
+            return fn(*local)
+
+        res = _timed_steps(torch, device, steps, step, after,
+                           profile if decode else None)
+        tokens = local[1] if decode else local[1]["tokens"]
+        return {"arch": arch, "shape": shape_name, "kind": shape.kind,
+                "params_local": sum(p.numel() for p in local[0].parameters()),
+                "tokens_local": list(tokens.shape),
+                "cache_bytes": seen["cache_bytes"],
+                "logits_local": seen["logits_local"],
+                "logits_first": seen["firsts"], **res}
+
+    result = _on_rank0(device, run)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def phase_serve_lm(torch, card, tmp):
+    """Phase 3m: the dry runs of ``SERVE_CELLS`` (:func:`_dryrun_cells`),
+    then :func:`serve_rank0` for each cell in a child process under
+    ``SERVE_TIMEOUT_S``, one after the other, with nothing else running on
+    the host; each cell's peak device memory against the card's 80 GB and
+    beside its dry run's ``per_device_bytes``, its first step's
+    collectives against the dry run's, kind by kind (count and bytes); no
+    kernel launched (:func:`_check_rank0`).  Returns {kernel: launches}."""
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    dry_dir = os.path.join(tmp, "dryrun")
+    os.makedirs(dry_dir, exist_ok=True)
+    arts = _dryrun_cells([(*cell, "single") for cell in SERVE_CELLS], dry_dir)
+    log(f"dry runs of {len(SERVE_CELLS)} cells side by side on the host: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for arch, shape_name in SERVE_CELLS:
+        t_cell = time.perf_counter()
+        cell = f"{arch} × {shape_name}"
+        art = arts[arch, shape_name, "single"]
+        res = _rank0_child(
+            [SERVE_CHILD_FLAG, arch, shape_name],
+            os.path.join(tmp, f"serve_{arch}_{shape_name}.json"),
+            SERVE_TIMEOUT_S, f"phase 3m {cell}")
+        peak = res["peak_bytes"]
+        what = "prefill" if res["kind"] == "prefill" else "decode step"
+        mem = art["memory_analysis"]
+        bound_s = art["model_flops_per_chip"] / hw.PEAK_FLOPS_BF16
+        log(f"{cell} × 16x16, rank 0 of a fake group of {TP_WORLD} "
+            f"[{card}]: {res['params_local']:,} parameters on the rank "
+            f"(f32), tokens {res['tokens_local']}, caches "
+            f"{res['cache_bytes']:,} B on the rank, logits "
+            f"{res['logits_local']} (the rank's vocabulary rows); first "
+            f"logits {', '.join(f'{x:.4g}' for x in res['logits_first'])} "
+            "(not gated: the fake collectives leave what they gather "
+            "unfilled)")
+        log(f"rank 0 {what} [{card}]: median {res['median_s']:.4f} s (all "
+            f"{', '.join(f'{x:.4f}' for x in res['step_s'])}; collectives "
+            f"take no time); model_flops per rank {bound_s:.4g} s at "
+            f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16; peak device "
+            f"memory {peak:,} B ({peak / 1e9:.2f} GB; "
+            "torch.cuda.max_memory_allocated) beside the dry run's "
+            f"per_device_bytes {art['per_device_bytes']:,} "
+            f"({art['per_device_bytes'] / 1e9:.2f} GB; arguments "
+            f"{mem['argument_bytes']:,} B, temporaries "
+            f"{mem['temp_bytes']:,} B), useful_flops_ratio "
+            f"{art['useful_flops_ratio']:.4f} (the dry run in a child "
+            f"process on the host, {art['wall_s']:.1f} s)")
+        _check_rank0(res, art, PREDICTED_3M, cell, what, card)
+        for name in KERNELS:
+            total[name] += res["launches"][name]
+        log(f"{cell} [{card}]: {time.perf_counter() - t_cell:.1f} s")
+    log(f"phase 3m [{card}]: launches {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5774,6 +6037,9 @@ def main() -> int:
     if sys.argv[1:2] == [TP_CHILD_FLAG]:  # phase 3l's child
         tp_rank0(sys.argv[2])
         return 0
+    if sys.argv[1:2] == [SERVE_CHILD_FLAG]:  # a child of phase 3m
+        serve_rank0(sys.argv[4], sys.argv[2], sys.argv[3])
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -5849,11 +6115,16 @@ def main() -> int:
             "tensor-parallel")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             tp_counts = phase_tp_lm(torch, card, dry_arts[TP_CELL], tmp)
+        log("== phase 3m: one rank of the serving cells × 16x16, "
+            "tensor-parallel with split caches")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serve_counts = phase_serve_lm(torch, card, tmp)
         by_phase = {"3": dict(counts), "3b": graph_counts, "3c": conf_counts,
                     "3d": var_counts, "3e": union_counts, "3f": shard_counts,
                     "3g": service_counts, "3h": transport_counts,
                     "3i": lm_counts, "3j": train_counts,
-                    "3k": sharded_lm_counts, "3l": tp_counts}
+                    "3k": sharded_lm_counts, "3l": tp_counts,
+                    "3m": serve_counts}
         counts["segment_count"] = graph_counts["segment_count"]
         counts["align_dp"] = conf_counts["align_dp"]
         log("== phase 4: mining CLI")

@@ -19,11 +19,15 @@ for the matrices under ``cast_params_once``) and all-gathered over the
 batch axes inside the unit's rematerialised function, and the backward
 reduce-scatters each unit's gradients back to the shards as it finishes,
 in f32, so no rank ever holds the whole model's parameters or gradients.
-AdamW then updates the shards in place.  On a mesh of one position every
-placement is the whole tensor and no collective runs except the MoE
-auxiliary loss's all-reduce over a group of one.  Prefill and decode
-still gather every parameter whole on every rank and compute
-data-parallel.
+AdamW then updates the shards in place.  Prefill and decode compute the
+same partition from the rank's shards (no FSDP axes when serving) and keep
+every cache in its layout at rest (``cache_shardings``: the rank's KV
+heads, or every head over the rank's block of the cache's slots, which
+decode joins by the log-sum-exp combine); they return the caches and the
+logits (the rank's vocabulary rows) as the rank holds them, and gather no
+parameter and no cache.  On a mesh of one position every placement is the
+whole tensor and no collective runs except the MoE auxiliary loss's
+all-reduce over a group of one.
 
 A step's arguments are one rank's local tensors: ``params`` a
 ``DecoderLM`` whose parameters are its shards, an ``OptState`` of shards,
@@ -44,13 +48,15 @@ from repro_torch.models import prefill as _prefill
 from repro_torch.models.model import DecoderLM
 from repro_torch.models.moe import DistCtx
 from repro_torch.sharding.parallel import (
-    FSDP, LeafPlan, Leaves, ShardedUnit, TensorParallel, all_reduce,
+    FSDP, CacheLayout, LeafPlan, Leaves, ShardedUnit, TensorParallel,
+    all_reduce,
 )
 from repro_torch.sharding.spec import (
     P,
     NamedSharding,
     _entry_axes,
     batch_shardings,
+    cache_seq_axes,
     cache_shardings,
     make_rules,
     mesh_axis_sizes,
@@ -124,49 +130,6 @@ def _split(sh: NamedSharding) -> bool:
         if any(sizes[a] > 1 for a in axes):
             return True
     return False
-
-
-def _relayout(t: torch.Tensor, have: NamedSharding, want: NamedSharding,
-              partial_axes=()) -> torch.Tensor:
-    """This rank's part of ``t`` laid out as ``want``, from ``t`` laid out
-    as ``have`` and, on ``partial_axes``, holding a partial sum (DTensor's
-    redistribute: all-gathers, reduce-scatters, local chunks)."""
-    sizes = mesh_axis_sizes(have.mesh)
-    if not (_split(have) or _split(want)
-            or any(sizes[a] > 1 for a in partial_axes)):
-        return t
-    from torch.distributed.tensor import DTensor
-
-    d = DTensor.from_local(t, have.mesh, have.placements(partial_axes),
-                           run_check=False)
-    return d.redistribute(want.mesh, want.placements()).to_local()
-
-
-def _whole(mesh, ndim: int) -> NamedSharding:
-    return NamedSharding(mesh, P(*([None] * ndim)))
-
-
-def _module_with(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]) -> DecoderLM:
-    """A ``DecoderLM`` whose parameters are the given tensors (plain
-    attributes, so autograd reaches them as they are)."""
-    model = DecoderLM(cfg, None, "meta")
-    for name, t in tensors.items():
-        path, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(path) if path else model
-        del mod._parameters[leaf]
-        setattr(mod, leaf, t)
-    return model
-
-
-def _gathered(cfg, params: DecoderLM, p_sh) -> DecoderLM:
-    """``params`` whole on this rank: the module itself when no placement
-    splits it, else a module of all-gathered tensors."""
-    named = dict(params.named_parameters())
-    if not any(_split(p_sh[n]) for n in named):
-        return params
-    return _module_with(cfg, {
-        n: _relayout(t.detach(), p_sh[n], _whole(p_sh[n].mesh, t.dim()))
-        for n, t in named.items()})
 
 
 def _global_norm(grads, shardings, mesh) -> torch.Tensor:
@@ -361,31 +324,34 @@ def abstract_prefill_args(cfg, shape):
     return p, b
 
 
-def _batch_local(rules, ndim: int, batch: int, batch_dim: int = 0) -> NamedSharding:
-    """A tensor whose dimension ``batch_dim`` is split as the batch is and
-    whose other dimensions are whole on each rank."""
-    spec = [None] * ndim
-    spec[batch_dim] = rules.batch_if(batch)
-    return rules.nd(P(*spec))
+def _serving_dist(cfg: ModelConfig, rules, mesh, batch: int,
+                  cache_len: int, moe_axes, **extra) -> DistCtx:
+    """The serving steps' ``DistCtx``: tensor parallelism where ``model``
+    has more than one position, and the layout of the rank's caches
+    (:class:`~repro_torch.sharding.parallel.CacheLayout`) where their heads
+    or slots are split; with neither, the plain ``DistCtx(mesh,
+    moe_axes)``."""
+    sizes = mesh_axis_sizes(mesh)
+    tp = TensorParallel(mesh) if rules.model_size > 1 else None
+    lengths = {cache_len}  # and a local layer's ring, the encoder's frames
+    lengths |= {min(cfg.window, cache_len)} if cfg.window else set()
+    lengths |= {cfg.enc_seq} if cfg.family == "encdec" else set()
+    seq = {}
+    for n in lengths:
+        axes = cache_seq_axes(rules, (batch, n, cfg.n_kv_heads, cfg.head_dim))
+        seq[n] = tuple(a for a in axes if sizes[a] > 1)
+    kv_split = (tp is not None
+                and rules.model_if(cfg.n_kv_heads) is not None)
+    cache = (CacheLayout(mesh, kv_split, seq, cache_len)
+             if tp is not None or any(seq.values()) else None)
+    return DistCtx(mesh, moe_axes, tp=tp, cache=cache, **extra)
 
 
-def _any_split(sh) -> bool:
-    if isinstance(sh, dict):
-        return any(_any_split(v) for v in sh.values())
-    if isinstance(sh, list):
-        return any(_any_split(v) for v in sh)
-    return _split(sh)
-
-
-def _map2(fn, tree, sh):
-    if isinstance(tree, dict):
-        return {k: _map2(fn, v, sh[k]) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map2(fn, v, s) for v, s in zip(tree, sh)]
-    return fn(tree, sh)
-
-
-def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      _cache_dtype=torch.bfloat16):
+    """The reference's prefill step.  ``_cache_dtype`` is for tests only:
+    f32 caches let a sharded step be held to the one-position step's
+    values."""
     rules = make_rules(mesh, shape)
     p, b = abstract_prefill_args(cfg, shape)
     p_sh = param_shardings(rules, p, cfg)
@@ -395,9 +361,10 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
     B = shape.global_batch
     # all archs: the head-shard hint + data-local MoE dispatch
     sp = ("model",) if rules.model_axis else ()
-    dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp, head_shard=True)
+    dist = _serving_dist(cfg, rules, mesh, B, cache_len, rules.batch_axes,
+                         sp_axes=sp, head_shard=True)
 
-    caches_shape = init_caches(cfg, B, cache_len, device="meta")
+    caches_shape = init_caches(cfg, B, cache_len, _cache_dtype, device="meta")
     c_sh = cache_shardings(rules, caches_shape)
     logits_sh = rules.nd(
         P(
@@ -407,13 +374,8 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
     )
 
     def prefill_step(params, batch):
-        model = _gathered(cfg, params, p_sh)
-        caches, logits = _prefill(cfg, model, batch, cache_len, q_chunk=qc,
-                                  dist=dist)
-        caches = _map2(lambda c, sh: _relayout(
-            c, _batch_local(rules, c.dim(), B), sh), caches, c_sh)
-        logits = _relayout(logits, _batch_local(rules, 2, B), logits_sh)
-        return caches, logits
+        return _prefill(cfg, params, batch, cache_len, q_chunk=qc,
+                        cache_dtype=_cache_dtype, dist=dist)
 
     return prefill_step, (p_sh, b_sh), (c_sh, logits_sh), (p, b), ()
 
@@ -445,28 +407,12 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
     tok_sh = rules.nd(P(b, None))
     pos_sh = rules.nd(P())
     logits_sh = rules.nd(P(b, rules.model_if(cfg.vocab_size)))
-    dist = (
-        DistCtx(mesh, rules.batch_axes)
-        if cfg.n_experts and rules.batch_axes
-        else None
-    )
-
-    split_cache = _any_split(c_sh)
+    dist = _serving_dist(cfg, rules, mesh, B, shape.seq_len,
+                         rules.batch_axes if cfg.n_experts else ())
 
     def serve_step(params, tokens, cache, position):
-        model = _gathered(cfg, params, p_sh)
-        if not split_cache:  # one position: the caller's caches, in place
-            logits, cache = _decode_step(cfg, model, tokens, cache, position,
-                                         dist=dist)
-            return _relayout(logits, _batch_local(rules, 2, B), logits_sh), cache
-        whole = _map2(lambda c, sh: _relayout(
-            c, sh, _batch_local(rules, c.dim(), B)), cache, c_sh)
-        logits, whole = _decode_step(cfg, model, tokens, whole, position,
-                                     dist=dist)
-        cache = _map2(lambda c, sh: _relayout(
-            c, _batch_local(rules, c.dim(), B), sh), whole, c_sh)
-        logits = _relayout(logits, _batch_local(rules, 2, B), logits_sh)
-        return logits, cache
+        # the caches are the rank's, updated in place
+        return _decode_step(cfg, params, tokens, cache, position, dist=dist)
 
     in_sh = (p_sh, tok_sh, c_sh, pos_sh)
     out_sh = (logits_sh, c_sh)

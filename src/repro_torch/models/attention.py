@@ -9,10 +9,15 @@ per q-chunk — (B, KV, G, chunk, S_k) — which bounds activation memory;
 local layers additionally slice keys to the window, so their compute is
 O(S · W), not O(S²).
 
-Under tensor parallelism (``dist.tp``, the sharded train step) a rank
+Under tensor parallelism (``dist.tp``, the sharded steps) a rank
 computes the heads its ``model`` shards hold (:func:`_head_shard`): the
 projections are column-parallel, ``wo`` row-parallel, and the output is
-the rank's partial sum of the layer's output.
+the rank's partial sum of the layer's output.  The sharded prefill and
+decode keep each cache in its layout at rest (``dist.cache``, a
+:class:`~repro_torch.sharding.parallel.CacheLayout`): the rank's KV heads
+over every slot, or every KV head over the rank's block of slots, where
+decode attends per block and joins the blocks by the log-sum-exp combine
+(:func:`prefill_cache_split`, :func:`attn_decode`).
 
 Cache contract: :func:`attn_decode` writes the new key / value into the
 cache tensors **in place** and returns the same dict.
@@ -31,7 +36,8 @@ from .common import (
 )
 
 __all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
-           "init_attn_cache", "prefill_fill_cache"]
+           "init_attn_cache", "prefill_fill_cache", "prefill_cache_split",
+           "cross_cache"]
 
 NEG_INF = -2.0**30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -307,9 +313,15 @@ def attn_decode(
     pos,  # int / 0-d tensor, or (B,) per-sequence: tokens already in cache
     *,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dist=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token against the cache.  Self-attention writes the token's key
-    and value into ``cache`` in place and returns it."""
+    and value into ``cache`` in place and returns it.  With a cache layout
+    (``dist.cache``) the caches are this rank's part
+    (:func:`_attn_decode_split`)."""
+    if dist is not None and dist.cache is not None:
+        return _attn_decode_split(cfg, params, x, kind, cache, pos, cross_kv,
+                                  dist)
     B, _, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -372,6 +384,164 @@ def attn_decode(
     out = _probs_v(probs, cv.to(dt)).reshape(B, 1, H * hd)
     out = out @ params.wo.to(dt)
     return out, cache
+
+
+def _attn_decode_split(cfg: ModelConfig, params: Attention, x, kind: str,
+                       cache: Dict, pos, cross_kv, dist):
+    """:func:`attn_decode` on this rank's part of the caches (the layout of
+    ``dist.cache``) and of the weights.  ``x`` is whole on every rank.
+    Where ``model`` splits the KV heads the rank computes its query heads
+    against its KV heads; else every head, its q, k and v the column
+    blocks of every rank all-gathered, and its output's rows meet the
+    rank's rows of ``wo``.  Where the cache's slots are split, each rank
+    attends over its block, the blocks joined by the log-sum-exp combine
+    (:meth:`~repro_torch.sharding.parallel.SeqSplit.combine`), and the new
+    key / value are written by the rank whose block holds the slot.
+    ``pos`` is one position for every sequence (a host integer or a 0-d
+    tensor).  The output is the rank's partial sum (the whole output
+    without ``tp``)."""
+    tp, layout = dist.tp, dist.cache
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dt = x.dtype
+    dev = x.device
+    heads_split = tp is not None and layout.kv_split
+    KVl = KV // tp.size if heads_split else KV
+
+    def proj(w, n):  # x @ w: the rank's heads, or every head
+        y = x @ w.to(dt)
+        return y if tp is None or heads_split else tp.full(y, -1, n)
+
+    q = proj(params.wq, H * hd).reshape(B, 1, KVl, G, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.rms_eps)
+    p = int(pos)  # one position for every sequence, on the host
+    posb = torch.full((B, 1), p, dtype=torch.int32, device=dev)
+    base = _rope_base(cfg, kind)
+    q = apply_rope(q.reshape(B, 1, KVl * G, hd), posb, base).reshape(
+        B, 1, KVl, G, hd)
+
+    vmask = None
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        seq = layout.seq(cfg.enc_seq)
+    else:
+        k_new = proj(params.wk, KV * hd).reshape(B, 1, KVl, hd)
+        v_new = proj(params.wv, KV * hd).reshape(B, 1, KVl, hd)
+        if cfg.qk_norm:
+            k_new = rms_norm(k_new, params.k_norm, cfg.rms_eps)
+        k_new = apply_rope(k_new, posb, base)
+        ck, cv = cache["k"], cache["v"]
+        ring = kind == "local" and cfg.window is not None
+        n = min(cfg.window, layout.cache_len) if ring else layout.cache_len
+        seq = layout.seq(n)
+        a, b = seq.block(n) if seq is not None else (0, n)
+        if ck.shape[1] != b - a:
+            raise ValueError(f"cache of {ck.shape[1]} slots, layout {b - a}")
+        slot = p % n if ring else min(p, n - 1)
+        if a <= slot < b:  # this rank's block holds the slot
+            ck[:, slot - a] = k_new[:, 0].to(ck.dtype)
+            cv[:, slot - a] = v_new[:, 0].to(cv.dtype)
+        # validity on the global slots: ring buffers are fully valid once
+        # wrapped; otherwise ≤ pos
+        idx = a + torch.arange(b - a, device=dev)
+        vmask = ((idx <= slot) | (p >= n))[None, None, None, None, :]
+
+    scores = _scores(q, ck.to(dt)) * _scale(cfg)
+    scores = softcap(scores, cfg.attn_logit_softcap)  # before the max
+    if vmask is not None:
+        scores = scores.masked_fill(~vmask, NEG_INF)
+    if seq is None:
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = _probs_v(probs, cv.to(dt))
+    else:  # this block's partials, joined over the ranks' blocks
+        m = scores.amax(dim=-1, keepdim=True)
+        e = torch.exp(scores - m)
+        acc = _probs_v(e, cv.float())  # (B, 1, KVl, G, hd)
+        m, l = (t.permute(0, 3, 1, 2, 4) for t in (m, e.sum(-1, keepdim=True)))
+        out = seq.combine(m, l, acc).to(dt)
+    out = out.reshape(B, 1, KVl * G * hd)
+    if tp is None or heads_split:
+        return out @ params.wo.to(dt), cache
+    return tp.cols(out, -1, H * hd) @ tp.cols(params.wo, 0, H * hd).to(dt), cache
+
+
+def _slot_positions(S: int, cap: int, ring: bool, a: int, b: int, device):
+    """The position that each slot of ``[a, b)`` of a cache of ``cap``
+    slots holds after a prefill of ``S`` positions (the layout of
+    :func:`prefill_fill_cache`), -1 where a slot holds none."""
+    j = torch.arange(a, b, device=device)
+    if S < cap:
+        return torch.where(j < S, j, -1)
+    if ring:  # position p lives in slot p % cap
+        return S - cap + (j - (S - cap)) % cap
+    return S - cap + j
+
+
+def _kv_rows(cfg: ModelConfig, params: Attention, rows: torch.Tensor,
+             heads_split: bool, tp):
+    """Keys and values (B, n, KV·, hd) of ``rows`` (B, n, D): this rank's
+    KV heads where ``heads_split``, else every head, from ``wk`` / ``wv``
+    all-gathered over ``model`` where they are split."""
+    B, n = rows.shape[:2]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    dt = rows.dtype
+
+    def w(t):
+        return t if tp is None or heads_split else tp.full(t, 1, KV * hd)
+
+    k = (rows @ w(params.wk).to(dt)).reshape(B, n, -1, hd)
+    v = (rows @ w(params.wv).to(dt)).reshape(B, n, -1, hd)
+    return k, v
+
+
+def prefill_cache_split(cfg: ModelConfig, params: Attention, x: torch.Tensor,
+                        kind: str, kv, cache_len: int, dist,
+                        dtype=torch.bfloat16) -> Dict:
+    """This rank's cache of a self-attention layer after a prefill, in its
+    layout at rest (``dist.cache``).  ``x`` is the layer's normalised
+    input, the whole sequence; ``kv`` the keys and values that
+    :func:`attn_train` computed (the rank's KV heads under ``dist.tp``).
+    Where ``model`` splits the KV heads and not the slots, the cache is
+    built from ``kv``; else each slot of the rank's block is computed from
+    the position it holds (a local layer's ring keeps its slot order), for
+    the rank's KV heads or every head (``wk`` / ``wv`` all-gathered)."""
+    layout, tp = dist.cache, dist.tp
+    heads_split = tp is not None and layout.kv_split
+    ring = kind == "local" and bool(cfg.window)
+    cap = min(cfg.window, cache_len) if ring else cache_len
+    seq = layout.seq(cap)
+    if heads_split and seq is None:
+        k, v = kv
+        return prefill_fill_cache(cfg, kind, k, v, cache_len, dtype)
+    a, b = seq.block(cap) if seq is not None else (0, cap)
+    pos = _slot_positions(x.shape[1], cap, ring, a, b, x.device)
+    at = pos.clamp(min=0)
+    k, v = _kv_rows(cfg, params, x[:, at], heads_split, tp)
+    if cfg.qk_norm:
+        k = rms_norm(k, params.k_norm, cfg.rms_eps)
+    k = apply_rope(k, at[None, :], _rope_base(cfg, kind))
+    keep = (pos >= 0)[None, :, None, None]
+    return {"k": torch.where(keep, k, 0).to(dtype),
+            "v": torch.where(keep, v, 0).to(dtype)}
+
+
+def cross_cache(cfg: ModelConfig, params: Attention, enc_out: torch.Tensor,
+                dist=None, dtype=torch.bfloat16):
+    """Whisper's cross keys and values (B, S_enc, KV, hd) of the encoder
+    output, whole on every rank; with a cache layout (``dist.cache``) this
+    rank's part of them."""
+    layout = dist.cache if dist is not None else None
+    n = enc_out.shape[1]
+    if layout is None:
+        return tuple(t.to(dtype) for t in _kv_rows(cfg, params, enc_out,
+                                                   False, None))
+    seq = layout.seq(n)
+    a, b = seq.block(n) if seq is not None else (0, n)
+    k, v = _kv_rows(cfg, params, enc_out[:, a:b],
+                    dist.tp is not None and layout.kv_split, dist.tp)
+    return k.to(dtype), v.to(dtype)
 
 
 def prefill_fill_cache(

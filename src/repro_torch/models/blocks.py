@@ -12,7 +12,10 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .attention import attn_decode, attn_train, init_attn, prefill_fill_cache
+from .attention import (
+    attn_decode, attn_train, cross_cache, init_attn, prefill_cache_split,
+    prefill_fill_cache,
+)
 from .common import rms_norm
 from .mamba import init_mamba, mamba_decode, mamba_train
 from .mlp import init_mlp, mlp
@@ -152,29 +155,33 @@ def entry_prefill(
     cache_dtype=torch.bfloat16,
     dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Forward + build this entry's decode cache."""
-    h = rms_norm(x, p.ln1, cfg.rms_eps)
+    """Forward + build this entry's decode cache.  Under tensor
+    parallelism (``dist.tp``) ``x`` is the rank's part of the residual
+    stream, as in :func:`entry_train`, and the cache is the rank's part in
+    its layout at rest (``dist.cache``)."""
+    tp = dist.tp if dist is not None else None
+    h = _enter(dist, rms_norm(x, p.ln1, cfg.rms_eps))
     if kind == "mamba":
-        h, cache = mamba_train(cfg, p.mamba, h, return_cache=True)
+        y, cache = mamba_train(cfg, p.mamba, h, return_cache=True, tp=tp)
     else:
-        h, (k, v) = attn_train(cfg, p.attn, h, kind, q_chunk=q_chunk,
-                               return_kv=True, dist=dist)
-        cache = prefill_fill_cache(cfg, kind, k, v, cache_len, cache_dtype)
+        y, kv = attn_train(cfg, p.attn, h, kind, q_chunk=q_chunk,
+                           return_kv=True, dist=dist)
+        cache = (prefill_fill_cache(cfg, kind, *kv, cache_len, cache_dtype)
+                 if tp is None else
+                 prefill_cache_split(cfg, p.attn, h, kind, kv, cache_len,
+                                     dist, cache_dtype))
+    h = _exit(dist, y)
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
     if enc_out is not None:
-        h = rms_norm(x, p.ln_x, cfg.rms_eps)
-        dt = x.dtype
-        KV, hd = cfg.n_kv_heads, cfg.head_dim
-        Senc = enc_out.shape[1]
-        kx = (enc_out @ p.xattn.wk.to(dt)).reshape(-1, Senc, KV, hd)
-        vx = (enc_out @ p.xattn.wv.to(dt)).reshape(-1, Senc, KV, hd)
-        h = attn_train(cfg, p.xattn, h, "global", kv_source=enc_out,
-                       causal=False, q_chunk=q_chunk)
+        h = _enter(dist, rms_norm(x, p.ln_x, cfg.rms_eps))
+        h = _exit(dist, attn_train(cfg, p.xattn, h, "global",
+                                   kv_source=enc_out, causal=False,
+                                   q_chunk=q_chunk, dist=dist))
         x = x + h
-        cache = {"self": cache, "cross_k": kx.to(cache_dtype),
-                 "cross_v": vx.to(cache_dtype)}
+        kx, vx = cross_cache(cfg, p.xattn, enc_out, dist, cache_dtype)
+        cache = {"self": cache, "cross_k": kx, "cross_v": vx}
     x, _ = _ffn_apply(cfg, idx, p, x, dist)
     return x, cache
 
@@ -189,14 +196,19 @@ def entry_decode(
     pos,
     dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """One token; updates ``cache`` in place and returns it."""
+    """One token; updates ``cache`` in place and returns it.  Under tensor
+    parallelism (``dist.tp``) ``x`` is whole on every rank, each mixer and
+    FFN computes on the rank's shards and caches and an all-reduce closes
+    it (``dist.sp_axes`` is empty)."""
+    tp = dist.tp if dist is not None else None
     h = rms_norm(x, p.ln1, cfg.rms_eps)
     is_encdec_entry = "cross_k" in cache
     self_cache = cache["self"] if is_encdec_entry else cache
     if kind == "mamba":
-        h, _ = mamba_decode(cfg, p.mamba, h, self_cache)
+        h, _ = mamba_decode(cfg, p.mamba, h, self_cache, tp=tp)
     else:
-        h, _ = attn_decode(cfg, p.attn, h, kind, self_cache, pos)
+        h, _ = attn_decode(cfg, p.attn, h, kind, self_cache, pos, dist=dist)
+    h = _exit(dist, h)
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
@@ -204,8 +216,8 @@ def entry_decode(
         h = rms_norm(x, p.ln_x, cfg.rms_eps)
         h, _ = attn_decode(
             cfg, p.xattn, h, "global", {}, pos,
-            cross_kv=(cache["cross_k"], cache["cross_v"]),
+            cross_kv=(cache["cross_k"], cache["cross_v"]), dist=dist,
         )
-        x = x + h
+        x = x + _exit(dist, h)
     x, _ = _ffn_apply(cfg, idx, p, x, dist)
     return x, cache

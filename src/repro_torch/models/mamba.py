@@ -12,7 +12,10 @@ Block layout (mamba_ssm convention):
   SSD core, per-head RMS-norm gated by z, out_proj: d_inner → D.
 
 Cache contract: :func:`mamba_decode` stores the new conv window and state in
-``cache`` (the same dict) and returns it.
+``cache`` (the same dict) and returns it.  Under tensor parallelism
+(``tp``) the caches are the rank's as they rest: ``state`` its block of
+the heads, ``conv`` its block of the fused conv channels, which does not
+follow the heads.
 """
 
 from __future__ import annotations
@@ -220,11 +223,16 @@ def mamba_train(
     """Full-sequence SSD forward. x: (B, L, D).  Under tensor parallelism
     (``tp``) this rank computes its block of the heads (:func:`_head_block`)
     on the whole sequence: the gated norm's mean square is all-reduced over
-    ``model`` and the output is the rank's partial sum."""
+    ``model`` and the output is the rank's partial sum; the cache is the
+    rank's (its heads' state, its block of the conv channels)."""
     Bsz, L, D = x.shape
     d_in, H, P, N, G, conv_ch = _dims(cfg)
     d_inner = d_in
+    in_proj, proj_out = params.in_proj, 2 * d_in + 2 * G * N + H
     if tp is not None:
+        if return_cache and H % tp.size:
+            raise ValueError(f"{H} heads do not divide {tp.size} ranks: "
+                             "the state cache would be whole")
         params, d_in, H, G = _head_block(cfg, params, tp)
     dt_ = x.dtype
 
@@ -250,8 +258,14 @@ def mamba_train(
     if return_cache:
         # conv cache holds the *pre-conv* channel inputs of the last
         # (width-1) steps, taken from the pre-conv projection:
-        proj_tail = proj[:, max(0, L - (cfg.conv_width - 1)):]
+        tail = slice(max(0, L - (cfg.conv_width - 1)), L)
+        if tp is None:
+            proj_tail = proj[:, tail]
+        else:  # every channel of the tail, then the rank's block
+            proj_tail = tp.full(x[:, tail] @ in_proj.to(dt_), -1, proj_out)
         _, xBC_tail, _ = _split_proj(cfg, proj_tail)
+        if tp is not None and conv_ch % tp.size == 0:
+            xBC_tail = tp.cols(xBC_tail, -1, conv_ch)
         pad_t = cfg.conv_width - 1 - xBC_tail.shape[1]
         if pad_t:
             xBC_tail = F.pad(xBC_tail, (0, 0, pad_t, 0))
@@ -271,9 +285,13 @@ def _rms_norm_tp(x, weight, eps: float, tp, n: int) -> torch.Tensor:
 
 
 def mamba_decode(
-    cfg: ModelConfig, params: Mamba2, x: torch.Tensor, cache: Dict
+    cfg: ModelConfig, params: Mamba2, x: torch.Tensor, cache: Dict, tp=None
 ) -> Tuple[torch.Tensor, Dict]:
-    """Single-token recurrent step. x: (B, 1, D) — O(1) in context length."""
+    """Single-token recurrent step. x: (B, 1, D) — O(1) in context length.
+    Under tensor parallelism (``tp``) on the rank's caches and weights
+    (:func:`_decode_tp`)."""
+    if tp is not None:
+        return _decode_tp(cfg, params, x, cache, tp)
     Bsz = x.shape[0]
     d_in, H, P, N, G, conv_ch = _dims(cfg)
     dt_ = x.dtype
@@ -309,3 +327,54 @@ def mamba_decode(
     cache["conv"] = new_conv
     cache["state"] = state
     return out, cache
+
+
+def _decode_tp(cfg: ModelConfig, params: Mamba2, x: torch.Tensor, cache: Dict,
+               tp) -> Tuple[torch.Tensor, Dict]:
+    """:func:`mamba_decode` on this rank's shards: the token's projection
+    from the rank's columns of ``in_proj``, all-gathered (``x`` is whole on
+    every rank, so the blocks make the whole row); the conv on the rank's
+    block of the channels against its window, the block all-gathered; the
+    state update, the gated norm (mean square all-reduced) and the rows of
+    ``out_proj`` for the rank's heads (the heads must divide the ranks, as
+    ``cache_shardings`` then splits the state).  The caches keep the
+    rank's blocks; the output is its partial sum."""
+    Bsz = x.shape[0]
+    d_in, H, P, N, G, conv_ch = _dims(cfg)
+    dt_ = x.dtype
+
+    proj = tp.full(x[:, 0] @ params.in_proj.to(dt_), -1,
+                   2 * d_in + 2 * G * N + H)
+    z, xBC_new, dt_raw = _split_proj(cfg, proj)
+
+    conv = cache["conv"]
+    c0, c1 = (tp.block(conv_ch) if conv.shape[-1] != conv_ch
+              else (0, conv_ch))
+    win = torch.cat([conv, xBC_new[:, None, c0:c1].to(conv.dtype)], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", win, params.conv_w.to(win.dtype))
+    xBC = tp.full(F.silu(conv_out + params.conv_b.to(win.dtype)), -1,
+                  conv_ch)
+
+    if H % tp.size:
+        raise ValueError(f"{H} heads do not divide {tp.size} ranks")
+    h0, h1 = tp.block(H)  # the rank's block of the state's heads
+    xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bsz, H, P)[:, h0:h1].float()
+    rep = H // G
+    Bm = torch.repeat_interleave(Bm.reshape(Bsz, G, N), rep, dim=1)[:, h0:h1].float()
+    Cm = torch.repeat_interleave(Cm.reshape(Bsz, G, N), rep, dim=1)[:, h0:h1].float()
+    dt = F.softplus(dt_raw[:, h0:h1].float() + params.dt_bias.float())
+    A = -torch.exp(params.A_log.float())
+    decay = torch.exp(dt * A)
+
+    state = cache["state"] * decay[..., None, None] + torch.einsum(
+        "bhp,bhn,bh->bhpn", xs, Bm, dt
+    )
+    y = torch.einsum("bhpn,bhn->bhp", state, Cm)
+    y = y + xs * params.D.float()[None, :, None]
+    y = y.reshape(Bsz, (h1 - h0) * P).to(dt_) * F.silu(z[:, h0 * P:h1 * P])
+    y = _rms_norm_tp(y, params.norm_w, cfg.rms_eps, tp, d_in)
+    out = y @ params.out_proj.to(dt_)
+    cache["conv"] = win[:, 1:]
+    cache["state"] = state
+    return out[:, None], cache

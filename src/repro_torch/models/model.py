@@ -17,10 +17,12 @@ cache that went through a decode step holds the state after it.
 
 ``dist`` (a :class:`~repro_torch.models.moe.DistCtx`) makes the MoE dispatch
 local to the rank's batch shard; ``dist=None`` is the single-device model.
-With ``dist.tp`` (the sharded train step's) :func:`train_loss` computes the
-rank's part of the tensor-parallel model, and a unit given as a
+With ``dist.tp`` (the sharded steps') :func:`train_loss`, :func:`prefill`
+and :func:`decode_step` compute the rank's part of the tensor-parallel
+model from its shards, and a unit given as a
 :class:`~repro_torch.sharding.parallel.ShardedUnit` is gathered inside its
-rematerialised function.
+rematerialised function.  The serving caches are then the rank's parts in
+their layout at rest (``dist.cache``), and the logits its vocabulary rows.
 """
 
 from __future__ import annotations
@@ -172,8 +174,7 @@ def _run_units(cfg: ModelConfig, units, x, entry_fn):
     return x, aux
 
 
-def _embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens):
-    h = params.embed[tokens.long()].to(getattr(torch, cfg.dtype))
+def _scaled(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.scale_embed:  # sqrt(d_model) in f32, rounded to the compute dtype
         scale = torch.full((), float(cfg.d_model), dtype=torch.float32,
                            device=h.device).sqrt()
@@ -181,13 +182,41 @@ def _embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens):
     return h
 
 
+def _embed_tokens(cfg: ModelConfig, params: DecoderLM, tokens):
+    return _scaled(cfg, params.embed[tokens.long()].to(getattr(torch, cfg.dtype)))
+
+
+def _embed_tp(cfg: ModelConfig, params: DecoderLM, tokens, tp):
+    """Token embeddings under tensor parallelism, from this rank's shard of
+    ``embed``, and whether they are a partial sum over ``model``: each
+    token's row on the rank whose vocabulary rows hold it (zeros on the
+    others), or, where the rules split D (a vocabulary that does not divide
+    the axis), the rank's columns of every row all-gathered."""
+    dt = getattr(torch, cfg.dtype)
+    w, V = params.embed, cfg.vocab_size
+    if w.shape[0] != V:
+        n = w.shape[0]
+        idx = tokens.long() - tp.rank * n
+        mine = (idx >= 0) & (idx < n)
+        h = torch.where(mine[..., None], w[idx.clamp(0, n - 1)], 0).to(dt)
+        return _scaled(cfg, h), True
+    h = tp.full(w[tokens.long()].to(dt), -1, cfg.d_model)
+    return _scaled(cfg, h), False
+
+
 def _vocab_weight(cfg: ModelConfig, params: DecoderLM):
     return params.embed if cfg.tie_embeddings else params.lm_head
 
 
-def _logits(cfg: ModelConfig, params: DecoderLM, h: torch.Tensor):
-    """(B, D) → (B, V) f32 logits against the vocabulary matrix, softcapped."""
+def _logits(cfg: ModelConfig, params: DecoderLM, h: torch.Tensor, tp=None):
+    """(B, D) → (B, V) f32 logits against the vocabulary matrix, softcapped.
+    Under tensor parallelism (``tp``, ``h`` whole on every rank) the rank's
+    block of the vocabulary (B, V / size), or, where the rules split D,
+    the rank's partial products all-reduced."""
     w = _vocab_weight(cfg, params).to(h.dtype)
+    if tp is not None and w.shape[1] != cfg.d_model:
+        logits = tp.reduce(matmul_f32(tp.cols(h, -1, cfg.d_model), w.t()))
+        return softcap(logits, cfg.final_logit_softcap)
     return softcap(matmul_f32(h, w.t()), cfg.final_logit_softcap)
 
 
@@ -380,11 +409,30 @@ def prefill(
     last_index: Optional[torch.Tensor] = None,
 ) -> Tuple[List[Dict], torch.Tensor]:
     """Run the full prompt, build caches, return f32 logits at the last
-    position (per sequence ``last_index`` for right-padded prompts)."""
+    position (per sequence ``last_index`` for right-padded prompts).
+    Under tensor parallelism (``dist.tp``): :func:`_prefill_tp`."""
+    if dist is not None and dist.tp is not None:
+        return _prefill_tp(cfg, params, batch, cache_len, q_chunk,
+                           cache_dtype, dist, last_index)
     h, _ = _decoder_inputs(cfg, params, batch)
     enc_out = (
         _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
     )
+    h, caches = _prefill_units(cfg, params, h, enc_out, cache_len, q_chunk,
+                               cache_dtype, dist)
+    h = rms_norm(h, params.final_norm, cfg.rms_eps)
+    if last_index is None:
+        last = h[:, -1]
+    else:  # ragged prompts (batched serving): per-seq last real position
+        rows = torch.arange(h.shape[0], device=h.device)
+        last = h[rows, last_index.to(device=h.device, dtype=torch.int64)]
+    return caches, _logits(cfg, params, last)
+
+
+def _prefill_units(cfg, params, h, enc_out, cache_len, q_chunk, cache_dtype,
+                   dist):
+    """The decoder's units over ``h``, each entry building its cache:
+    (the output stream, the caches, one dict per unit)."""
     pattern = cfg.layer_pattern
     caches = []
     for unit in params.units:
@@ -397,13 +445,57 @@ def prefill(
             )
             unit_c[f"e{i}"] = c
         caches.append(unit_c)
+    return h, caches
+
+
+def _prefill_tp(cfg: ModelConfig, params, batch: Dict, cache_len: int,
+                q_chunk: int, cache_dtype, dist: DistCtx,
+                last_index: Optional[torch.Tensor]):
+    """:func:`prefill` under tensor parallelism: this rank's part of the
+    reference's partition.  The embedding is vocabulary-parallel, as in
+    :func:`_train_loss_tp`; the residual stream is split over ``model`` on
+    its sequence where the sequence divides; each unit computes on the
+    rank's shards and leaves its caches in their layout at rest
+    (:func:`~repro_torch.models.blocks.entry_prefill`); the last position
+    comes from the rank that holds it and the logits are the rank's
+    vocabulary rows."""
+    tp = dist.tp
+    tokens = batch["tokens"]
+    vis = batch.get("vision_embeds") if cfg.family == "vlm" else None
+    n_prefix = 0 if vis is None else vis.shape[1]
+    S = tokens.shape[1] + n_prefix
+    split = tp.splits(S)
+    dist = dist._replace(sp_axes=("model",) if split else ())
+
+    h, partial = _embed_tp(cfg, params, tokens, tp)
+    if vis is not None:  # the patches, counted once in a partial sum
+        vis = vis.to(h.dtype)
+        h = torch.cat([vis if tp.rank == 0 or not partial
+                       else torch.zeros_like(vis), h], dim=1)
+    if partial:
+        h = tp.exit(h, split)
+    elif split:
+        h = tp.seq_slice(h)
+    a, b = tp.block(S) if split else (0, S)
+    if cfg.family == "encdec":
+        pos = torch.as_tensor(sinusoidal_positions(S, cfg.d_model))[a:b]
+        h = h + pos.to(dtype=h.dtype, device=h.device)[None]
+    enc_out = (_encode(cfg, params, batch["frames"], dist)
+               if cfg.family == "encdec" else None)
+    h, caches = _prefill_units(cfg, params, h, enc_out, cache_len, q_chunk,
+                               cache_dtype, dist)
     h = rms_norm(h, params.final_norm, cfg.rms_eps)
-    if last_index is None:
-        last = h[:, -1]
-    else:  # ragged prompts (batched serving): per-seq last real position
-        rows = torch.arange(h.shape[0], device=h.device)
-        last = h[rows, last_index.to(device=h.device, dtype=torch.int64)]
-    return caches, _logits(cfg, params, last)
+    B = h.shape[0]
+    last = (torch.full((B,), S - 1, dtype=torch.int64, device=h.device)
+            if last_index is None
+            else last_index.to(device=h.device, dtype=torch.int64))
+    local = last - a
+    mine = ((local >= 0) & (local < b - a))[:, None]
+    rows = torch.arange(B, device=h.device)
+    last = torch.where(mine, h[rows, local.clamp(0, b - a - 1)], 0)
+    if split:  # from the rank whose slice holds it
+        last = tp.reduce(last)
+    return caches, _logits(cfg, params, last, tp)
 
 
 @torch.inference_mode()
@@ -417,8 +509,18 @@ def decode_step(
     dist: Optional[DistCtx] = None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One token per sequence: f32 logits (B, V), and ``caches`` updated in
-    place (returned for convenience)."""
-    h = _embed_tokens(cfg, params, tokens)
+    place (returned for convenience).  Under tensor parallelism
+    (``dist.tp``) or with split caches (``dist.cache``) the stream is whole
+    on every rank, each unit computes on the rank's shards and caches, and
+    the logits are the rank's vocabulary rows."""
+    tp = dist.tp if dist is not None else None
+    if dist is not None and (tp is not None or dist.cache is not None):
+        dist = dist._replace(sp_axes=())
+    if tp is None:
+        h = _embed_tokens(cfg, params, tokens)
+    else:
+        h, partial = _embed_tp(cfg, params, tokens, tp)
+        h = tp.exit(h, False) if partial else h
     if cfg.family == "encdec":
         # sinusoidal position for the current (dynamic) step; handles scalar
         # or per-sequence vector positions
@@ -434,7 +536,7 @@ def decode_step(
             h, _ = entry_decode(cfg, kind, i, unit[f"e{i}"], h,
                                 unit_c[f"e{i}"], pos, dist=dist)
     h = rms_norm(h, params.final_norm, cfg.rms_eps)
-    return _logits(cfg, params, h[:, 0]), caches
+    return _logits(cfg, params, h[:, 0], tp), caches
 
 
 def serving_weights(cfg: ModelConfig, params: DecoderLM) -> DecoderLM:

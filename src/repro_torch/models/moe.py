@@ -52,8 +52,11 @@ class DistCtx(NamedTuple):
     # placement; the port's heads follow ``tp``, ``attention._head_shard``)
     head_shard: bool = False
     # tensor parallelism over ``model`` (a ``sharding.parallel.
-    # TensorParallel``; the sharded train step's), or None
+    # TensorParallel``; the sharded steps'), or None
     tp: object = None
+    # where the serving steps' caches lie on this rank (a ``sharding.
+    # parallel.CacheLayout``), or None: every cache whole but its batch
+    cache: object = None
 
 
 class MoE(nn.Module):
@@ -93,7 +96,8 @@ def moe_apply(
     local to the rank's batch shard (see the module's docstring)."""
     if dist is not None and dist.moe_axes:
         return _moe_sharded(cfg, params, x, dist)
-    return _moe_dense_dispatch(cfg, params, x)
+    return _moe_dense_dispatch(cfg, params, x,
+                               dist.tp if dist is not None else None)
 
 
 def moe_groups(dist: DistCtx):

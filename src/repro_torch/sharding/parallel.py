@@ -1,6 +1,7 @@
-"""The sharded train step's collectives: per-unit FSDP gathers over the
-batch axes and tensor parallelism over ``model`` (the reference's GSPMD
-partition of its train step, written out).
+"""The sharded steps' collectives: per-unit FSDP gathers over the batch
+axes and tensor parallelism over ``model`` (the reference's GSPMD
+partition of its train, prefill and decode steps, written out), and the
+split caches of serving.
 
 **FSDP.**  A parameter rests as its shard (the rules of
 :mod:`repro_torch.sharding.spec`: a dimension over the batch axes, a
@@ -31,6 +32,17 @@ all-reduces its gradient, the loss seeds ``1 / size`` on each rank
 (:meth:`TensorParallel.share`), and the gradient of a leaf that ``model``
 does not split is the all-reduce of the ranks' shares.
 
+**Split caches** (:class:`CacheLayout`, prefill and decode).  A rank
+holds its caches as ``cache_shardings`` lays them at rest: its KV heads
+over the whole sequence where the heads divide ``model``, else every KV
+head over its block of the cache's slots (:class:`SeqSplit`: the slots
+split over ``model``, or in long-context decode over the data axes with
+``model`` folded in).  Attention over split slots is computed per block
+and joined by :meth:`SeqSplit.combine`, the log-sum-exp combine: each
+rank's partial (max, Σexp, Σexp·v), rescaled to the all-reduced max and
+summed.  Serving runs under ``torch.inference_mode()`` and needs no
+gradient.
+
 Every collective is a functional collective (``_c10d_functional``), so it
 runs on ``meta`` tensors under the dry run's fake group and
 ``CommDebugMode`` counts it.  A group of one position is never called.
@@ -45,7 +57,7 @@ from torch.autograd import Function
 
 __all__ = [
     "TensorParallel", "FSDP", "LeafPlan", "ShardedUnit", "Leaves",
-    "all_gather", "reduce_scatter", "all_reduce",
+    "SeqSplit", "CacheLayout", "all_gather", "reduce_scatter", "all_reduce",
 ]
 
 
@@ -202,6 +214,66 @@ class TensorParallel:
         w = self.full(w, 1, d_model)
         a, b = self.block(vocab)
         return w[a:b], a
+
+
+# ---------------------------------------------------------------------------
+# Serving: caches split as they rest
+# ---------------------------------------------------------------------------
+
+
+class SeqSplit:
+    """The mesh axes (major first) that split a cache's slots: this rank's
+    block of them and the log-sum-exp combine over them."""
+
+    def __init__(self, mesh, axes: Sequence[str]):
+        self.groups = [mesh.get_group(a) for a in axes
+                       if mesh.get_group(a).size() > 1]
+        self.index, self.size = 0, 1
+        for a in axes:
+            n = mesh.get_group(a).size()
+            self.index = self.index * n + mesh.get_local_rank(a)
+            self.size *= n
+
+    def block(self, n: int):
+        """This rank's ``[start, stop)`` of ``n`` slots."""
+        return self.index * n // self.size, (self.index + 1) * n // self.size
+
+    def combine(self, m: torch.Tensor, l: torch.Tensor,
+                acc: torch.Tensor) -> torch.Tensor:
+        """Softmax-weighted values over every rank's slots, from this
+        rank's partials over its own: ``m`` the max of its scores, ``l``
+        the sum of ``exp(score - m)`` and ``acc`` the sum of ``exp(score -
+        m) · v``, ``m`` and ``l`` with a trailing 1 in place of ``acc``'s
+        last dimension.  The max is all-reduced, each partial rescaled to
+        it, the sums all-reduced in one tensor: two collectives per
+        axis."""
+        top = m
+        for group in self.groups:
+            top = all_reduce(top, group, "max")
+        w = torch.exp(m - top)
+        both = torch.cat([acc * w, l * w], dim=-1)
+        for group in self.groups:
+            both = all_reduce(both, group)
+        return both[..., :-1] / both[..., -1:]
+
+
+class CacheLayout:
+    """Where a rank's caches lie (``spec.cache_shardings``): ``kv_split``,
+    whether ``model`` splits the KV heads; ``seq_axes``, for each global
+    slot count a cache can have (the cache length, a local layer's ring,
+    the encoder's sequence), the axes that split its slots; and
+    ``cache_len``, the steps' cache length."""
+
+    def __init__(self, mesh, kv_split: bool, seq_axes: Dict[int, tuple],
+                 cache_len: int):
+        self.kv_split, self.cache_len = kv_split, cache_len
+        self._seq = {n: SeqSplit(mesh, axes) if axes else None
+                     for n, axes in seq_axes.items()}
+
+    def seq(self, n: int) -> Optional[SeqSplit]:
+        """The split of a cache of ``n`` slots, or None where every rank
+        holds all of them."""
+        return self._seq[n]
 
 
 # ---------------------------------------------------------------------------

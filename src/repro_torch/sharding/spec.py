@@ -49,7 +49,8 @@ from repro_torch.core.compat import Mesh, make_mesh, visible_cards
 
 __all__ = [
     "P", "NamedSharding", "ShardingRules", "make_rules", "param_shardings",
-    "batch_shardings", "cache_shardings", "mesh_axis_sizes",
+    "batch_shardings", "cache_shardings", "attn_cache_spec", "cache_seq_axes",
+    "mesh_axis_sizes",
     "GraphShardSpec", "shard_of_cases", "graph_mesh",
 ]
 
@@ -289,41 +290,54 @@ def batch_shardings(r: ShardingRules, batch) -> Dict[str, NamedSharding]:
             for k, v in batch.items()}
 
 
+def attn_cache_spec(r: ShardingRules, shape) -> P:
+    """The spec of an attention cache of global ``shape`` ``(B, S, KV,
+    hd)`` (self k / v, or whisper's cross k / v): the KV heads over
+    ``model`` where they divide, else the cache's sequence over ``model``;
+    in long-context decode (``r.seq_axes``) the sequence over the data
+    axes, with ``model`` folded in where the KV heads do not divide."""
+    B, S, KV, _ = shape
+    b = r.batch_if(B)
+    if r.seq_axes:  # long-context mode: context parallelism
+        seq = (
+            r.seq_axes
+            if S % r.axes_size(r.seq_axes) == 0
+            else None
+        )
+        kv = r.model_if(KV)
+        if kv is None and seq is not None:
+            # fold model into the seq shard when kv can't split
+            both = tuple(r.seq_axes) + (r.model_axis,)
+            if r.model_axis and S % r.axes_size(both) == 0:
+                seq = both
+        return P(b, seq, kv if kv else None, None)
+    kv = r.model_if(KV)
+    if kv is not None:
+        return P(b, None, kv, None)
+    m = r.model_if(S)  # fall back: shard the cache sequence over model
+    return P(b, m, None, None)
+
+
+def cache_seq_axes(r: ShardingRules, shape) -> Tuple[str, ...]:
+    """The mesh axes (major first) that split the sequence (slot)
+    dimension of an attention cache of global ``shape``: a rank holds the
+    block of slots its position on them indexes, in that order."""
+    return _entry_axes(attn_cache_spec(r, shape)[1])
+
+
 def cache_shardings(r: ShardingRules, caches):
     """The same structure as ``caches`` (the port's list of units), each
     leaf a :class:`NamedSharding`.  The reference's caches are stacked over
     the units (``(U, B, S, KV, hd)`` …); the port's unit caches drop that
     leading dimension and so does their spec.  Attention k / v
-    ``(B, S, KV, hd)``; mamba conv ``(B, W, C)`` and state
-    ``(B, H, P, N)``; cross k / v ``(B, S_enc, KV, hd)``."""
-
-    def attn_spec(shape) -> P:
-        B, S, KV, _ = shape
-        b = r.batch_if(B)
-        if r.seq_axes:  # long-context mode: context parallelism
-            seq = (
-                r.seq_axes
-                if S % r.axes_size(r.seq_axes) == 0
-                else None
-            )
-            kv = r.model_if(KV)
-            if kv is None and seq is not None:
-                # fold model into the seq shard when kv can't split
-                both = tuple(r.seq_axes) + (r.model_axis,)
-                if r.model_axis and S % r.axes_size(both) == 0:
-                    seq = both
-            return P(b, seq, kv if kv else None, None)
-        kv = r.model_if(KV)
-        if kv is not None:
-            return P(b, None, kv, None)
-        m = r.model_if(S)  # fall back: shard the cache sequence over model
-        return P(b, m, None, None)
+    ``(B, S, KV, hd)`` (:func:`attn_cache_spec`); mamba conv ``(B, W, C)``
+    and state ``(B, H, P, N)``; cross k / v ``(B, S_enc, KV, hd)``."""
 
     def one(path, leaf):
         name = path[-1]
         nd = len(leaf.shape)
         if name in ("k", "v", "cross_k", "cross_v") and nd == 4:
-            return r.nd(attn_spec(leaf.shape))
+            return r.nd(attn_cache_spec(r, leaf.shape))
         if name == "conv" and nd == 3:  # (B, W, C)
             return r.nd(P(r.batch_if(leaf.shape[0]), None,
                           r.model_if(leaf.shape[2])))

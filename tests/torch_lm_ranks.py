@@ -25,6 +25,21 @@ the launcher itself, once the ranks are gone, starts a fake process group
 of 4, counts reduced olmoe's step on a (2, 2) mesh of it on ``meta``
 (``roofline.analyze.analyze_step``) and writes ``tp_analysis.json``.
 
+    python tests/torch_lm_ranks.py OUT_DIR serve
+
+starts 4 ranks on a (2, 2) ``("data", "model")`` mesh: for each case of
+``SERVE_CASES`` (reduced, f32 with f32 caches or bf16 with bf16 caches,
+cut so that each takes the cache layout named beside it),
+``launch.steps.make_prefill_step`` of a
+full prompt, then ``make_decode_step`` twice on caches that a plain
+``prefill`` of a shorter prompt filled, each rank given its shards; the
+logits and caches all-gathered whole (``serve_<case>.npz``, in f32); on every
+rank the bytes its steps hold at their peak (``serve_peak_<rank>.json``:
+its arguments plus the storages the steps create, counted as
+``roofline.analyze`` counts them) beside the whole model's and caches'.
+The long-context cases decode one sequence, fewer than the ``data``
+positions, so the caches' slots split over ``data``.
+
 Rendezvous is a ``file://`` path inside ``OUT_DIR``; every rank (and the
 launcher's fake group) destroys its process group in a ``finally``, and
 the launcher exits non-zero when a rank fails or outlives
@@ -75,6 +90,112 @@ TP_ARCHS = {
     # 8 patches before the text: the prefix counted once in the sum
     "llava-next-34b": {},
 }
+
+
+#: serving: a prompt of ``SERVE_S`` positions fills caches of ``SERVE_S``
+#: slots (a local layer's ring of 8 wraps); decode starts from a plain
+#: prefill of ``DECODE_PROMPT`` positions and steps at ``DECODE_POS``.
+#: Where ``model`` splits the slots in two, position 12 lies in the first
+#: block of a global cache (slots 0-15) and in the second of a ring (slot
+#: 12 % 8 = 4 of 0-7), position 17 in the second and the first (17 % 8 =
+#: 1).  ``SERVE_B`` sequences (1 in the long-context cases)
+SERVE_S, SERVE_B, DECODE_PROMPT, DECODE_POS = 32, 4, 12, (12, 17)
+#: each case: its arch, its cut, and the layout it takes on the (2, 2) mesh
+SERVE_CASES = {
+    # 2 KV heads over 2: the rank's KV head, every slot (local ring and
+    # global layers, both softcaps, the scaled tied embedding)
+    "gemma2-9b": ("gemma2-9b", {}),
+    # 1 KV head: every head, the cache's slots split over model
+    "gemma2-9b-kv1": ("gemma2-9b", {"n_kv_heads": 1}),
+    # 3 query heads over 1 KV head: heads that do not divide the ranks,
+    # slots split over model, a ring
+    "starcoder2-3b": ("starcoder2-3b", {"n_heads": 3, "n_kv_heads": 1}),
+    # a vocabulary of 127 (the embedding splits D), 15 frames (the
+    # encoder whole, the cross caches whole on every rank), 1 KV head
+    # (the self caches' slots split)
+    "whisper-tiny": ("whisper-tiny", {"vocab_size": 127, "enc_seq": 15,
+                                      "n_kv_heads": 1}),
+    # 16 frames, 2 KV heads: the cross caches' heads split
+    "whisper-tiny-kv2": ("whisper-tiny", {"enc_seq": 16}),
+    # mamba mixers: the state's heads and the conv's channels split
+    "mamba2-370m": ("mamba2-370m", {}),
+    # mamba, attention (KV split) and expert-parallel MoE
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", {"capacity_factor": 4.0}),
+    # 3 experts (each splits F), 3 KV heads (slots split), a ring
+    "mixtral-8x7b": ("mixtral-8x7b", {"n_experts": 3, "n_heads": 6,
+                                      "n_kv_heads": 3,
+                                      "capacity_factor": 4.0}),
+    # 8 patches before the text
+    "llava-next-34b": ("llava-next-34b", {}),
+    # long-context decode: 2 KV heads over model, the slots over data
+    "long-gemma2-9b": ("gemma2-9b", {}),
+    # long-context decode: 1 KV head, the slots over data and model
+    "long-gemma2-9b-kv1": ("gemma2-9b", {"n_kv_heads": 1}),
+    # the default bf16 compute and caches through the split slots'
+    # partial attention and its combine, in prefill and decode
+    "gemma2-9b-kv1-bf16": ("gemma2-9b", {"n_kv_heads": 1,
+                                         "dtype": "bfloat16"}),
+    "long-gemma2-9b-kv1-bf16": ("gemma2-9b", {"n_kv_heads": 1,
+                                              "dtype": "bfloat16"}),
+}
+#: the cases whose ranks count their peak bytes
+SERVE_PEAK_CASES = ("gemma2-9b-kv1", "jamba-v0.1-52b")
+
+
+def serve_config(case, get_config=None):
+    """A case's reduced config, from ``get_config`` (the port's by
+    default; the tests pass the reference's for its twin)."""
+    import dataclasses
+
+    if get_config is None:
+        from repro_torch.configs import get_config
+
+    arch, cut = SERVE_CASES[case]
+    return dataclasses.replace(
+        get_config(arch).reduced(),
+        **{"vocab_size": 128, "q_chunk": 16, "ssm_chunk": 8,
+           "dtype": "float32", **cut})
+
+
+def serve_cache_dtype(cfg):
+    """f32 caches for the f32 cases (so that a sharded step can equal the
+    one-position step within 1e-5), else the steps' default bf16."""
+    import torch
+
+    return torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+
+
+def serve_shapes(case):
+    """(prefill shape, decode shape) of a case."""
+    from repro_torch.configs.base import ShapeConfig
+
+    b = 1 if case.startswith("long-") else SERVE_B
+    return (ShapeConfig("p", seq_len=SERVE_S, global_batch=b, kind="prefill"),
+            ShapeConfig("d", seq_len=SERVE_S, global_batch=b, kind="decode"))
+
+
+def serve_inputs(cfg, batch, seed=11):
+    """The prompt of the prefill step, the shorter one of the decode
+    steps' caches and the decode steps' tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def prompt(s):
+        out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                      (batch, s - cfg.n_patches)).astype(np.int32)}
+        if cfg.family == "vlm":
+            out["vision_embeds"] = rng.normal(
+                size=(batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            out["frames"] = rng.normal(
+                size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        return out
+
+    full, short = prompt(SERVE_S), prompt(DECODE_PROMPT)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (len(DECODE_POS), batch, 1)).astype(np.int32)
+    return full, short, toks
 
 
 def moe_config():
@@ -355,10 +476,153 @@ def tp_analysis(out_dir):
         dist.destroy_process_group()
 
 
+def decode_start(cfg, model, short):
+    """The whole caches that the decode steps start from: a plain
+    ``prefill`` of the short prompt into ``SERVE_S`` slots, in the case's
+    cache dtype."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    caches, _ = prefill(cfg, model, {k: torch.from_numpy(v) for k, v in short.items()},
+                        SERVE_S, q_chunk=cfg.q_chunk,
+                        cache_dtype=serve_cache_dtype(cfg))
+    return caches
+
+
+def flat_caches(caches, prefix=""):
+    """``{"u<unit>.<entry>.<leaf>": leaf}`` of a cache tree (a leaf may be
+    a tensor or a sharding)."""
+    out = {}
+    for u, unit in enumerate(caches):
+        for e, entry in unit.items():
+            for name, leaf in entry.items():
+                if isinstance(leaf, dict):
+                    for sub, t in leaf.items():
+                        out[f"{prefix}u{u}.{e}.{name}.{sub}"] = t
+                else:
+                    out[f"{prefix}u{u}.{e}.{name}"] = leaf
+    return out
+
+
+def _map_tree(fn, tree, shardings):
+    """``fn(leaf, its sharding)`` over a cache tree (lists and dicts)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v, s) for v, s in zip(tree, shardings)]
+    return fn(tree, shardings)
+
+
+def _counted(fn, args):
+    """``fn(*args)`` and the bytes it holds at its peak: its arguments'
+    storages plus the peak of the storages its operators create (counted
+    as ``roofline.analyze.analyze_step`` counts them)."""
+    from repro_torch.roofline.analyze import (
+        _leaves, _storage_bytes, _tensors, _Traffic,
+    )
+
+    inputs = _tensors([_leaves(a) for a in args])
+    traffic = _Traffic(inputs)
+    with traffic:
+        out = fn(*args)
+    return out, _storage_bytes(inputs) + traffic.peak
+
+
+def _serve_on(case, rank, out_dir, peaks):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg = serve_config(case)
+    pshape, dshape = serve_shapes(case)
+    mesh = make_test_mesh((2, 2), device_type="cpu")
+    model = init_model(cfg)
+    full, short, toks = serve_inputs(cfg, pshape.global_batch)
+    count = case in SERVE_PEAK_CASES
+    whole_model = 4 * sum(p.numel() for p in model.parameters())
+
+    def local_model(p_sh):
+        m = copy.deepcopy(model)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.data = _shard(p.data, p_sh[n], mesh)
+        return m
+
+    out, peak = {}, {}
+    if not case.startswith("long-"):
+        fn, (p_sh, b_sh), (c_sh, l_sh), _, _ = make_prefill_step(
+            cfg, pshape, mesh, _cache_dtype=serve_cache_dtype(cfg))
+        args = (local_model(p_sh),
+                {k: _shard(torch.from_numpy(v), b_sh[k], mesh)
+                 for k, v in full.items()})
+        if count:
+            (caches, logits), peak["prefill"] = _counted(fn, args)
+        else:
+            caches, logits = fn(*args)
+        out["prefill:logits"] = _unshard(logits, l_sh, mesh)
+        shs = flat_caches(c_sh)
+        for name, t in flat_caches(caches).items():
+            out[f"prefill:{name}"] = _unshard(t, shs[name], mesh)
+        if count:
+            peak["prefill_whole"] = whole_model + sum(
+                4 * out[f"prefill:{n}"].numel() for n in shs)
+
+    start = decode_start(cfg, model, short)
+    fn, (p_sh, t_sh, c_sh, _), (l_sh, _), _, _ = make_decode_step(
+        cfg, dshape, mesh)
+    params = local_model(p_sh)
+    shs = flat_caches(c_sh)
+    caches = _map_tree(lambda t, sh: _shard(t, sh, mesh), start, c_sh)
+    for i, pos in enumerate(DECODE_POS):
+        args = (params, _shard(torch.from_numpy(toks[i]), t_sh, mesh), caches, pos)
+        if count and i == 0:
+            (logits, caches), peak["decode"] = _counted(fn, args)
+        else:
+            logits, caches = fn(*args)
+        out[f"decode{i}:logits"] = _unshard(logits, l_sh, mesh)
+    for name, t in flat_caches(caches).items():
+        out[f"decode:{name}"] = _unshard(t, shs[name], mesh)
+    if count:
+        peak["decode_whole"] = whole_model + sum(
+            4 * t.numel() for t in flat_caches(start).values())
+        peaks[case] = peak
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"serve_{case}.npz"),
+                 **{k: v.float().numpy() for k, v in out.items()})
+
+
+def serve_rank_main(rank, out_dir):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'rendezvous')}",
+        world_size=TP_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+    )
+    try:
+        peaks = {}
+        for case in SERVE_CASES:
+            _serve_on(case, rank, out_dir, peaks)
+        with open(os.path.join(out_dir, f"serve_peak_{rank}.json"), "w") as f:
+            json.dump(peaks, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv):
     out_dir = argv[0]
-    tp = argv[1:] == ["tp"]
-    world, target = (TP_WORLD, tp_rank_main) if tp else (WORLD, rank_main)
+    mode = argv[1] if len(argv) > 1 else None
+    tp = mode == "tp"
+    world, target = {"tp": (TP_WORLD, tp_rank_main),
+                     "serve": (TP_WORLD, serve_rank_main)}.get(
+                         mode, (WORLD, rank_main))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, out_dir))
              for r in range(world)]
