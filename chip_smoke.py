@@ -157,36 +157,45 @@ Phases, each fatal on failure (exit code 1, no result line):
    8 ``make_decode_step`` steps, the prefill logits and the first decode
    logits equal ``prefill`` / ``decode_step`` with ``dist=None`` bit for
    bit; the dry run (``python -m repro_torch.launch.dryrun``) of olmoe ×
-   ``train_4k`` × 16x16 and whisper-tiny × ``decode_32k`` × 2x16x16 in
-   child processes on the host (fake process groups), each artifact's
+   ``train_4k`` × 16x16, whisper-tiny × ``decode_32k`` × 2x16x16 and ×
+   ``train_4k`` × 16x16 in child processes on the host side by side (fake
+   process groups), each artifact's
    per-device bytes, ``fits_hbm``, dominant term and roofline fraction;
    launches against ``PREDICTED_3K`` (none);
 3l. one rank of olmoe-1b-7b × ``train_4k`` × 16x16, tensor-parallel: in a
-   child process (this script with ``--rank0-of-16x16``, under
+   child process (this script with ``--rank-of-16x16``, under
    ``TP_TIMEOUT_S``) a fake process group of 256 ranks, the production
-   16 × 16 ``DeviceMesh`` on the card, rank 0's local state of the
-   published config at all 16 layers from a seed, 3 ``make_train_step``
-   steps of the rank's batch shard (16 × 4,096 tokens, 2 microbatches);
-   the peak device memory within 80 GB and beside 3k's dry-run
-   ``per_device_bytes``, the median step, the collectives of step 0 equal
-   kind by kind to the dry run's, launches against ``PREDICTED_3L``
-   (none); the losses printed, not gated (the fake collectives fill
-   nothing);
+   16 × 16 ``DeviceMesh`` on the card, the local state of the rank the dry
+   run counts (``counted_rank``: rank 0 here) of the published config at
+   all 16 layers from a seed, 3 ``make_train_step`` steps of the rank's
+   batch shard (16 × 4,096 tokens, 2 microbatches; each step's batch made
+   before its timer starts); the peak device memory within 80 GB and
+   within ``PEAK_BAND`` of 3k's dry-run ``per_device_bytes``, the median
+   step, the collectives of step 0 equal kind by kind to the dry run's,
+   launches against ``PREDICTED_3L`` (none); the losses printed, not gated
+   (the fake collectives fill nothing); then the same child for
+   whisper-tiny × ``train_4k`` × 16x16 (``TP_WHISPER``, dry-run in 3k): 6
+   heads over 16 ranks, so the attention splits over query positions, and
+   the rank is the heaviest, rank 15; 3 steps at full width and depth;
 3m. one rank of each serving cell of ``SERVE_CELLS`` × 16x16, prefill and
-   decode tensor-parallel with the caches split as they rest: the three
+   decode tensor-parallel with the caches split as they rest: the four
    cells' dry runs on ``meta``, side by side in child processes on the
    host; then each cell in a child process (this script with
-   ``--serve-rank0-of-16x16``, under ``SERVE_TIMEOUT_S``) that starts a
+   ``--serve-rank-of-16x16``, under ``SERVE_TIMEOUT_S``) that starts a
    fake process group of 256 ranks and the production 16 × 16
-   ``DeviceMesh`` on the card, makes rank 0's local parameters and caches
-   (or batch shard) of the published config at full depth from a seed and
-   runs gemma2-27b × ``decode_32k`` (8 sequences, 1 KV head a rank, caches
+   ``DeviceMesh`` on the card, makes the local parameters and caches (or
+   batch shard) of the rank the dry run counts, of the published config
+   at full depth from a seed, and runs gemma2-27b × ``decode_32k`` (8 sequences, 1 KV head a rank, caches
    filled to position 32,000, 8 decode steps), gemma2-9b × ``prefill_32k``
    (2 sequences of 32,768 tokens, the caches' slots split over ``model``,
    3 prefills) and gemma2-9b × ``long_500k`` (1 sequence, 524,288 slots
-   split 256 ways, 8 decode steps), and one more decode step under
-   ``torch.profiler``; each peak device memory within 80 GB and beside the
-   dry run's ``per_device_bytes``, the median step, the first step's
+   split 256 ways, 8 decode steps), whisper-tiny × ``prefill_32k`` (2
+   sequences of 32,768 tokens, the attention split over query positions,
+   the self caches' slots split over ``model``, the cross caches whole, 3
+   prefills, as rank 15), and one more decode step under
+   ``torch.profiler``; each peak device memory within 80 GB and within
+   ``PEAK_BAND`` of the dry run's ``per_device_bytes``, the median step,
+   the first step's
    collectives equal kind by kind (count and bytes) to the dry run's,
    launches against ``PREDICTED_3M`` (none); the logits printed, not
    gated;
@@ -4611,9 +4620,11 @@ SHARD_STEPS, SHARD_BATCH, SHARD_SEQ = 3, 2, 4096
 #: ``prefill_32k`` / ``decode_32k``'s cache of 32,768 positions: a prompt
 #: of 32,760 tokens and 8 decode steps fill it (batch 1)
 SERVE_CACHE, SERVE_DECODE = 32_768, 8
-#: the dry run's cells, each in a child process under this time limit
+#: the dry run's cells, each in a child process under this time limit (the
+#: first and the last phase 3l's: ``TP_CELL``, ``TP_WHISPER``)
 DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k", "single"),
-                ("whisper-tiny", "decode_32k", "multi"))
+                ("whisper-tiny", "decode_32k", "multi"),
+                ("whisper-tiny", "train_4k", "single"))
 DRYRUN_TIMEOUT_S = 300
 #: relative tolerance of step 0 against its hand composition if an
 #: operator of the step has no deterministic CUDA implementation (named
@@ -4970,7 +4981,7 @@ def phase_sharded_lm(torch, card, tmp):
 # Phase 3l — one rank of olmoe-1b-7b × train_4k × 16x16
 # ---------------------------------------------------------------------------
 
-#: phase 3l's cell: rank 0 of the 16 × 16 ``("data", "model")`` mesh, the
+#: phase 3l's cell: one rank of the 16 × 16 ``("data", "model")`` mesh, the
 #: published olmoe-1b-7b at all 16 layers, ``train_4k``'s batch shard of
 #: 16 sequences of 4,096 tokens in the config's 2 microbatches, 3 steps
 TP_CELL = ("olmoe-1b-7b", "train_4k", "single")
@@ -4980,28 +4991,38 @@ TP_TIMEOUT_S = 600
 #: launches of phase 3l: the LM path runs none of the four kernels
 PREDICTED_3L = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
                 "align_dp": 0}
-#: the child's argument (``python3 chip_smoke.py`` itself takes none)
-TP_CHILD_FLAG = "--rank0-of-16x16"
+#: the child's argument (``python3 chip_smoke.py`` itself takes none), then
+#: optionally an arch (olmoe's cell by default), then the output path
+TP_CHILD_FLAG = "--rank-of-16x16"
+#: phase 3l's second cell: whisper-tiny's 6 heads do not split over the 16
+#: ranks of ``model``, so its attention splits over query positions
+TP_WHISPER = ("whisper-tiny", "train_4k", "single")
+#: how far a cell's peak device memory may lie from its dry run's
+#: ``per_device_bytes`` (a fraction, either way)
+PEAK_BAND = 0.2
 
 
-def _on_rank0(device, run):
-    """``run(mesh)`` as rank 0 of a fake process group of ``TP_WORLD``
-    ranks (its collectives move nothing and leave what they would receive
-    unfilled), ``mesh`` the production 16 × 16 ``DeviceMesh`` on
-    ``device``, the four kernels' counts set to 0 before it; returns
-    ``run``'s dict of results with the kernels' ``launches`` added."""
+def _on_rank(device, cfg, run):
+    """``run(mesh)`` as the rank of ``cfg``'s cells that the dry run
+    counts (:func:`repro_torch.launch.dryrun.counted_rank`) in a fake
+    process group of ``TP_WORLD`` ranks (its collectives move nothing and
+    leave what they would receive unfilled), ``mesh`` the production
+    16 × 16 ``DeviceMesh`` on ``device``, the four kernels' counts set to 0
+    before it; returns ``run``'s dict of results with the ``rank`` and the
+    kernels' ``launches`` added."""
     import torch.distributed as dist
 
     from repro_torch.kernels.align_dp import ops as dp_ops
     from repro_torch.kernels.dfg_count import ops
     from repro_torch.kernels.segment_count import ops as seg_ops
-    from repro_torch.launch.dryrun import _fake_process_group
+    from repro_torch.launch.dryrun import _fake_process_group, counted_rank
     from repro_torch.launch.mesh import make_production_mesh
 
     kernel_ops = (ops, seg_ops, dp_ops)
     for m in kernel_ops:
         m.reset_launch_counts()
-    _fake_process_group(TP_WORLD)
+    rank = counted_rank(cfg)
+    _fake_process_group(TP_WORLD, rank)
     try:
         result = run(make_production_mesh(device_type=device))
     finally:
@@ -5009,14 +5030,16 @@ def _on_rank0(device, run):
     counts = {}
     for m in kernel_ops:
         counts.update(m.launch_counts)
+    result["rank"] = rank
     result["launches"] = {name: counts.get(name, 0) for name in KERNELS}
     return result
 
 
-def _timed_steps(torch, device, steps, step, after, profile):
+def _timed_steps(torch, device, steps, step, after, profile, prepare=None):
     """``out = step(i)`` for each ``i < steps``, timed to the device's end
-    (the first under the dry run's collective counter), then ``after(i,
-    out)``, untimed; on the card, ``profile()`` once under
+    (the first under the dry run's collective counter), after
+    ``prepare(i)`` and followed by ``after(i, out)``, both untimed; on the
+    card, ``profile()`` once under
     ``torch.profiler``.  Returns the results that the children of phases
     3l and 3m share: the step times and their median, the peak device
     memory from the first step on (None on the host), the first step's
@@ -5030,7 +5053,11 @@ def _timed_steps(torch, device, steps, step, after, profile):
         torch.cuda.reset_peak_memory_stats()
     step_s = []
     for i in range(steps):
+        if prepare is not None:
+            prepare(i)
         counter = _collective_log_mode() if i == 0 else contextlib.nullcontext()
+        if device == "cuda":
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         with counter:
             out = step(i)
@@ -5054,13 +5081,15 @@ def _timed_steps(torch, device, steps, step, after, profile):
             "profile": profiled}
 
 
-def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
-    """The child of phase 3l: rank 0 of a fake group (:func:`_on_rank0`),
+def tp_rank(out_path, device="cuda", cfg=None, steps=TP_STEPS):
+    """The child of phase 3l: one rank of a fake group (:func:`_on_rank`),
     its local parameters of ``cfg`` (the published olmoe by default) made
     from a seed (:func:`_random_fill`), and ``steps`` steps of
-    ``make_train_step`` on the rank's batch shard (:func:`_timed_steps`;
-    on the card one more under ``torch.profiler``).  Writes what it
-    measured to ``out_path`` (JSON)."""
+    ``make_train_step`` on the rank's batch shard (its tokens from the
+    token pipeline, an encoder's frames from the seed; each step's batch
+    made before its timer starts, one alive at a time, as in the dry run;
+    :func:`_timed_steps`; on the card one more step under
+    ``torch.profiler``).  Writes what it measured to ``out_path`` (JSON)."""
     import torch
 
     from repro_torch.configs import get_config, get_shape
@@ -5082,8 +5111,15 @@ def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
         rows, seq = batch_meta["tokens"].shape
         pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=rows,
                              seq_len=seq, seed=31)
-        batches = [{k: torch.from_numpy(v).to(device) for k, v in pipe(s).items()}
-                   for s in range(steps)]
+
+        def prepare(i):
+            state["batch"] = None  # the previous step's, dropped first
+            b = {k: torch.from_numpy(v).to(device) for k, v in pipe(i).items()}
+            b.update(_random_fill(torch, {k: v for k, v in batch_meta.items()
+                                          if k not in b}, gen, device,
+                                  cfg.vocab_size))  # an encoder's frames
+            state["batch"] = b
+
         losses, norms = [], []
 
         def after(i, out):
@@ -5092,21 +5128,21 @@ def tp_rank0(out_path, device="cuda", cfg=None, steps=TP_STEPS):
             norms.append(float(metrics["grad_norm"]))
 
         def step(i):
-            return fn(state["params"], state["opt"], batches[i])
+            return fn(state["params"], state["opt"], state["batch"])
 
         res = _timed_steps(torch, device, steps, step, after,
-                           lambda: step(0))
+                           lambda: step(steps), prepare)
         return {"params_local": sum(p.numel()
                                     for p in state["params"].parameters()),
                 "batch": [rows, seq], "losses": losses, "grad_norms": norms,
                 **res}
 
-    result = _on_rank0(device, run)
+    result = _on_rank(device, cfg, run)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
 
-def _rank0_child(args, out, timeout, what):
+def _rank_child(args, out, timeout, what):
     """``python3 chip_smoke.py *args out`` (a child mode of this script)
     under ``timeout``; returns the JSON it wrote to ``out``."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5120,15 +5156,17 @@ def _rank0_child(args, out, timeout, what):
         return json.load(f)
 
 
-def _check_rank0(res, art, predicted, cell, what, card):
+def _check_rank(res, art, predicted, cell, what, card):
     """What phases 3l and 3m hold a child's results ``res`` to: its
     profile and its first step's collectives logged; its peak device
-    memory within the card's 80 GB, its collectives those of its cell's
-    dry run (``art``) kind by kind, in count and result bytes, and its
-    launches ``predicted``."""
+    memory within the card's 80 GB and within ``PEAK_BAND`` of the dry
+    run's ``per_device_bytes`` either way, its collectives those of its
+    cell's dry run (``art``) kind by kind, in count and result bytes, and
+    its launches ``predicted``."""
+    who = f"rank {res['rank']}"
     prof = res["profile"]
     if prof is not None and prof["busy"] is not None:
-        log(f"rank 0 {what} under torch.profiler [{card}]: "
+        log(f"{who} {what} under torch.profiler [{card}]: "
             f"{prof['wall_s']:.4f} s, {prof['kernels']:,} kernels, the "
             f"card {prof['busy'] * 100:.1f}% busy; device ms by class: "
             + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
@@ -5138,74 +5176,91 @@ def _check_rank0(res, art, predicted, cell, what, card):
     ops = art["collectives"]["ops"]
     want = {k: v["count"] for k, v in ops.items()}
     want_bytes = {k: v["bytes"] for k, v in ops.items()}
-    log(f"rank 0 collectives in the first {what} [{card}]: "
+    log(f"{who} collectives in the first {what} [{card}]: "
         f"{res['collectives']} (result bytes {res['collective_bytes']}); "
         f"the dry run's {want} (bytes {want_bytes})")
-    peak = res["peak_bytes"]
+    peak, dry = res["peak_bytes"], art["per_device_bytes"]
+    off = (peak / dry - 1) * 100
+    log(f"{cell}: {who}'s peak {peak:,} B is {off:+.1f}% from the dry run's "
+        f"per_device_bytes {dry:,} B (allowed ±{PEAK_BAND * 100:.0f}%)")
     check(peak <= hw.HBM_BYTES,
-          f"{cell}: rank 0's peak {peak / 1e9:.2f} GB exceeds the card's "
+          f"{cell}: {who}'s peak {peak / 1e9:.2f} GB exceeds the card's "
           f"{hw.HBM_BYTES / 1e9:.0f} GB")
+    check(abs(off) <= PEAK_BAND * 100,
+          f"{cell}: {who}'s peak {peak:,} B is {off:+.1f}% from the dry "
+          f"run's {dry:,} B, outside ±{PEAK_BAND * 100:.0f}%")
     check(res["collectives"] == want and res["collective_bytes"] == want_bytes,
-          f"{cell}: rank 0's collectives {res['collectives']} (bytes "
+          f"{cell}: {who}'s collectives {res['collectives']} (bytes "
           f"{res['collective_bytes']}) differ from the dry run's {want} "
           f"(bytes {want_bytes})")
     check(res["launches"] == predicted,
           f"{cell}: launches {res['launches']} differ from {predicted}")
 
 
-def phase_tp_lm(torch, card, dry_art, tmp):
-    """Phase 3l: :func:`tp_rank0` in a child process under
-    ``TP_TIMEOUT_S``; its peak device memory against the card's 80 GB and
-    beside the dry run's ``per_device_bytes`` for the cell (``dry_art``,
-    phase 3k's artifact), its collectives against the dry run's, kind by
-    kind; no kernel launched (:func:`_check_rank0`).  Returns {kernel:
-    launches}."""
+def phase_tp_lm(torch, card, dry_arts, tmp):
+    """Phase 3l: :func:`tp_rank` in a child process under
+    ``TP_TIMEOUT_S``, for ``TP_CELL`` and then ``TP_WHISPER`` (their dry
+    runs ``dry_arts``, phase 3k's artifacts); each peak device memory
+    against the card's 80 GB and the dry run's ``per_device_bytes``, its
+    collectives against the dry run's, kind by kind; no kernel launched
+    (:func:`_check_rank`).  Returns {kernel: launches}."""
     from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.steps import train_microbatches
     from repro_torch.roofline import model_flops
 
     t_phase = time.perf_counter()
-    res = _rank0_child([TP_CHILD_FLAG], os.path.join(tmp, "rank0.json"),
-                       TP_TIMEOUT_S, "phase 3l")
-    arch, shape_name, _ = TP_CELL
-    cfg, shape = get_config(arch), get_shape(shape_name)
-    peak = res["peak_bytes"]
-    bound_s = model_flops(cfg, shape) / TP_WORLD / hw.PEAK_FLOPS_BF16
-    log(f"{arch} × {shape_name} × 16x16, rank 0 of a fake group of "
-        f"{TP_WORLD} [{card}]: all {cfg.n_layers} layers, "
-        f"{res['params_local']:,} parameters on the rank, batch shard "
-        f"{res['batch'][0]} × {res['batch'][1]} in "
-        f"{cfg.microbatches} microbatches; losses "
-        f"{', '.join(f'{x:.4f}' for x in res['losses'])} and grad norms "
-        f"{', '.join(f'{x:.4g}' for x in res['grad_norms'])} (not gated: "
-        "the fake collectives leave what they gather unfilled)")
-    log(f"rank 0 step [{card}]: median {res['median_s']:.4f} s (all "
-        f"{', '.join(f'{x:.4f}' for x in res['step_s'])}; collectives take "
-        f"no time); model_flops per rank {bound_s:.4f} s at "
-        f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 "
-        f"({bound_s / res['median_s'] * 100:.2f}% of the median); peak "
-        f"device memory {peak:,} B ({peak / 1e9:.2f} GB; "
-        "torch.cuda.max_memory_allocated) beside the dry run's "
-        f"per_device_bytes {dry_art['per_device_bytes']:,} "
-        f"({dry_art['per_device_bytes'] / 1e9:.2f} GB)")
-    _check_rank0(res, dry_art, PREDICTED_3L, f"{arch} × {shape_name}",
-                 "train step", card)
-    log(f"phase 3l [{card}]: launches {res['launches']}; "
+    total = {name: 0 for name in KERNELS}
+    for cell in (TP_CELL, TP_WHISPER):
+        t_cell = time.perf_counter()
+        arch, shape_name, _ = cell
+        dry_art = dry_arts[cell]
+        args = [TP_CHILD_FLAG] + ([arch] if cell != TP_CELL else [])
+        res = _rank_child(args, os.path.join(tmp, f"rank_{arch}.json"),
+                          TP_TIMEOUT_S, f"phase 3l {arch}")
+        cfg, shape = get_config(arch), get_shape(shape_name)
+        peak = res["peak_bytes"]
+        bound_s = model_flops(cfg, shape) / TP_WORLD / hw.PEAK_FLOPS_BF16
+        log(f"{arch} × {shape_name} × 16x16, rank {res['rank']} of a fake "
+            f"group of {TP_WORLD} [{card}]: all {cfg.n_layers} layers, "
+            f"{res['params_local']:,} parameters on the rank, batch shard "
+            f"{res['batch'][0]} × {res['batch'][1]} in "
+            f"{train_microbatches(cfg)} microbatches; losses "
+            f"{', '.join(f'{x:.4f}' for x in res['losses'])} and grad norms "
+            f"{', '.join(f'{x:.4g}' for x in res['grad_norms'])} (not gated: "
+            "the fake collectives leave what they gather unfilled)")
+        log(f"rank {res['rank']} step [{card}]: median {res['median_s']:.4f} s (all "
+            f"{', '.join(f'{x:.4f}' for x in res['step_s'])}; collectives take "
+            f"no time); model_flops per rank {bound_s:.4f} s at "
+            f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 "
+            f"({bound_s / res['median_s'] * 100:.2f}% of the median); peak "
+            f"device memory {peak:,} B ({peak / 1e9:.2f} GB; "
+            "torch.cuda.max_memory_allocated) beside the dry run's "
+            f"per_device_bytes {dry_art['per_device_bytes']:,} "
+            f"({dry_art['per_device_bytes'] / 1e9:.2f} GB), useful_flops_ratio "
+            f"{dry_art['useful_flops_ratio']:.4f}")
+        _check_rank(res, dry_art, PREDICTED_3L, f"{arch} × {shape_name}",
+                    "train step", card)
+        for name in KERNELS:
+            total[name] += res["launches"][name]
+        log(f"{arch} × {shape_name} [{card}]: "
+            f"{time.perf_counter() - t_cell:.1f} s")
+    log(f"phase 3l [{card}]: launches {total}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return res["launches"]
+    return total
 
 
 # ---------------------------------------------------------------------------
 # Phase 3m — one rank of the serving cells, tensor-parallel, caches split
 # ---------------------------------------------------------------------------
 
-#: phase 3m's cells, each rank 0 of the 16 × 16 ``("data", "model")`` mesh
+#: phase 3m's cells, each one rank of the 16 × 16 ``("data", "model")`` mesh
 #: at the published width and depth: gemma2-27b's decode (8 sequences a
 #: rank, 1 KV head: the KV heads split), gemma2-9b's prefill (2 sequences
 #: of 32,768 tokens: 8 KV heads, the caches' slots split over ``model``)
 #: and its long-context decode (1 sequence, 524,288 slots split 256 ways
 #: over ``data`` and ``model`` folded)
 SERVE_CELLS = (("gemma2-27b", "decode_32k"), ("gemma2-9b", "prefill_32k"),
-               ("gemma2-9b", "long_500k"))
+               ("gemma2-9b", "long_500k"), ("whisper-tiny", "prefill_32k"))
 #: decode steps (from the position the caches are filled to) or prefills
 SERVE_STEPS = {"decode_32k": 8, "prefill_32k": 3, "long_500k": 8}
 SERVE_FILLED = {"decode_32k": 32_000, "long_500k": 524_000}
@@ -5216,7 +5271,7 @@ SERVE_TIMEOUT_S = 600
 PREDICTED_3M = {"dfg_count": 0, "dfg_count_diced": 0, "segment_count": 0,
                 "align_dp": 0}
 #: the child's argument, then the cell's arch and shape and the output path
-SERVE_CHILD_FLAG = "--serve-rank0-of-16x16"
+SERVE_CHILD_FLAG = "--serve-rank-of-16x16"
 
 
 def _random_fill(torch, tree, gen, device, vocab):
@@ -5248,10 +5303,10 @@ def _random_fill(torch, tree, gen, device, vocab):
     return tree
 
 
-def serve_rank0(out_path, arch, shape_name, device="cuda", opts=None,
-                steps=None):
-    """The child of phase 3m for one cell: rank 0 of a fake group
-    (:func:`_on_rank0`), its local parameters and caches (or batch shard)
+def serve_rank(out_path, arch, shape_name, device="cuda", opts=None,
+               steps=None):
+    """The child of phase 3m for one cell: one rank of a fake group
+    (:func:`_on_rank`), its local parameters and caches (or batch shard)
     of the published config (``opts`` overrides it) made from a seed
     (:func:`_random_fill`), and ``steps`` prefill or decode steps
     (:func:`_timed_steps`; on the card one more decode step under
@@ -5313,19 +5368,19 @@ def serve_rank0(out_path, arch, shape_name, device="cuda", opts=None,
                 "logits_local": seen["logits_local"],
                 "logits_first": seen["firsts"], **res}
 
-    result = _on_rank0(device, run)
+    result = _on_rank(device, cfg, run)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
 
 def phase_serve_lm(torch, card, tmp):
     """Phase 3m: the dry runs of ``SERVE_CELLS`` (:func:`_dryrun_cells`),
-    then :func:`serve_rank0` for each cell in a child process under
+    then :func:`serve_rank` for each cell in a child process under
     ``SERVE_TIMEOUT_S``, one after the other, with nothing else running on
     the host; each cell's peak device memory against the card's 80 GB and
     beside its dry run's ``per_device_bytes``, its first step's
     collectives against the dry run's, kind by kind (count and bytes); no
-    kernel launched (:func:`_check_rank0`).  Returns {kernel: launches}."""
+    kernel launched (:func:`_check_rank`).  Returns {kernel: launches}."""
     t_phase = time.perf_counter()
     total = {name: 0 for name in KERNELS}
     dry_dir = os.path.join(tmp, "dryrun")
@@ -5337,7 +5392,7 @@ def phase_serve_lm(torch, card, tmp):
         t_cell = time.perf_counter()
         cell = f"{arch} × {shape_name}"
         art = arts[arch, shape_name, "single"]
-        res = _rank0_child(
+        res = _rank_child(
             [SERVE_CHILD_FLAG, arch, shape_name],
             os.path.join(tmp, f"serve_{arch}_{shape_name}.json"),
             SERVE_TIMEOUT_S, f"phase 3m {cell}")
@@ -5345,7 +5400,7 @@ def phase_serve_lm(torch, card, tmp):
         what = "prefill" if res["kind"] == "prefill" else "decode step"
         mem = art["memory_analysis"]
         bound_s = art["model_flops_per_chip"] / hw.PEAK_FLOPS_BF16
-        log(f"{cell} × 16x16, rank 0 of a fake group of {TP_WORLD} "
+        log(f"{cell} × 16x16, rank {res['rank']} of a fake group of {TP_WORLD} "
             f"[{card}]: {res['params_local']:,} parameters on the rank "
             f"(f32), tokens {res['tokens_local']}, caches "
             f"{res['cache_bytes']:,} B on the rank, logits "
@@ -5353,7 +5408,7 @@ def phase_serve_lm(torch, card, tmp):
             f"logits {', '.join(f'{x:.4g}' for x in res['logits_first'])} "
             "(not gated: the fake collectives leave what they gather "
             "unfilled)")
-        log(f"rank 0 {what} [{card}]: median {res['median_s']:.4f} s (all "
+        log(f"rank {res['rank']} {what} [{card}]: median {res['median_s']:.4f} s (all "
             f"{', '.join(f'{x:.4f}' for x in res['step_s'])}; collectives "
             f"take no time); model_flops per rank {bound_s:.4g} s at "
             f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16; peak device "
@@ -5365,7 +5420,7 @@ def phase_serve_lm(torch, card, tmp):
             f"{mem['temp_bytes']:,} B), useful_flops_ratio "
             f"{art['useful_flops_ratio']:.4f} (the dry run in a child "
             f"process on the host, {art['wall_s']:.1f} s)")
-        _check_rank0(res, art, PREDICTED_3M, cell, what, card)
+        _check_rank(res, art, PREDICTED_3M, cell, what, card)
         for name in KERNELS:
             total[name] += res["launches"][name]
         log(f"{cell} [{card}]: {time.perf_counter() - t_cell:.1f} s")
@@ -6034,11 +6089,17 @@ def phase_times(torch, repo, results, card, graph_counts, conf, resources):
 
 
 def main() -> int:
-    if sys.argv[1:2] == [TP_CHILD_FLAG]:  # phase 3l's child
-        tp_rank0(sys.argv[2])
+    if sys.argv[1:2] == [TP_CHILD_FLAG]:  # a child of phase 3l
+        *arch, out = sys.argv[2:]
+        if arch:
+            from repro_torch.configs import get_config
+
+            tp_rank(out, cfg=get_config(arch[0]))
+        else:
+            tp_rank(out)
         return 0
     if sys.argv[1:2] == [SERVE_CHILD_FLAG]:  # a child of phase 3m
-        serve_rank0(sys.argv[4], sys.argv[2], sys.argv[3])
+        serve_rank(sys.argv[4], sys.argv[2], sys.argv[3])
         return 0
     import torch
 
@@ -6111,10 +6172,10 @@ def main() -> int:
             "at full width")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             sharded_lm_counts, dry_arts = phase_sharded_lm(torch, card, tmp)
-        log("== phase 3l: one rank of olmoe-1b-7b × train_4k × 16x16, "
-            "tensor-parallel")
+        log("== phase 3l: one rank of olmoe-1b-7b and of whisper-tiny × "
+            "train_4k × 16x16, tensor-parallel")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            tp_counts = phase_tp_lm(torch, card, dry_arts[TP_CELL], tmp)
+            tp_counts = phase_tp_lm(torch, card, dry_arts, tmp)
         log("== phase 3m: one rank of the serving cells × 16x16, "
             "tensor-parallel with split caches")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -5,10 +5,11 @@ counted on ``meta`` tensors, with the H100 roofline.
         --shape decode_32k --mesh single
 
 For each cell, ``main()`` starts a fake process group of 256 (``16x16``)
-or 512 (``2x16x16``) ranks in this process (this process is rank 0; the
-collectives return at once and move nothing), builds the production
-``DeviceMesh`` on it, builds the step (:mod:`repro_torch.launch.steps`),
-runs rank 0's step once on ``meta`` tensors of its local shapes and writes
+or 512 (``2x16x16``) ranks in this process (this process is the rank
+:func:`counted_rank` picks; the collectives return at once and move
+nothing), builds the production ``DeviceMesh`` on it, builds the step
+(:mod:`repro_torch.launch.steps`), runs the rank's step once on ``meta``
+tensors of its local shapes and writes
 :func:`repro_torch.roofline.analyze.analyze_step`'s result to
 ``{out}/{arch}__{shape}__{mesh}__{tag}.json``.  The group is destroyed
 before the next cell and when ``main()`` returns or fails.  Importing this
@@ -34,7 +35,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.roofline.analyze import analyze_step
 
-__all__ = ["lower_cell", "run_cell", "main", "ARTIFACT_DIR"]
+__all__ = ["lower_cell", "run_cell", "counted_rank", "main", "ARTIFACT_DIR"]
 
 #: default artifact directory: ``build/`` of the checkout (git-ignored)
 ARTIFACT_DIR = os.path.join(
@@ -42,24 +43,42 @@ ARTIFACT_DIR = os.path.join(
 )
 
 
-def _fake_process_group(world_size: int) -> None:
-    """A fake process group of ``world_size`` ranks, this process rank 0.
+#: the size of the production meshes' ``model`` axis, their innermost:
+#: position ``i`` of it (of the first ``data`` and ``pod`` position) is
+#: rank ``i``
+MODEL_RANKS = 16
+
+
+def counted_rank(cfg) -> int:
+    """The rank whose step a cell counts.  Where attention splits over
+    query positions (fewer query heads than ``model`` ranks, whisper:
+    :func:`~repro_torch.models.attention.splits_queries`) a rank's causal
+    keys reach its block's end, so the last position of ``model`` holds
+    and computes the most: rank 15.  Elsewhere rank 0."""
+    return MODEL_RANKS - 1 if 0 < cfg.n_heads < MODEL_RANKS else 0
+
+
+def _config(arch: str, opts=None):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, **opts) if opts else cfg
+
+
+def _fake_process_group(world_size: int, rank: int = 0) -> None:
+    """A fake process group of ``world_size`` ranks, this process ``rank``.
     ``FakeStore`` is private to PyTorch's test utilities (checked on torch
     2.13.0 for the CPU and 2.11.0 with CUDA 12.8); it needs no rendezvous
     and its collectives do nothing."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, opts=None):
     """Build one cell's step on the production mesh (a fake process group
     must be up); returns (fn, local args, donate, meta, cfg, shape, mesh)."""
-    cfg = get_config(arch)
-    if opts:
-        cfg = dataclasses.replace(cfg, **opts)
+    cfg = _config(arch, opts)
     shape = get_shape(shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
 
@@ -86,7 +105,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, opts=None,
              tag: str = "baseline") -> dict:
     import torch.distributed as dist
 
-    _fake_process_group(512 if multi_pod else 256)
+    _fake_process_group(512 if multi_pod else 256,
+                        counted_rank(_config(arch, opts)))
     try:
         fn, local, donate, meta, cfg, shape, mesh = lower_cell(
             arch, shape_name, multi_pod=multi_pod, opts=opts

@@ -45,6 +45,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainHParams
 from repro_torch.models import init_caches, train_loss
 from repro_torch.models import decode_step as _decode_step
 from repro_torch.models import prefill as _prefill
+from repro_torch.models.attention import splits_queries
 from repro_torch.models.model import DecoderLM
 from repro_torch.models.moe import DistCtx
 from repro_torch.sharding.parallel import (
@@ -102,10 +103,17 @@ def _abstract_batch(cfg: ModelConfig, shape: ShapeConfig, with_labels: bool):
     return batch
 
 
-def _q_chunk(shape: ShapeConfig, cfg: ModelConfig = None) -> int:
-    if cfg is not None and cfg.q_chunk:
-        return cfg.q_chunk
-    return 512 if shape.seq_len > 8192 else 1024
+def _q_chunk(shape: ShapeConfig, cfg: ModelConfig = None, dist=None) -> int:
+    """Attention's query chunk.  Where tensor parallelism splits the
+    queries (:func:`~repro_torch.models.attention.splits_queries`) a
+    rank's chunk is its share of a whole-sequence chunk: a chunk's scores
+    set the peak, and the card's softmax backward holds a second copy of
+    them."""
+    qc = (cfg.q_chunk if cfg is not None and cfg.q_chunk
+          else 512 if shape.seq_len > 8192 else 1024)
+    if dist is not None and splits_queries(cfg, dist):
+        qc = max(1, qc // dist.tp.size)
+    return qc
 
 
 def train_microbatches(cfg: ModelConfig) -> int:
@@ -251,7 +259,6 @@ def make_train_step(
     )
     b_sh = batch_shardings(rules, b)
     scalar = rules.nd(P())
-    qc = _q_chunk(shape, cfg)
     sizes = mesh_axis_sizes(mesh)
     # the reference's DistCtx (sequence-parallel activations, the
     # data-local MoE dispatch) and, where ``model`` has more than one
@@ -259,6 +266,7 @@ def make_train_step(
     tp = TensorParallel(mesh) if rules.model_size > 1 else None
     sp = ("model",) if rules.model_axis else ()
     dist = DistCtx(mesh, rules.batch_axes, sp_axes=sp, tp=tp)
+    qc = _q_chunk(shape, cfg, dist)
     batch_groups = [mesh.get_group(a) for a in rules.fsdp_axes if sizes[a] > 1]
     fsdp = FSDP(batch_groups, tp.group if tp is not None else None)
     plans = _leaf_plans(cfg, p, p_sh, rules)
@@ -356,13 +364,13 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     p, b = abstract_prefill_args(cfg, shape)
     p_sh = param_shardings(rules, p, cfg)
     b_sh = batch_shardings(rules, b)
-    qc = _q_chunk(shape, cfg)
     cache_len = shape.seq_len
     B = shape.global_batch
     # all archs: the head-shard hint + data-local MoE dispatch
     sp = ("model",) if rules.model_axis else ()
     dist = _serving_dist(cfg, rules, mesh, B, cache_len, rules.batch_axes,
                          sp_axes=sp, head_shard=True)
+    qc = _q_chunk(shape, cfg, dist)
 
     caches_shape = init_caches(cfg, B, cache_len, _cache_dtype, device="meta")
     c_sh = cache_shardings(rules, caches_shape)

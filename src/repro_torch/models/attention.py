@@ -12,7 +12,10 @@ O(S · W), not O(S²).
 Under tensor parallelism (``dist.tp``, the sharded steps) a rank
 computes the heads its ``model`` shards hold (:func:`_head_shard`): the
 projections are column-parallel, ``wo`` row-parallel, and the output is
-the rank's partial sum of the layer's output.  The sharded prefill and
+the rank's partial sum of the layer's output.  With fewer query heads than
+ranks (whisper) the split is over the query positions instead
+(:func:`splits_queries`): each rank computes every head for its block of
+the positions, and its output rows are complete.  The sharded prefill and
 decode keep each cache in its layout at rest (``dist.cache``, a
 :class:`~repro_torch.sharding.parallel.CacheLayout`): the rank's KV heads
 over every slot, or every KV head over the rank's block of slots, where
@@ -37,9 +40,18 @@ from .common import (
 
 __all__ = ["Attention", "init_attn", "attn_train", "attn_decode",
            "init_attn_cache", "prefill_fill_cache", "prefill_cache_split",
-           "cross_cache"]
+           "cross_cache", "splits_queries"]
 
 NEG_INF = -2.0**30  # large-but-finite: keeps fully-masked rows NaN-free
+
+
+def splits_queries(cfg: ModelConfig, dist) -> bool:
+    """Whether tensor parallelism (``dist.tp``) splits the attention over
+    query positions: fewer query heads than ``model`` ranks (whisper's 6
+    over 16), where each rank computes every head for its block of the
+    positions (:func:`attn_train`)."""
+    return (dist is not None and dist.tp is not None
+            and cfg.n_heads < dist.tp.size)
 
 
 def _head_shard(cfg: ModelConfig, tp, x, src, params: Attention):
@@ -47,22 +59,17 @@ def _head_shard(cfg: ModelConfig, tp, x, src, params: Attention):
     (``tp``, the ``model`` axis), the reference's head-axis sharding
     written out, and the rows of ``wo`` that meet them: (B, S, Hl·hd)
     queries and (B, Sk, KVl·hd) keys / values, Hl a multiple of KVl, query
-    head ``j`` reading key head ``j // (Hl / KVl)``.
+    head ``j`` reading key head ``j // (Hl / KVl)``.  There are at least
+    as many query heads as ranks (else :func:`splits_queries`).
 
     The rank's query heads are its block of the heads (its shard of
     ``wq`` where the heads divide the axis, else its heads of ``wq``
     all-gathered); its key heads are its shard of ``wk`` / ``wv`` where
     both divide, else the groups its query heads read, from ``wk`` / ``wv``
     all-gathered (one key head per query head where a group straddles two
-    ranks).  With fewer heads than ranks (whisper) every head runs on every
-    rank, from q, k and v all-gathered, and the caller keeps the rank's
-    block of the output's columns."""
+    ranks)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    if H < tp.size:
-        q, k, v = (tp.full(inp @ w.to(dt), -1, n * hd) for inp, w, n in (
-            (x, params.wq, H), (src, params.wk, KV), (src, params.wv, KV)))
-        return q, k, v, tp.cols(params.wo, 0, H * hd)
     a, b = tp.block(H)
     if H % tp.size == 0:
         q = x @ tp.cols(params.wq, 1, H * hd).to(dt)
@@ -207,6 +214,17 @@ def attn_train(
     ``kind``: "global" (causal full), "local" (causal windowed).
     ``causal=False`` gives the whisper encoder (bidirectional).
     ``kv_source``: cross-attention (keys/values from the encoder output).
+
+    Where tensor parallelism splits the queries (:func:`splits_queries`)
+    the rank computes every head, from ``wq`` / ``wk`` / ``wv`` / ``wo``
+    all-gathered whole, for its block of the query positions
+    (:meth:`~repro_torch.sharding.parallel.TensorParallel.block`): of a
+    self-attention's ``x`` (the whole sequence) the rows of the block,
+    against the keys of the positions up to the block's end (causal) or of
+    every position; a cross-attention's ``x`` holds the rank's rows
+    already.  The output is then those rows' output, complete (no partial
+    sum), and the keys and values returned are every head's over the
+    positions it read.
     """
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -215,13 +233,24 @@ def attn_train(
     dev = x.device
 
     src = x if kv_source is None else kv_source
-    Sk = src.shape[1]
     tp = dist.tp if dist is not None else None
-    if tp is None:
-        q = (x @ params.wq.to(dt)).reshape(B, S, KV, G, hd)
-        k = (src @ params.wk.to(dt)).reshape(B, Sk, KV, hd)
-        v = (src @ params.wv.to(dt)).reshape(B, Sk, KV, hd)
+    q0 = 0  # the position of the first query
+    if tp is None or splits_queries(cfg, dist):
+        wq, wk, wv, wo = params.wq, params.wk, params.wv, params.wo
+        if tp is not None:
+            wq, wk, wv = (tp.full(w, 1, n * hd) for w, n in (
+                (wq, H), (wk, KV), (wv, KV)))
+            wo = tp.full(wo, 0, H * hd)
+            if kv_source is None:
+                q0, end = tp.block(S)
+                x, src = x[:, q0:end], (x[:, :end] if causal else x)
+                S = end - q0
+        Sk = src.shape[1]
+        q = (x @ wq.to(dt)).reshape(B, S, KV, G, hd)
+        k = (src @ wk.to(dt)).reshape(B, Sk, KV, hd)
+        v = (src @ wv.to(dt)).reshape(B, Sk, KV, hd)
     else:
+        Sk = src.shape[1]
         q, k, v, wo = _head_shard(cfg, tp, x, src, params)
         KV = k.shape[-1] // hd
         G = q.shape[-1] // hd // KV
@@ -237,13 +266,12 @@ def attn_train(
         pos = (
             positions
             if positions is not None
-            else torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+            else torch.arange(Sk, dtype=torch.int32, device=dev)[None, :]
         )
         base = _rope_base(cfg, kind)
-        q = apply_rope(q.reshape(B, S, KV * G, hd), pos, base).reshape(
-            B, S, KV, G, hd
-        )
-        k = apply_rope(k, pos, base)
+        q = apply_rope(q.reshape(B, S, KV * G, hd), pos[:, q0:q0 + S],
+                       base).reshape(B, S, KV, G, hd)
+        k = apply_rope(k, pos[:, :Sk], base)
 
     scale = _scale(cfg)
     cap = cfg.attn_logit_softcap
@@ -264,22 +292,23 @@ def attn_train(
         kwin = W + qc
         karange = torch.arange(kwin, device=dev)
         for i in range(nq):
-            q0 = i * qc
+            qs = q0 + i * qc
             # clamp so the fixed-size slice stays in bounds
-            start = min(max(0, q0 - W), Sk - kwin)
+            start = min(max(0, qs - W), Sk - kwin)
             ks = k[:, start:start + kwin]
             vs = v[:, start:start + kwin]
-            qpos = q0 + ar
+            qpos = qs + ar
             kpos = start + karange
             m = (
                 (qpos[:, None] >= kpos[None, :])
                 & (qpos[:, None] - kpos[None, :] < W)
             )
-            outs.append(_attend_chunk(q[:, q0:q0 + qc], ks, vs, m, scale, cap))
+            outs.append(_attend_chunk(q[:, i * qc:(i + 1) * qc], ks, vs, m,
+                                      scale, cap))
     else:
         kpos = torch.arange(Sk, device=dev)
         for i in range(nq):
-            qpos = i * qc + ar
+            qpos = q0 + i * qc + ar
             if causal and kv_source is None:
                 m = qpos[:, None] >= kpos[None, :]
                 if window is not None:
@@ -290,10 +319,8 @@ def attn_train(
                 _attend_chunk(q[:, i * qc:(i + 1) * qc], k, v, m, scale, cap))
 
     out = torch.cat(outs, dim=1).reshape(B, S + pad, KV * G * hd)[:, :S]
-    if tp is None:
-        out = out @ params.wo.to(dt)
-    else:  # row-parallel: this rank's heads (or columns), a partial sum
-        out = tp.cols(out, -1, H * hd) @ wo.to(dt)
+    # under a head shard row-parallel: the rank's heads, a partial sum
+    out = out @ wo.to(dt)
     if return_kv:
         return out, (k, v)
     return out

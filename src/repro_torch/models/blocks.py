@@ -14,7 +14,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import (
     attn_decode, attn_train, cross_cache, init_attn, prefill_cache_split,
-    prefill_fill_cache,
+    prefill_fill_cache, splits_queries,
 )
 from .common import rms_norm
 from .mamba import init_mamba, mamba_decode, mamba_train
@@ -90,6 +90,30 @@ def _exit(dist, y):
     return dist.tp.exit(y, bool(dist.sp_axes))
 
 
+def _attn_exit(cfg, dist, y, n):
+    """An attention region's output in the residual stream's layout: where
+    the queries are split (:func:`~repro_torch.models.attention.
+    splits_queries`) the rank's rows, all-gathered where the stream is
+    whole (``n`` positions), else as :func:`_exit`."""
+    if splits_queries(cfg, dist):
+        return dist.tp.rows_out(y, bool(dist.sp_axes), n)
+    return _exit(dist, y)
+
+
+def _cross(cfg, p, x, enc_out, q_chunk, dist):
+    """Whisper's cross-attention sub-block on the stream ``x``: its output
+    in the stream's layout.  Where the queries are split the rank's own
+    positions query, and no gather of the stream is needed."""
+    h = rms_norm(x, p.ln_x, cfg.rms_eps)
+    if splits_queries(cfg, dist):
+        h = h if dist.sp_axes else dist.tp.seq_slice(h)
+    else:
+        h = _enter(dist, h)
+    return _attn_exit(cfg, dist, attn_train(
+        cfg, p.xattn, h, "global", kv_source=enc_out, causal=False,
+        q_chunk=q_chunk, dist=dist), x.shape[1])
+
+
 def _ffn_apply(cfg, idx, p, x, dist=None):
     ffn = _has_ffn(cfg, idx)
     if ffn is None:
@@ -122,23 +146,21 @@ def entry_train(
     Under tensor parallelism (``dist.tp``) ``x`` is this rank's part of the
     residual stream (its sequence slice where ``dist.sp_axes``) and each
     mixer and FFN runs on the rank's shards between :func:`_enter` and
-    :func:`_exit`."""
+    :func:`_exit` (an attention split over query positions leaves through
+    :func:`_attn_exit`)."""
     h = _enter(dist, rms_norm(x, p.ln1, cfg.rms_eps))
     if kind == "mamba":
         h = _exit(dist, mamba_train(cfg, p.mamba, h,
                                     tp=dist.tp if dist is not None else None))
     else:
-        h = _exit(dist, attn_train(cfg, p.attn, h, kind, causal=causal,
-                                   q_chunk=q_chunk, dist=dist))
+        h = _attn_exit(cfg, dist, attn_train(cfg, p.attn, h, kind,
+                                             causal=causal, q_chunk=q_chunk,
+                                             dist=dist), h.shape[1])
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
     if enc_out is not None:  # whisper decoder cross-attention
-        h = _enter(dist, rms_norm(x, p.ln_x, cfg.rms_eps))
-        h = _exit(dist, attn_train(cfg, p.xattn, h, "global",
-                                   kv_source=enc_out, causal=False,
-                                   q_chunk=q_chunk, dist=dist))
-        x = x + h
+        x = x + _cross(cfg, p, x, enc_out, q_chunk, dist)
     return _ffn_apply(cfg, idx, p, x, dist)
 
 
@@ -163,6 +185,7 @@ def entry_prefill(
     h = _enter(dist, rms_norm(x, p.ln1, cfg.rms_eps))
     if kind == "mamba":
         y, cache = mamba_train(cfg, p.mamba, h, return_cache=True, tp=tp)
+        h = _exit(dist, y)
     else:
         y, kv = attn_train(cfg, p.attn, h, kind, q_chunk=q_chunk,
                            return_kv=True, dist=dist)
@@ -170,16 +193,12 @@ def entry_prefill(
                  if tp is None else
                  prefill_cache_split(cfg, p.attn, h, kind, kv, cache_len,
                                      dist, cache_dtype))
-    h = _exit(dist, y)
+        h = _attn_exit(cfg, dist, y, h.shape[1])
     if cfg.post_norms:
         h = rms_norm(h, p.ln1_post, cfg.rms_eps)
     x = x + h
     if enc_out is not None:
-        h = _enter(dist, rms_norm(x, p.ln_x, cfg.rms_eps))
-        h = _exit(dist, attn_train(cfg, p.xattn, h, "global",
-                                   kv_source=enc_out, causal=False,
-                                   q_chunk=q_chunk, dist=dist))
-        x = x + h
+        x = x + _cross(cfg, p, x, enc_out, q_chunk, dist)
         kx, vx = cross_cache(cfg, p.xattn, enc_out, dist, cache_dtype)
         cache = {"self": cache, "cross_k": kx, "cross_v": vx}
     x, _ = _ffn_apply(cfg, idx, p, x, dist)

@@ -224,7 +224,10 @@ def _encode(cfg: ModelConfig, params: DecoderLM, frames,
             dist: Optional[DistCtx] = None):
     """Whisper encoder over stub frame embeddings (B, S_enc, D).  Under
     tensor parallelism (``dist.tp``) the encoder's stream is split over
-    ``model`` where its sequence divides; the output is whole."""
+    ``model`` where its sequence divides, else whole on every rank (its
+    attention then split over query positions where the heads are fewer
+    than the ranks: each rank's block of frames, the rows all-gathered);
+    the output is whole."""
     dt = getattr(torch, cfg.dtype)
     pos = torch.as_tensor(sinusoidal_positions(frames.shape[1], cfg.d_model))
     h = frames.to(dt) + pos.to(dtype=dt, device=frames.device)[None]

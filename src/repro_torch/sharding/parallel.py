@@ -21,7 +21,11 @@ hold.  Between the units the residual stream is split over ``model`` on
 its sequence dimension where the sequence divides (sequence parallelism:
 :meth:`TensorParallel.enter` all-gathers it, :meth:`TensorParallel.exit`
 reduce-scatters a row-parallel partial sum back), else it is whole on
-every rank (an all-reduce closes a region).
+every rank (an all-reduce closes a region).  Where the query heads are
+fewer than the ranks (whisper) attention splits over query positions
+instead: a rank's output rows are complete, so a split stream takes them
+as they are (:meth:`TensorParallel.rows_out`) and a whole one all-gathers
+every rank's rows.
 
 The gradient convention: a tensor that differs between the ranks of
 ``model`` (a sequence slice, a partial sum, a column block) carries its
@@ -121,6 +125,47 @@ class _Scatter(Function):
         return all_gather(g, ctx.dim, ctx.group), None, None
 
 
+class _GatherRows(Function):
+    """Every rank's block of ``n`` rows along dim 1 (the blocks of
+    :meth:`TensorParallel.block`, uneven where ``n`` does not divide)
+    all-gathered into the whole ``n``: each block padded to the largest,
+    gathered and cut.  The backward pads the gradient's blocks alike,
+    reduce-scatters them (sums the ranks' shares) and returns the rank's
+    rows."""
+
+    @staticmethod
+    def forward(ctx, t, n, tp):
+        ctx.n, ctx.tp = n, tp
+        m = -(-n // tp.size)
+        whole = all_gather(_pad_rows(t, m), 1, tp.group)
+        return whole.index_select(1, _row_index(tp, n, m, t.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, n = ctx.tp, ctx.n
+        m = -(-n // tp.size)
+        padded = g.new_zeros((g.shape[0], tp.size * m) + tuple(g.shape[2:]))
+        padded = padded.index_copy(1, _row_index(tp, n, m, g.device), g)
+        a, b = tp.block(n)
+        return reduce_scatter(padded, 1, tp.group)[:, :b - a], None, None
+
+
+def _pad_rows(t: torch.Tensor, m: int) -> torch.Tensor:
+    """``t`` with zero rows appended along dim 1 up to ``m``."""
+    pad = t.new_zeros((t.shape[0], m - t.shape[1]) + tuple(t.shape[2:]))
+    return torch.cat([t, pad], dim=1)
+
+
+def _row_index(tp, n: int, m: int, device) -> torch.Tensor:
+    """Where each of the ``n`` rows lies among the ranks' blocks padded to
+    ``m`` rows each."""
+    rows = []
+    for r in range(tp.size):
+        a, b = r * n // tp.size, (r + 1) * n // tp.size
+        rows.extend(range(r * m, r * m + b - a))
+    return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
 class _Reduce(Function):
     """All-reduce of partial sums; the backward all-reduces the shares."""
 
@@ -179,6 +224,13 @@ class TensorParallel:
     def seq_slice(self, y: torch.Tensor) -> torch.Tensor:
         a, b = self.block(y.shape[1])
         return y[:, a:b]
+
+    def rows_out(self, y: torch.Tensor, split: bool, n: int) -> torch.Tensor:
+        """A region's output rows, complete, for this rank's block of the
+        positions, in the residual stream's layout: the rank's slice as it
+        is where the stream is split (no collective), else every rank's
+        rows all-gathered into the whole ``n`` (:class:`_GatherRows`)."""
+        return y if split else _GatherRows.apply(y, n, self)
 
     def cols(self, w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         """This rank's block of dimension ``dim`` (of global size ``n``):

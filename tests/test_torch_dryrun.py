@@ -18,8 +18,17 @@ the reference's specs lay them: its argument bytes are rank 0's local
 parameters (f32), token shard, caches (bf16) and position, the caches
 aliased by the updated ones, and it fits the H100's 80 GB (the
 reference's dry run of the cell holds 18.16 GiB) with at least 0.4 of its
-FLOPs on ``model_flops`` (the reference's 0.797).  The pytest process
-imports no ``repro.launch.dryrun`` and starts no process group."""
+FLOPs on ``model_flops`` (the reference's 0.797).  whisper-tiny ×
+``train_4k`` and × ``prefill_32k`` × 16 × 16, whose 6 heads cannot split
+over ``model``'s 16 ranks and whose attention splits over query positions
+instead: the dry run counts their heaviest rank, rank 15 (its block's
+causal keys reach the sequence's end), which holds at most twice the
+reference's bytes a rank and spends at least 0.75 of the reference's
+useful ratio, on both meshes for ``train_4k``; whisper-tiny ×
+``decode_32k`` holds no more bytes and no lower a useful ratio than
+before that split.  starcoder2-3b × ``train_4k`` × 16 × 16, which
+that split does not touch, counts exactly as before it.  The pytest
+process imports no ``repro.launch.dryrun`` and starts no process group."""
 
 import dataclasses
 import json
@@ -47,6 +56,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: ``analyze_compiled``'s keys
 META_KEYS = {"arch", "shape", "mesh", "chips", "kind", "lower_s", "compile_s",
              "tag"}
+
+
+#: the reference's dry run (``python -m repro.launch.dryrun``, on the CPU)
+#: of whisper-tiny's cells: (per_device_bytes, useful_flops_ratio)
+REF_WHISPER = {("train_4k", "single"): (2_116_514_376, 0.36126),
+               ("train_4k", "multi"): (1_117_417_992, 0.36126),
+               ("prefill_32k", "single"): (1_087_980_816, 0.04271)}
+#: the port's dry run of whisper-tiny × ``decode_32k`` × 16 × 16 before
+#: its attention split over query positions: (per_device_bytes,
+#: useful_flops_ratio)
+WHISPER_DECODE_BEFORE = (234_714_216, 0.179891)
 
 
 def _dryrun(tmp_path, arch, shape, mesh):
@@ -182,3 +202,40 @@ def test_dryrun_tensor_parallel_step_fits_the_card(olmoe_train):
     assert d["per_device_bytes"] <= 14.5e9
     assert d["useful_flops_ratio"] >= 0.4
     assert d["collectives"]["ops"]["reduce-scatter"]["count"] > 0
+
+
+def test_dryrun_counts_the_heaviest_rank():
+    """Rank 15 where the query heads are fewer than ``model``'s 16 ranks
+    (whisper), else rank 0 (mamba2 has no attention)."""
+    from repro_torch.configs import cells, get_config
+    from repro_torch.launch.dryrun import counted_rank
+
+    ranks = {a: counted_rank(get_config(a)) for a, _ in cells()}
+    assert ranks.pop("whisper-tiny") == 15
+    assert set(ranks.values()) == {0}
+
+
+@pytest.mark.parametrize("shape,mesh", list(REF_WHISPER))
+def test_dryrun_whisper_splits_queries_within_twice_the_reference(
+        tmp_path, shape, mesh):
+    d = _dryrun(tmp_path, "whisper-tiny", shape, mesh)
+    ref_bytes, ref_useful = REF_WHISPER[shape, mesh]
+    assert d["per_device_bytes"] <= 2 * ref_bytes
+    assert d["useful_flops_ratio"] >= 0.75 * ref_useful
+    assert d["collectives"]["ops"]["all-gather"]["count"] > 0
+
+
+def test_dryrun_whisper_decode_no_worse(tmp_path):
+    d = _dryrun(tmp_path, "whisper-tiny", "decode_32k", "single")
+    before_bytes, before_useful = WHISPER_DECODE_BEFORE
+    assert d["per_device_bytes"] <= before_bytes
+    assert d["useful_flops_ratio"] >= before_useful
+
+
+def test_dryrun_other_cells_count_as_before(tmp_path):
+    """starcoder2-3b's 24 heads split over ``model``: its cell counts the
+    bytes and FLOPs it counted before whisper's query split."""
+    d = _dryrun(tmp_path, "starcoder2-3b", "train_4k", "single")
+    assert d["per_device_bytes"] == 5_818_671_120
+    assert d["flops_per_device"] == 111_119_393_882_112
+    assert abs(d["useful_flops_ratio"] - 0.67003) < 5e-6

@@ -32,7 +32,12 @@ where the KV heads do not divide):
   the second rank's block of a global cache and of a local layer's ring,
   after the ring has wrapped;
 * no rank's step holds, at its peak, as many bytes as the whole model and
-  the whole caches.
+  the whole caches;
+* whisper's prefill split over query positions (``L.ROWS_CASES`` on their
+  (2, 2) and (1, 4) meshes, the reference's weights): the logits and
+  caches against the JAX package's prefill step (the bf16 case within
+  the tolerances measured on it) and the f32 cases against the port's
+  one-position step within 1e-5.
 
 The pytest process starts no process group and builds no ``DeviceMesh``:
 the one-position steps run on the port's plain 1 × 1 ``Mesh``."""
@@ -70,11 +75,27 @@ BF16_ATOL = 2e-2
 #: two bf16 ulps at 1.0, and one of the value
 BF16_CACHE_TOL = dict(atol=2.0**-6, rtol=2.0**-7)
 F32_CASES = [c for c in L.SERVE_CASES if not c.endswith("-bf16")]
+#: whisper's prefill split over query positions in bf16 (``L.ROWS_CASES``)
+#: against the reference's bf16 prefill.  Measured: the logits ≤ 8.8e-4
+#: apart (of ≤ 0.39), the caches ≤ 2⁻⁹ (the bf16 activations that k and v
+#: are made from round differently, so a small value can be off by the
+#: ulp of a larger one); the tolerances are about three and two times that
+ROWS_BF16_ATOL = 3e-3
+ROWS_BF16_CACHE_TOL = dict(atol=2.0**-8, rtol=2.0**-7)
+ROWS_F32 = [c for c in L.ROWS_CASES if not c.endswith("-bf16")]
 
 
 @pytest.fixture(scope="module")
-def serve_outputs(tmp_path_factory):
+def rows_weights():
+    """{rows case: (the reference's init, its port names' arrays)}."""
+    return {case: L.reference_weights(case) for case in L.ROWS_CASES}
+
+
+@pytest.fixture(scope="module")
+def serve_outputs(tmp_path_factory, rows_weights):
     out = tmp_path_factory.mktemp("serve_ranks")
+    for case, (_, named) in rows_weights.items():
+        np.savez(out / f"weights_{case}.npz", **named)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.path.join(HERE, "..", "src"))
     run = subprocess.run([sys.executable, os.path.join(HERE, "torch_lm_ranks.py"),
@@ -250,3 +271,59 @@ def test_no_rank_holds_the_whole_model_and_caches(serve_outputs):
         for case, p in peaks.items():
             assert 0 < p["prefill"] < p["prefill_whole"], (rank, case, p)
             assert 0 < p["decode"] < p["decode_whole"], (rank, case, p)
+
+
+# ---------------------------------------------------------------------------
+# Whisper's prefill split over query positions (``L.ROWS_CASES``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ROWS_F32)
+def test_rows_prefill_equals_one_position(case, serve_outputs):
+    cfg = L.rows_config(case)
+    pshape, _ = L.serve_shapes(case)
+    full, _, _ = L.serve_inputs(cfg, pshape.global_batch)
+    fn, _, _, _, _ = make_prefill_step(cfg, pshape, _mesh(),
+                                       _cache_dtype=torch.float32)
+    caches, logits = fn(L.rows_model(case, serve_outputs), _torch(full))
+    got = np.load(serve_outputs / f"rows_{case}.npz")
+    np.testing.assert_allclose(got["logits"], logits.numpy(), **TOL)
+    flat = L.flat_caches(caches)
+    assert set(got.files) == {"logits", *flat}
+    for name, want in flat.items():
+        np.testing.assert_allclose(got[name], want.numpy(),
+                                   err_msg=f"{case} {name}", **TOL)
+
+
+@pytest.mark.parametrize("case", list(L.ROWS_CASES))
+def test_rows_prefill_matches_reference(case, serve_outputs, rows_weights):
+    """The split prefill's logits and caches against the reference's
+    prefill step on a 1 × 1 mesh, on the reference's weights: the f32
+    cases' logits within ``REF_TOL`` and their f32 caches within one bf16
+    ulp of the reference's bf16 ones; the bf16 case's within
+    ``ROWS_BF16_ATOL`` and ``ROWS_BF16_CACHE_TOL``."""
+    rc, cfg = L.rows_config(case, ref_config), L.rows_config(case)
+    pshape, _ = L.serve_shapes(case)
+    rs = RefShape(pshape.name, seq_len=pshape.seq_len,
+                  global_batch=pshape.global_batch, kind=pshape.kind)
+    full, _, _ = L.serve_inputs(cfg, rs.global_batch)
+    fn, in_sh, out_sh, _, _ = ref_prefill_step(rc, rs, _ref_mesh())
+    caches, logits = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)(
+        jax.tree.map(jnp.asarray, rows_weights[case][0]),
+        {k: jnp.asarray(v) for k, v in full.items()})
+    got = np.load(serve_outputs / f"rows_{case}.npz")
+    bf16 = case.endswith("-bf16")
+    l_tol = dict(atol=ROWS_BF16_ATOL, rtol=0) if bf16 else REF_TOL
+    c_tol = ROWS_BF16_CACHE_TOL if bf16 else CACHE_TOL
+    np.testing.assert_allclose(got["logits"], np.asarray(logits),
+                               err_msg=case, **l_tol)
+    names = [k for k in got.files if k != "logits"]
+    assert names
+    for key in names:
+        u, *path = key.split(".")
+        want = caches
+        for part in path:
+            want = want[part]
+        np.testing.assert_allclose(
+            got[key], np.asarray(want[int(u[1:])], np.float32),
+            err_msg=f"{case} {key}", **c_tol)

@@ -20,7 +20,10 @@ starts 4 ranks: one train step of each arch of ``TP_ARCHS`` (reduced, f32,
 cut so that each takes the tensor-parallel path named beside it) on a
 (2, 2) ``("data", "model")`` mesh, saved as above; on rank 0 a hook
 counts, per unit, the storages of the leaves the step gathers and of the
-gradients its gathers' backward receives (``tp_gathers.json``).  Then
+gradients its gathers' backward receives (``tp_gathers.json``); then one
+train step of each case of ``ROWS_CASES`` (whisper, its attention split
+over query positions) on the case's mesh, on the weights the test wrote
+(``weights_<case>.npz``), saved with its gradients.  Then
 the launcher itself, once the ranks are gone, starts a fake process group
 of 4, counts reduced olmoe's step on a (2, 2) mesh of it on ``meta``
 (``roofline.analyze.analyze_step``) and writes ``tp_analysis.json``.
@@ -38,7 +41,9 @@ rank the bytes its steps hold at their peak (``serve_peak_<rank>.json``:
 its arguments plus the storages the steps create, counted as
 ``roofline.analyze`` counts them) beside the whole model's and caches'.
 The long-context cases decode one sequence, fewer than the ``data``
-positions, so the caches' slots split over ``data``.
+positions, so the caches' slots split over ``data``.  Then
+``make_prefill_step`` of each case of ``ROWS_CASES`` on its mesh
+(``rows_<case>.npz``).
 
 Rendezvous is a ``file://`` path inside ``OUT_DIR``; every rank (and the
 launcher's fake group) destroys its process group in a ``finally``, and
@@ -90,6 +95,70 @@ TP_ARCHS = {
     # 8 patches before the text: the prefix counted once in the sum
     "llava-next-34b": {},
 }
+
+
+#: whisper's attention split over query positions (fewer query heads than
+#: ``model`` ranks), on the reference's weights (``weights_<case>.npz``,
+#: which the test writes before the ranks start): each case's mesh and cut
+ROWS_CASES = {
+    # 1 head over a model axis of 2: each rank computes it for its 16 of
+    # the 32 positions; the encoder's 15 frames in blocks of 7 and 8
+    "whisper-2x2": ((2, 2), {"vocab_size": 127, "enc_seq": 15,
+                             "n_heads": 1, "n_kv_heads": 1}),
+    # 3 query heads over 1 KV head on a model axis of 4: the rank's columns
+    # of wq straddle two heads; 15 frames in uneven blocks of 3 and 4
+    "whisper-1x4": ((1, 4), {"vocab_size": 127, "enc_seq": 15,
+                             "n_heads": 3, "n_kv_heads": 1}),
+    # the same in bf16 compute, with the steps' default bf16 caches
+    "whisper-1x4-bf16": ((1, 4), {"vocab_size": 127, "enc_seq": 15,
+                                  "n_heads": 3, "n_kv_heads": 1,
+                                  "dtype": "bfloat16"}),
+}
+
+
+def rows_config(case, get_config=None):
+    """A rows case's reduced whisper, from ``get_config`` (the port's by
+    default; the tests pass the reference's for its twin)."""
+    import dataclasses
+
+    if get_config is None:
+        from repro_torch.configs import get_config
+
+    return dataclasses.replace(
+        get_config("whisper-tiny").reduced(),
+        **{"loss_chunk": 16, "q_chunk": 16, "microbatches": 1,
+           "dtype": "float32", "cast_params_once": False,
+           **ROWS_CASES[case][1]})
+
+
+def reference_weights(case):
+    """The JAX package's init of a rows case (seed 0) carried across by
+    ``params_from_reference``: {port name: array}.  Called in the test's
+    process, which imports the reference; the ranks load the file."""
+    import jax
+    import numpy as np
+
+    import repro.models as RM
+    from repro.configs import get_config as ref_config
+    from repro_torch.models.convert import params_from_reference
+
+    tree = jax.tree.map(np.asarray, RM.init_params(
+        rows_config(case, ref_config), jax.random.PRNGKey(0)))
+    model = params_from_reference(rows_config(case), tree)
+    return tree, {n: p.detach().numpy() for n, p in model.named_parameters()}
+
+
+def rows_model(case, out_dir):
+    """The port's model of a rows case on the weights the test wrote."""
+    import numpy as np
+    import torch
+
+    model = init_model(rows_config(case))
+    with np.load(os.path.join(out_dir, f"weights_{case}.npz")) as w:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.data = torch.from_numpy(w[n].copy())
+    return model
 
 
 #: serving: a prompt of ``SERVE_S`` positions fills caches of ``SERVE_S``
@@ -276,39 +345,55 @@ def init_model(cfg):
     return init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-def _train_on(mesh_shape, rank, out_dir, cfg=None, inputs=None, tag=None):
+def _train_on(mesh_shape, rank, out_dir, cfg=None, inputs=None, tag=None,
+              model=None):
+    """One train step on ``mesh_shape``; rank 0 saves the loss, the
+    gradient norm and the new parameters, μ, ν and the gradients (the
+    shards the step hands ``adamw_update``), each reassembled whole."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.train.optimizer import init_opt_state
 
     cfg = cfg or train_config()
     inputs = inputs or train_inputs(cfg)
     shape = ShapeConfig("t", seq_len=S, global_batch=B, kind="train")
     mesh = make_test_mesh(mesh_shape, device_type="cpu")
-    fn, in_sh, _, _, _ = make_train_step(cfg, shape, mesh)
+    fn, in_sh, _, _, _ = steps.make_train_step(cfg, shape, mesh)
     p_sh, o_sh, b_sh = in_sh
-    model = init_model(cfg)
+    model = model or init_model(cfg)
     with torch.no_grad():  # keep this rank's shards
         for n, p in model.named_parameters():
             p.data = _shard(p.data, p_sh[n], mesh)
     opt = init_opt_state(model)
     batch = {k: _shard(torch.from_numpy(v), b_sh[k], mesh)
              for k, v in inputs.items()}
-    new_p, new_o, loss, metrics = fn(model, opt, batch)
+    grads, update = {}, steps.adamw_update
+
+    def seen(hp, params, g, state, grad_norm=None):
+        grads.update(g)
+        return update(hp, params, g, state, grad_norm=grad_norm)
+
+    steps.adamw_update = seen
+    try:
+        new_p, new_o, loss, metrics = fn(model, opt, batch)
+    finally:
+        steps.adamw_update = update
     whole = {}
     for n, p in new_p.named_parameters():
         whole["p:" + n] = _unshard(p.data, p_sh[n], mesh)
         whole["mu:" + n] = _unshard(new_o.mu[n], o_sh.mu[n], mesh)
         whole["nu:" + n] = _unshard(new_o.nu[n], o_sh.nu[n], mesh)
+        whole["g:" + n] = _unshard(grads[n], p_sh[n], mesh)
     if rank == 0:
         tag = tag or "x".join(map(str, mesh_shape))
         np.savez(os.path.join(out_dir, f"train_{tag}.npz"),
-                 loss=loss.numpy(), grad_norm=metrics["grad_norm"].numpy(),
-                 **{k: v.numpy() for k, v in whole.items()})
+                 loss=loss.float().numpy(),
+                 grad_norm=metrics["grad_norm"].numpy(),
+                 **{k: v.float().numpy() for k, v in whole.items()})
 
 
 def _shard(t, sh, mesh):
@@ -444,6 +529,10 @@ def tp_rank_main(rank, out_dir):
                 count.close()
                 with open(os.path.join(out_dir, "tp_gathers.json"), "w") as f:
                     json.dump({"most": count.most, "units": count.units}, f)
+        for case, (mesh_shape, _) in ROWS_CASES.items():
+            cfg = rows_config(case)
+            _train_on(mesh_shape, rank, out_dir, cfg, tp_inputs(cfg),
+                      f"rows_{case}", rows_model(case, out_dir))
     finally:
         dist.destroy_process_group()
 
@@ -596,6 +685,37 @@ def _serve_on(case, rank, out_dir, peaks):
                  **{k: v.float().numpy() for k, v in out.items()})
 
 
+def _rows_prefill_on(case, rank, out_dir):
+    """``make_prefill_step`` of a rows case on its mesh (caches in the
+    case's dtype: f32, or the steps' default bf16); rank 0 saves the
+    logits and caches reassembled whole (``rows_<case>.npz``, in f32)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = rows_config(case)
+    pshape, _ = serve_shapes(case)
+    mesh = make_test_mesh(ROWS_CASES[case][0], device_type="cpu")
+    full, _, _ = serve_inputs(cfg, pshape.global_batch)
+    fn, (p_sh, b_sh), (c_sh, l_sh), _, _ = make_prefill_step(
+        cfg, pshape, mesh, _cache_dtype=serve_cache_dtype(cfg))
+    model = rows_model(case, out_dir)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.data = _shard(p.data, p_sh[n], mesh)
+    caches, logits = fn(model, {k: _shard(torch.from_numpy(v), b_sh[k], mesh)
+                                for k, v in full.items()})
+    out = {"logits": _unshard(logits, l_sh, mesh)}
+    shs = flat_caches(c_sh)
+    for name, t in flat_caches(caches).items():
+        out[name] = _unshard(t, shs[name], mesh)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"rows_{case}.npz"),
+                 **{k: v.float().numpy() for k, v in out.items()})
+
+
 def serve_rank_main(rank, out_dir):
     import torch
     import torch.distributed as dist
@@ -610,6 +730,8 @@ def serve_rank_main(rank, out_dir):
         peaks = {}
         for case in SERVE_CASES:
             _serve_on(case, rank, out_dir, peaks)
+        for case in ROWS_CASES:
+            _rows_prefill_on(case, rank, out_dir)
         with open(os.path.join(out_dir, f"serve_peak_{rank}.json"), "w") as f:
             json.dump(peaks, f)
     finally:
