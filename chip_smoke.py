@@ -158,8 +158,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    logits equal ``prefill`` / ``decode_step`` with ``dist=None`` bit for
    bit; the dry run (``python -m repro_torch.launch.dryrun``) of olmoe ×
    ``train_4k`` × 16x16, whisper-tiny × ``decode_32k`` × 2x16x16 and ×
-   ``train_4k`` × 16x16 in child processes on the host side by side (fake
-   process groups), each artifact's
+   ``train_4k`` × 16x16, mamba2-370m × ``train_4k`` × 16x16 in child
+   processes on the host side by side (fake process groups), each
+   artifact's
    per-device bytes, ``fits_hbm``, dominant term and roofline fraction;
    launches against ``PREDICTED_3K`` (none);
 3l. one rank of olmoe-1b-7b × ``train_4k`` × 16x16, tensor-parallel: in a
@@ -176,7 +177,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    (the fake collectives fill nothing); then the same child for
    whisper-tiny × ``train_4k`` × 16x16 (``TP_WHISPER``, dry-run in 3k): 6
    heads over 16 ranks, so the attention splits over query positions, and
-   the rank is the heaviest, rank 15; 3 steps at full width and depth;
+   the rank is the heaviest, rank 15; 3 steps at full width and depth; and
+   mamba2-370m × ``train_4k`` × 16x16 (``TP_MAMBA``, dry-run in 3k): 2 of
+   the 32 SSD heads a rank, the B / C columns projected a block a rank and
+   all-gathered; rank 0, all 48 layers, 3 steps;
 3m. one rank of each serving cell of ``SERVE_CELLS`` × 16x16, prefill and
    decode tensor-parallel with the caches split as they rest: the four
    cells' dry runs on ``meta``, side by side in child processes on the
@@ -4621,10 +4625,12 @@ SHARD_STEPS, SHARD_BATCH, SHARD_SEQ = 3, 2, 4096
 #: of 32,760 tokens and 8 decode steps fill it (batch 1)
 SERVE_CACHE, SERVE_DECODE = 32_768, 8
 #: the dry run's cells, each in a child process under this time limit (the
-#: first and the last phase 3l's: ``TP_CELL``, ``TP_WHISPER``)
+#: first and the last two phase 3l's: ``TP_CELL``, ``TP_WHISPER``,
+#: ``TP_MAMBA``)
 DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k", "single"),
                 ("whisper-tiny", "decode_32k", "multi"),
-                ("whisper-tiny", "train_4k", "single"))
+                ("whisper-tiny", "train_4k", "single"),
+                ("mamba2-370m", "train_4k", "single"))
 DRYRUN_TIMEOUT_S = 300
 #: relative tolerance of step 0 against its hand composition if an
 #: operator of the step has no deterministic CUDA implementation (named
@@ -4997,6 +5003,10 @@ TP_CHILD_FLAG = "--rank-of-16x16"
 #: phase 3l's second cell: whisper-tiny's 6 heads do not split over the 16
 #: ranks of ``model``, so its attention splits over query positions
 TP_WHISPER = ("whisper-tiny", "train_4k", "single")
+#: phase 3l's third cell: mamba2-370m's 32 SSD heads split over ``model``
+#: (2 a rank), its one B / C group's 256 columns projected 16 a rank and
+#: all-gathered
+TP_MAMBA = ("mamba2-370m", "train_4k", "single")
 #: how far a cell's peak device memory may lie from its dry run's
 #: ``per_device_bytes`` (a fraction, either way)
 PEAK_BAND = 0.2
@@ -5199,8 +5209,8 @@ def _check_rank(res, art, predicted, cell, what, card):
 
 def phase_tp_lm(torch, card, dry_arts, tmp):
     """Phase 3l: :func:`tp_rank` in a child process under
-    ``TP_TIMEOUT_S``, for ``TP_CELL`` and then ``TP_WHISPER`` (their dry
-    runs ``dry_arts``, phase 3k's artifacts); each peak device memory
+    ``TP_TIMEOUT_S``, for ``TP_CELL``, then ``TP_WHISPER`` and ``TP_MAMBA``
+    (their dry runs ``dry_arts``, phase 3k's artifacts); each peak device memory
     against the card's 80 GB and the dry run's ``per_device_bytes``, its
     collectives against the dry run's, kind by kind; no kernel launched
     (:func:`_check_rank`).  Returns {kernel: launches}."""
@@ -5210,7 +5220,7 @@ def phase_tp_lm(torch, card, dry_arts, tmp):
 
     t_phase = time.perf_counter()
     total = {name: 0 for name in KERNELS}
-    for cell in (TP_CELL, TP_WHISPER):
+    for cell in (TP_CELL, TP_WHISPER, TP_MAMBA):
         t_cell = time.perf_counter()
         arch, shape_name, _ = cell
         dry_art = dry_arts[cell]
@@ -6172,8 +6182,8 @@ def main() -> int:
             "at full width")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             sharded_lm_counts, dry_arts = phase_sharded_lm(torch, card, tmp)
-        log("== phase 3l: one rank of olmoe-1b-7b and of whisper-tiny × "
-            "train_4k × 16x16, tensor-parallel")
+        log("== phase 3l: one rank of olmoe-1b-7b, whisper-tiny and "
+            "mamba2-370m × train_4k × 16x16, tensor-parallel")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             tp_counts = phase_tp_lm(torch, card, dry_arts, tmp)
         log("== phase 3m: one rank of the serving cells × 16x16, "

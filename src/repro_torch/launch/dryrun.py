@@ -50,12 +50,21 @@ MODEL_RANKS = 16
 
 
 def counted_rank(cfg) -> int:
-    """The rank whose step a cell counts.  Where attention splits over
-    query positions (fewer query heads than ``model`` ranks, whisper:
+    """The rank whose step a cell counts, one that holds and computes the
+    most.  Where attention splits over query positions (fewer query heads
+    than ``model`` ranks, whisper:
     :func:`~repro_torch.models.attention.splits_queries`) a rank's causal
-    keys reach its block's end, so the last position of ``model`` holds
-    and computes the most: rank 15.  Elsewhere rank 0."""
-    return MODEL_RANKS - 1 if 0 < cfg.n_heads < MODEL_RANKS else 0
+    keys reach its block's end, so the last position of ``model``: rank
+    15.  Elsewhere the first rank with the largest block of query heads
+    (:meth:`~repro_torch.sharding.parallel.TensorParallel.block`: rank 1
+    where 24 or 56 heads split unevenly over 16), which is rank 0 where the
+    heads split evenly or there are none (mamba2)."""
+    heads = cfg.n_heads
+    if 0 < heads < MODEL_RANKS:
+        return MODEL_RANKS - 1
+    blocks = [(r + 1) * heads // MODEL_RANKS - r * heads // MODEL_RANKS
+              for r in range(MODEL_RANKS)]
+    return blocks.index(max(blocks))
 
 
 def _config(arch: str, opts=None):

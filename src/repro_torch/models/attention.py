@@ -186,10 +186,48 @@ def _probs_v(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _CappedSoftmax(torch.autograd.Function):
+    """``softmax(mask(softcap(s, cap)))`` of the f32 scores ``s`` (gemma2's
+    attention logits), computed in f32 and returned in ``dtype``.  It saves
+    one f32 tensor, ``tanh(s / cap)``, where autograd's chain of the same
+    operators saves that and the f32 probabilities: the backward recomputes
+    the probabilities from it, then takes the chain's backward steps in
+    their order, so values and gradients are the chain's bit for bit."""
+
+    @staticmethod
+    def forward(ctx, s, cap, hidden, dtype):
+        t = torch.tanh(s / cap)
+        p = torch.softmax(_capped(t, cap, hidden), dim=-1)
+        ctx.cap = cap
+        ctx.save_for_backward(t, hidden)
+        return p.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, hidden = ctx.saved_tensors
+        cap = ctx.cap
+        p = torch.softmax(_capped(t, cap, hidden), dim=-1)
+        g = torch._softmax_backward_data(g.to(p.dtype), p, -1, p.dtype)
+        del p
+        if hidden is not None:
+            g = g.masked_fill(hidden, 0.0)
+        g = torch.ops.aten.tanh_backward(g * cap, t)
+        return g / cap, None, None, None
+
+
+def _capped(t, cap, hidden):
+    """``cap · t`` with the ``hidden`` positions at ``NEG_INF``."""
+    x = cap * t
+    return x if hidden is None else x.masked_fill(hidden, NEG_INF)
+
+
 def _attend_chunk(q, k, v, mask, scale, cap):
     """q (B, qc, KV, G, hd); k/v (B, Sk, KV, hd); mask (qc, Sk) or None."""
     scores = _scores(q, k) * scale
-    scores = softcap(scores, cap)
+    if cap is not None:
+        hidden = None if mask is None else ~mask
+        probs = _CappedSoftmax.apply(scores, cap, hidden, v.dtype)
+        return _probs_v(probs, v)
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)

@@ -125,7 +125,7 @@ def sinusoidal_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The bf16-in / f32-out GEMM of 2-D or batched 3-D operands (cuBLAS's
-    ``out_dtype``): on the card only."""
+    ``out_dtype``): on the card, and on ``meta`` for the dry run's count."""
     if a.dim() == 2:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.bmm(a, b, out_dtype=torch.float32)
@@ -165,12 +165,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     values, summed in f32).  f32 operands multiply as they are; bf16
     operands on the card go through cuBLAS's bf16-in / f32-out GEMM
     (``out_dtype``), so a weight is never upcast, with the gradient of
-    :class:`_MatmulF32`; elsewhere the operands are upcast, which gives the
-    same products (a bf16 × bf16 product is exact in f32) and autograd's
-    gradient, the reference's."""
+    :class:`_MatmulF32`, and so do they on ``meta``, where the dry run
+    counts what the card runs; elsewhere the operands are upcast, which
+    gives the same products (a bf16 × bf16 product is exact in f32) and
+    autograd's gradient, the reference's."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    if (a.is_cuda or a.is_meta) and a.dtype == b.dtype == torch.bfloat16:
         return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
 

@@ -77,8 +77,13 @@ def _head_block(cfg: ModelConfig, params: Mamba2, tp):
     """This rank's block of the mixer's heads under tensor parallelism
     (``tp``): the weights all-gathered over ``model`` (the fused columns of
     ``in_proj`` and the conv's channels do not follow the heads), cut to
-    the rank's heads and the groups they read.  Returns (weights, d_inner,
-    heads, groups) of the block."""
+    the rank's heads (their z, x and dt columns and x channels).  B and C
+    are read by every head of a group, so the rank projects and convolves
+    its block of their 2·G·N columns, as the reference's spec splits the
+    fused columns (a rank projects 2·d_inner / ranks + 2·G·N / ranks +
+    H / ranks columns), and ``gather_bc`` all-gathers the blocks and cuts
+    the groups its heads read.  Returns (weights, d_inner, heads, groups,
+    gather_bc) of the block."""
     from ..sharding.parallel import Leaves
 
     d_in, H, P, N, G, conv_ch = _dims(cfg)
@@ -91,22 +96,33 @@ def _head_block(cfg: ModelConfig, params: Mamba2, tp):
     g0, g1 = h0 * G // H, (h1 - 1) * G // H + 1
     if (h1 - h0) % (g1 - g0):
         raise ValueError(f"{h1 - h0} heads over {g1 - g0} groups")
+    if (2 * G * N) % tp.size:
+        raise ValueError(f"{2 * G * N} B / C columns do not divide "
+                         f"{tp.size} ranks")
     dev = w["in_proj"].device
 
     def span(a, b):
         return torch.arange(a, b, device=dev)
 
-    xs, gs = span(h0 * P, h1 * P), span(g0 * N, g1 * N)
-    proj = torch.cat([xs, d_in + xs, 2 * d_in + gs, 2 * d_in + G * N + gs,
+    xs, bc = span(h0 * P, h1 * P), span(*tp.block(2 * G * N))
+
+    def gather_bc(t):
+        whole = tp.full(t, -1, 2 * G * N)
+        if (g0, g1) == (0, G):
+            return whole
+        return torch.cat([whole[..., g0 * N:g1 * N],
+                          whole[..., (G + g0) * N:(G + g1) * N]], dim=-1)
+
+    proj = torch.cat([xs, d_in + xs, 2 * d_in + bc,
                       2 * d_in + 2 * G * N + span(h0, h1)])
-    conv = torch.cat([xs, d_in + gs, d_in + G * N + gs])
+    conv = torch.cat([xs, d_in + bc])
     block = Leaves({
         "in_proj": w["in_proj"][:, proj], "conv_w": w["conv_w"][:, conv],
         "conv_b": w["conv_b"][conv], "A_log": w["A_log"][h0:h1],
         "D": w["D"][h0:h1], "dt_bias": w["dt_bias"][h0:h1],
         "norm_w": w["norm_w"][h0 * P:h1 * P],
         "out_proj": w["out_proj"][h0 * P:h1 * P]})
-    return block, (h1 - h0) * P, h1 - h0, g1 - g0
+    return block, (h1 - h0) * P, h1 - h0, g1 - g0, gather_bc
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -222,24 +238,30 @@ def mamba_train(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
     """Full-sequence SSD forward. x: (B, L, D).  Under tensor parallelism
     (``tp``) this rank computes its block of the heads (:func:`_head_block`)
-    on the whole sequence: the gated norm's mean square is all-reduced over
+    on the whole sequence, B and C from the ranks' blocks of their columns
+    all-gathered: the gated norm's mean square is all-reduced over
     ``model`` and the output is the rank's partial sum; the cache is the
     rank's (its heads' state, its block of the conv channels)."""
     Bsz, L, D = x.shape
     d_in, H, P, N, G, conv_ch = _dims(cfg)
     d_inner = d_in
     in_proj, proj_out = params.in_proj, 2 * d_in + 2 * G * N + H
+    gather_bc = None
     if tp is not None:
         if return_cache and H % tp.size:
             raise ValueError(f"{H} heads do not divide {tp.size} ranks: "
                              "the state cache would be whole")
-        params, d_in, H, G = _head_block(cfg, params, tp)
+        params, d_in, H, G, gather_bc = _head_block(cfg, params, tp)
     dt_ = x.dtype
 
     proj = x @ params.in_proj.to(dt_)
-    z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, H], dim=-1)
+    z, xBC, dt_raw = torch.split(proj, [d_in, proj.shape[-1] - d_in - H, H],
+                                 dim=-1)
     xBC = _causal_conv(xBC, params.conv_w.to(dt_), params.conv_b.to(dt_))
-    xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    xs, BC = torch.split(xBC, [d_in, xBC.shape[-1] - d_in], dim=-1)
+    if gather_bc is not None:
+        BC = gather_bc(BC)
+    Bm, Cm = torch.split(BC, [G * N, G * N], dim=-1)
     xs = xs.reshape(Bsz, L, H, P)
     Bm = Bm.reshape(Bsz, L, G, N)
     Cm = Cm.reshape(Bsz, L, G, N)

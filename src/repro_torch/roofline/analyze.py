@@ -22,7 +22,17 @@ kernel) and counts what that rank executes:
 * memory — the arguments' bytes (the exact sum of the rank's local shards),
   the peak of the bytes that the step's own tensors hold at once (every
   storage that an operator creates counts from its creation to its
-  release), the outputs, and the donated inputs that the outputs alias.
+  release, and CUDA's ``_softmax_backward_data`` one more buffer of its
+  output's size while it runs, which the card's kernel holds), the
+  outputs, and the donated inputs that the outputs alias.  Not counted:
+  cuBLAS's workspaces, allocated once per handle and stream and kept (their
+  size depends on the card, the build and ``CUBLAS_WORKSPACE_CONFIG``, and
+  the autograd thread has a handle of its own), and what other kernels
+  hold inside while they run.
+
+On ``meta`` a product of bf16 operands with an f32 result
+(:func:`repro_torch.models.common.matmul_f32`) runs as on the card, one
+bf16-in / f32-out GEMM (``out_dtype``) with no f32 copy of an operand.
 
 :func:`parse_collectives` and :func:`model_flops` are the reference's.
 """
@@ -232,11 +242,16 @@ def _collective_log_mode():
 class _Traffic(TorchDispatchMode):
     """Bytes accessed (each operator's tensor inputs read once, outputs
     written once; views, collectives and metadata operators free) and the
-    peak bytes held by the storages that the step's operators create."""
+    peak bytes held by the storages that the step's operators create, with
+    the buffer that an operator of ``_HELD`` holds while it runs."""
 
     _FREE = {"detach", "alias", "lift_fresh", "empty", "empty_like",
              "empty_strided", "new_empty", "new_empty_strided", "set_",
              "resize_", "record_stream", "wait_tensor"}
+    #: operators whose CUDA kernel holds one more buffer of its output's
+    #: size while it runs (the softmax backward's, measured on an H100 with
+    #: torch 2.11.0+cu128)
+    _HELD = {"_softmax_backward_data"}
 
     def __init__(self, inputs):
         super().__init__()
@@ -269,10 +284,22 @@ class _Traffic(TorchDispatchMode):
             self.live += n
             self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._release, key, n)
+        if name in self._HELD:
+            held = sum(_nbytes(t) for t in _tensors(out))
+            self.peak = max(self.peak, self.live + held)
         return out
 
     def is_new(self, t: torch.Tensor) -> bool:
         return t.untyped_storage()._cdata in self._new
+
+
+def _bmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of a batched product, which also takes
+    ``bmm.dtype``'s ``out_dtype`` (torch's own formula takes it for its
+    ``out_shape`` and fails)."""
+    from torch.utils.flop_counter import bmm_flop
+
+    return bmm_flop(a_shape, b_shape)
 
 
 def _storage_bytes(tensors) -> int:
@@ -317,7 +344,8 @@ def analyze_step(fn, local_args, cfg: ModelConfig, shape: ShapeConfig, mesh,
     traffic = _Traffic(inputs)
     with _environment_kept():
         comm = _collective_log_mode()
-        flops = FlopCounterMode(display=False)
+        flops = FlopCounterMode(display=False,
+                                custom_mapping={torch.ops.aten.bmm: _bmm_flops})
         with comm, flops, traffic:
             out = fn(*local_args)
             outs = _tensors(_leaves(out))

@@ -72,13 +72,18 @@ def _ops():
 
 
 def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along ``dim``, in the group's order."""
+    """The ranks' ``t`` concatenated along ``dim``, in the group's order.
+    A matrix comes back as the transpose of the gathered buffer, which a
+    GEMM reads as it lies; a tensor of more dimensions (a sequence gathered
+    along its positions) is copied contiguous here, once, so that its
+    consumers read and save this one copy instead of making their own."""
     ops = _ops()
     dim %= t.dim()
     x = t.movedim(dim, 0).contiguous()
     out = ops.wait_tensor(ops.all_gather_into_tensor(x, group.size(),
                                                      group.group_name))
-    return out.movedim(0, dim)
+    out = out.movedim(0, dim)
+    return out.contiguous() if out.dim() > 2 else out
 
 
 def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -241,8 +241,8 @@ def test_writer_thread_exits(tmp_path):
     """The writer starts with a save and is gone after ``wait()``."""
     m = CheckpointManager(str(tmp_path))
     m.save(1, _tree())
-    writers = [t for t in threading.enumerate()
-               if t.name == "checkpoint-writer"]
+    writer = m._thread
     m.wait()
-    assert writers and all(not t.is_alive() for t in writers)
+    assert writer is not None and writer.name == "checkpoint-writer"
+    assert not writer.is_alive()
     assert not m._running and m.all_steps() == [1]

@@ -26,9 +26,15 @@ causal keys reach the sequence's end), which holds at most twice the
 reference's bytes a rank and spends at least 0.75 of the reference's
 useful ratio, on both meshes for ``train_4k``; whisper-tiny ×
 ``decode_32k`` holds no more bytes and no lower a useful ratio than
-before that split.  starcoder2-3b × ``train_4k`` × 16 × 16, which
-that split does not touch, counts exactly as before it.  The pytest
-process imports no ``repro.launch.dryrun`` and starts no process group."""
+before that split.  Where query heads split unevenly (starcoder2's 24 and
+llava's 56 over 16) the dry run counts a rank with the largest block,
+rank 1: starcoder2-3b × ``train_4k`` × 16 × 16 counts that rank's pinned
+bytes and FLOPs.  mamba2-370m × ``train_4k`` × 16 × 16, whose ranks each
+project their share of the fused ``in_proj`` columns, counts within 5% of
+the reference's FLOPs, at least 0.59 useful and no more bytes than the
+reference; gemma2-9b × ``train_4k`` × 16 × 16 holds at most 1.3 times the
+reference's temporaries.  The pytest process imports no
+``repro.launch.dryrun`` and starts no process group."""
 
 import dataclasses
 import json
@@ -63,6 +69,14 @@ META_KEYS = {"arch", "shape", "mesh", "chips", "kind", "lower_s", "compile_s",
 REF_WHISPER = {("train_4k", "single"): (2_116_514_376, 0.36126),
                ("train_4k", "multi"): (1_117_417_992, 0.36126),
                ("prefill_32k", "single"): (1_087_980_816, 0.04271)}
+#: the reference's dry run of mamba2-370m × ``train_4k`` × 16 × 16:
+#: (flops_per_device, per_device_bytes)
+REF_MAMBA = (14_522_089_734_144, 2_983_848_080)
+#: the reference's dry run of gemma2-9b × ``train_4k`` × 16 × 16: temp_bytes
+REF_GEMMA2_TEMP = 8_115_550_488
+#: the port's dry run of starcoder2-3b × ``train_4k`` × 16 × 16, its
+#: counted rank 1: (per_device_bytes, flops_per_device, useful_flops_ratio)
+STARCODER2_RANK1 = (6_246_518_800, 139_981_574_111_232, 0.53188)
 #: the port's dry run of whisper-tiny × ``decode_32k`` × 16 × 16 before
 #: its attention split over query positions: (per_device_bytes,
 #: useful_flops_ratio)
@@ -206,12 +220,21 @@ def test_dryrun_tensor_parallel_step_fits_the_card(olmoe_train):
 
 def test_dryrun_counts_the_heaviest_rank():
     """Rank 15 where the query heads are fewer than ``model``'s 16 ranks
-    (whisper), else rank 0 (mamba2 has no attention)."""
+    (whisper); a rank with the largest block of query heads where they
+    split unevenly (starcoder2's 24, llava's 56: rank 1, whose block
+    ``TensorParallel.block`` makes one head larger than rank 0's); else
+    rank 0 (even blocks; mamba2 has no attention)."""
     from repro_torch.configs import cells, get_config
-    from repro_torch.launch.dryrun import counted_rank
+    from repro_torch.launch.dryrun import MODEL_RANKS, counted_rank
 
     ranks = {a: counted_rank(get_config(a)) for a, _ in cells()}
     assert ranks.pop("whisper-tiny") == 15
+    for arch in ("starcoder2-3b", "llava-next-34b"):
+        heads = get_config(arch).n_heads
+        blocks = [(r + 1) * heads // MODEL_RANKS - r * heads // MODEL_RANKS
+                  for r in range(MODEL_RANKS)]
+        rank = ranks.pop(arch)
+        assert blocks[rank] == max(blocks) > blocks[0] and rank == 1
     assert set(ranks.values()) == {0}
 
 
@@ -233,9 +256,32 @@ def test_dryrun_whisper_decode_no_worse(tmp_path):
 
 
 def test_dryrun_other_cells_count_as_before(tmp_path):
-    """starcoder2-3b's 24 heads split over ``model``: its cell counts the
-    bytes and FLOPs it counted before whisper's query split."""
+    """starcoder2-3b's 24 heads split unevenly over ``model``: its cell
+    counts rank 1 (2 heads; rank 0 has 1), whose bytes and FLOPs are
+    pinned as the count stands with bf16 products counted as the card runs
+    them and CUDA's softmax backward buffer held."""
     d = _dryrun(tmp_path, "starcoder2-3b", "train_4k", "single")
-    assert d["per_device_bytes"] == 5_818_671_120
-    assert d["flops_per_device"] == 111_119_393_882_112
-    assert abs(d["useful_flops_ratio"] - 0.67003) < 5e-6
+    assert d["per_device_bytes"] == STARCODER2_RANK1[0]
+    assert d["flops_per_device"] == STARCODER2_RANK1[1]
+    assert abs(d["useful_flops_ratio"] - STARCODER2_RANK1[2]) < 5e-6
+
+
+def test_dryrun_mamba_projects_its_share(tmp_path):
+    """Each rank projects its heads' z, x and dt columns and its block of
+    the B / C columns (274 of 4,384), as the reference's spec splits
+    ``in_proj``, not the whole group's B / C: FLOPs within 5% of the
+    reference's, at least 0.59 of them useful (the reference's 0.623), no
+    more bytes a rank than the reference's."""
+    d = _dryrun(tmp_path, "mamba2-370m", "train_4k", "single")
+    ref_flops, ref_bytes = REF_MAMBA
+    assert abs(d["flops_per_device"] / ref_flops - 1) <= 0.05
+    assert d["useful_flops_ratio"] >= 0.59
+    assert d["per_device_bytes"] <= ref_bytes
+
+
+def test_dryrun_gemma2_temporaries_near_the_reference(tmp_path):
+    """gemma2-9b's step keeps one whole-sequence copy per gather (not one
+    per consumer) and one f32 tensor per attention chunk for the capped
+    softmax: at most 1.3 times the reference's temporaries."""
+    d = _dryrun(tmp_path, "gemma2-9b", "train_4k", "single")
+    assert d["memory_analysis"]["temp_bytes"] <= 1.3 * REF_GEMMA2_TEMP

@@ -187,6 +187,108 @@ def test_analyze_step_counts_one_product():
     assert res["collective_s"] == 0 and res["dominant_term"] == "memory"
 
 
+@pytest.mark.parametrize("batch", [None, 3])
+def test_analyze_step_counts_bf16_products_as_the_card(batch):
+    """On ``meta`` ``matmul_f32`` of bf16 operands is the card's bf16-in /
+    f32-out GEMM: 2·M·K·N FLOPs (a 3-D product batched), the bf16 operands
+    read once and the f32 result written once, and nothing held but the
+    result: no f32 copy of an operand."""
+    from repro_torch.models.common import matmul_f32
+
+    m, k, n = 64, 96, 32
+    lead = () if batch is None else (batch,)
+    a = torch.empty(*lead, m, k, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(*lead, k, n, dtype=torch.bfloat16, device="meta")
+    mesh = make_test_mesh((1, 1), device_type="cpu")
+    cfg = get_config("starcoder2-3b")
+    res = analyze.analyze_step(matmul_f32, (a, b), cfg, TRAIN, mesh)
+    times = batch or 1
+    assert res["flops_per_device"] == 2 * m * k * n * times
+    assert res["bytes_accessed_per_device"] == times * (
+        2 * (m * k + k * n) + 4 * m * n)
+    mem = res["memory_analysis"]
+    assert mem["output_bytes"] == 4 * m * n * times
+    assert mem["temp_bytes"] == 0
+
+
+def test_bf16_product_gradient_on_meta_makes_no_f32_operand():
+    """The backward of ``matmul_f32`` on ``meta`` runs the card's
+    products: every f32 tensor, forward or backward, is a bf16-in /
+    f32-out product's result (the gradients then rounded to bf16); none
+    is an f32 copy of a bf16 operand."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.common import matmul_f32
+
+    made = []
+
+    class Made(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend((str(func), tuple(t.shape), t.dtype)
+                        for t in analyze._tensors(out))
+            return out
+
+    a = torch.empty(64, 96, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    b = torch.empty(96, 32, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    with Made():
+        out = matmul_f32(a, b)
+        da, db = torch.autograd.grad(out, (a, b), torch.empty_like(out))
+    assert out.dtype == torch.float32
+    assert (da.dtype, db.dtype) == (torch.bfloat16, torch.bfloat16)
+    f32 = sorted({op for op, _, dt in made if dt == torch.float32})
+    assert f32 == ["aten.empty_like.default", "aten.mm.dtype"], f32
+
+
+def _softmax_step(x, g):
+    x = x.detach().requires_grad_()
+    (gx,) = torch.autograd.grad(torch.softmax(x, dim=-1), x, g)
+    return gx
+
+
+def test_analyze_step_holds_the_softmax_backward_buffer(monkeypatch):
+    """CUDA's ``_softmax_backward_data`` holds one more buffer of its
+    output's size while it runs: the peak is the probabilities, the
+    gradient and that buffer, one more scores-sized buffer than the
+    operators' outputs alone."""
+    x = torch.empty(4, 8, 64, device="meta")
+    g = torch.empty(4, 8, 64, device="meta")
+    size = 4 * x.numel()
+    mesh = make_test_mesh((1, 1), device_type="cpu")
+    cfg = get_config("starcoder2-3b")
+
+    def temp():
+        res = analyze.analyze_step(_softmax_step, (x, g), cfg, TRAIN, mesh)
+        return res["memory_analysis"]["temp_bytes"]
+
+    held = temp()
+    monkeypatch.setattr(analyze._Traffic, "_HELD", set())
+    assert temp() == size  # the probabilities, beside the output
+    assert held == 2 * size
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-tiny"])
+def test_held_buffers_only_raise_the_count(arch, monkeypatch):
+    """Counting what the softmax backward holds never lowers a step's
+    peak, and raises it by at most one scores-sized buffer."""
+    cfg = dataclasses.replace(_small(get_config(arch)), dtype="bfloat16")
+    mesh = make_test_mesh((1, 1), device_type="cpu")
+    fn, in_sh, _, args, donate = make_train_step(cfg, TRAIN, mesh)
+
+    def temp():
+        res = analyze.analyze_step(fn, local_abstract_args(args, in_sh), cfg,
+                                   TRAIN, mesh, donate=donate)
+        return res["memory_analysis"]["temp_bytes"]
+
+    held = temp()
+    monkeypatch.setattr(analyze._Traffic, "_HELD", set())
+    plain = temp()
+    scores = 4 * TRAIN.global_batch * cfg.n_heads * cfg.q_chunk * TRAIN.seq_len
+    assert plain <= held <= plain + scores
+
+
 def test_analyze_step_deliberate_differences():
     """The port's method, pinned: eager counts leave ``*_raw`` equal and no
     while loop unknown; per-device bytes are the local shards (the whole

@@ -24,7 +24,12 @@ mesh in one child process (``tests/torch_lm_ranks.py OUT tp``):
   reference's weights (``params_from_reference``): the step's loss,
   gradient norm and reassembled gradients against the JAX package's train
   step on a 1 × 1 mesh, the f32 cases' new parameters, μ and ν too, and
-  those cases against the port's one-position step within 1e-5.
+  those cases against the port's one-position step within 1e-5;
+* mamba2's mixers with one B / C group over 2 and 4 ranks and two over 4
+  (``L.MAMBA_CASES``: each rank projects its block of the B / C columns,
+  all-gathered, and cuts its heads' group), on the reference's weights: the loss, gradient norm,
+  gradients, new parameters, μ and ν against the reference's train step
+  and the port's one-position step, as the rows cases.
 
 The pytest process starts no process group and builds no ``DeviceMesh``:
 the one-position step runs on the port's plain 1 × 1 ``Mesh``."""
@@ -71,13 +76,20 @@ REF_GRAD_TOL = dict(atol=1e-7, rtol=1e-4)
 BF16_LOSS_TOL = dict(atol=2e-4, rtol=0)
 BF16_NORM_TOL = dict(atol=5e-5, rtol=0)
 BF16_GRAD_TOL = dict(atol=1e-3, rtol=0)
+#: mamba2's f32 gradients against the reference's (``in_proj`` scaled by
+#: ``L.MAMBA_IN_PROJ_SCALE``): the port's own one-position step lies
+#: 1.6e-7 from them (of ≤ 0.19; the SSD's sums run in another order), the
+#: split step 1.4e-7; about four times that.  Projecting rank 0's block
+#: of the B / C columns on every rank misses by 1e-5 and more
+MAMBA_GRAD_TOL = dict(atol=6e-7, rtol=1e-4)
 ROWS_F32 = [c for c in L.ROWS_CASES if not c.endswith("-bf16")]
 
 
 @pytest.fixture(scope="module")
 def rows_weights():
     """{rows case: (the reference's init, its port names' arrays)}."""
-    return {case: L.reference_weights(case) for case in L.ROWS_CASES}
+    return {case: L.reference_weights(case)
+            for case in {**L.ROWS_CASES, **L.MAMBA_CASES}}
 
 
 @pytest.fixture(scope="module")
@@ -139,6 +151,10 @@ def _rows_shape():
 
 @pytest.mark.parametrize("case", ROWS_F32)
 def test_rows_train_step_equals_one_position(case, tp_outputs):
+    _equals_one_position(case, tp_outputs)
+
+
+def _equals_one_position(case, tp_outputs):
     cfg = L.rows_config(case)
     fn, _, _, _, _ = make_train_step(cfg, _rows_shape(),
                                      make_test_mesh((1, 1), device_type="cpu"))
@@ -161,6 +177,11 @@ def test_rows_train_step_matches_reference(case, tp_outputs, rows_weights):
     weights and batch: the reference's gradients are its μ after the one
     step, μ / ((1 − β1) · min(1, clip / (norm + 1e-9))).  The f32 cases'
     new parameters, μ and ν too."""
+    _matches_reference(case, tp_outputs, rows_weights)
+
+
+def _matches_reference(case, tp_outputs, rows_weights,
+                       grad_tol=REF_GRAD_TOL):
     rc, cfg = L.rows_config(case, ref_config), L.rows_config(case)
     tree = rows_weights[case][0]
     fn, in_sh, out_sh, _, _ = ref_train_step(
@@ -185,10 +206,28 @@ def test_rows_train_step_matches_reference(case, tp_outputs, rows_weights):
     for n, m in mu.items():
         np.testing.assert_allclose(got[f"g:{n}"], m / share,
                                    err_msg=f"{case} gradient {n}",
-                                   **(BF16_GRAD_TOL if bf16 else REF_GRAD_TOL))
+                                   **(BF16_GRAD_TOL if bf16 else grad_tol))
     if bf16:
         return
     for key, tr in (("p", new_p), ("mu", new_o.mu), ("nu", new_o.nu)):
         for n, want in named_from_tree(cfg, jax.tree.map(np.asarray, tr)).items():
             np.testing.assert_allclose(got[f"{key}:{n}"], want,
                                        err_msg=f"{case} {key} {n}", **REF_TOL)
+
+
+# ---------------------------------------------------------------------------
+# mamba2's B / C columns split over ``model`` (``L.MAMBA_CASES``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(L.MAMBA_CASES))
+def test_mamba_train_step_equals_one_position(case, tp_outputs):
+    _equals_one_position(case, tp_outputs)
+
+
+@pytest.mark.parametrize("case", list(L.MAMBA_CASES))
+def test_mamba_train_step_matches_reference(case, tp_outputs, rows_weights):
+    """Fewer B / C groups than ranks: each rank's block of the B / C
+    columns, all-gathered (and cut to its heads' group), gives the
+    reference's loss, gradient norm, gradients, new parameters, μ and ν."""
+    _matches_reference(case, tp_outputs, rows_weights, MAMBA_GRAD_TOL)

@@ -2,7 +2,9 @@
 family in the configs' default bf16, ``chunked_cross_entropy`` (padded,
 softcapped, masked; its logits never saved for the backward), the gradient
 of ``matmul_f32`` (the reference's on the host; the card's hand-written
-one) and trainable parameters with a serving path that records no graph.
+one), gemma2's capped attention softmax (one saved f32 tensor, the values
+and gradients of autograd's chain bit for bit) and trainable parameters
+with a serving path that records no graph.
 CPU, ``.reduced()`` sizes, the reference's weights carried across.
 
 Tolerances in bf16: the loss within ``atol = 5e-2``; a gradient leaf
@@ -203,6 +205,62 @@ def test_matmul_f32_hand_written_gradient(monkeypatch):
             np.testing.assert_allclose(tb.grad.float().numpy(),
                                        np.asarray(db, np.float32),
                                        rtol=2 ** -6, atol=1e-2)
+
+
+def _capped_attention_by_autograd(q, k, v, mask, scale, cap):
+    """A q chunk's attention with gemma2's softcap as autograd's chain of
+    operators, each saving what it saves."""
+    from repro_torch.models import attention as A
+
+    scores = C.softcap(A._scores(q, k) * scale, cap)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, A.NEG_INF)
+    return A._probs_v(torch.softmax(scores, dim=-1).to(v.dtype), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [True, False])
+def test_capped_softmax_equals_autograd_chain(dtype, masked):
+    """``attention._attend_chunk`` with a softcap (``_CappedSoftmax``)
+    gives the values and the q / k / v gradients of autograd's chain bit
+    for bit, a fully hidden row included, and saves one f32 tensor of the
+    scores' shape (``tanh(s / cap)``) where the chain saves two (``tanh``'s
+    and ``softmax``'s outputs)."""
+    from repro_torch.models import attention as A
+
+    g = torch.Generator().manual_seed(3)
+    B_, qc, KV, G, hd, Sk = 2, 8, 2, 3, 16, 12
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dtype)
+
+    q = draw(B_, qc, KV, G, hd, scale=3.0).requires_grad_()
+    k = draw(B_, Sk, KV, hd, scale=3.0).requires_grad_()
+    v = draw(B_, Sk, KV, hd).requires_grad_()
+    grad = draw(B_, qc, KV, G, hd)
+    mask = None
+    if masked:
+        mask = torch.arange(qc)[:, None] + 4 >= torch.arange(Sk)[None, :]
+        mask[0] = False
+    got, want = [], []
+    saved = {}
+    for fn, into in ((A._attend_chunk, got),
+                     (_capped_attention_by_autograd, want)):
+        sizes = []
+
+        def pack(t, sizes=sizes):
+            sizes.append((t.dtype, tuple(t.shape)))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn(q, k, v, mask, 0.25, 5.0)
+        into.extend([out, *torch.autograd.grad(out, (q, k, v), grad)])
+        saved[fn] = [s for s in sizes if s == (torch.float32,
+                                               (B_, KV, G, qc, Sk))]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(saved[A._attend_chunk]) == 1
+    assert len(saved[_capped_attention_by_autograd]) == 2
 
 
 def test_parameters_train_and_serving_records_no_graph(ref_weights):

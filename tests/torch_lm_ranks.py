@@ -22,7 +22,8 @@ cut so that each takes the tensor-parallel path named beside it) on a
 counts, per unit, the storages of the leaves the step gathers and of the
 gradients its gathers' backward receives (``tp_gathers.json``); then one
 train step of each case of ``ROWS_CASES`` (whisper, its attention split
-over query positions) on the case's mesh, on the weights the test wrote
+over query positions) and ``MAMBA_CASES`` (mamba2, fewer B / C groups than
+ranks) on the case's mesh, on the weights the test wrote
 (``weights_<case>.npz``), saved with its gradients.  Then
 the launcher itself, once the ranks are gone, starts a fake process group
 of 4, counts reduced olmoe's step on a (2, 2) mesh of it on ``meta``
@@ -116,25 +117,48 @@ ROWS_CASES = {
 }
 
 
+#: mamba2's mixers split over ``model`` with fewer B / C groups than
+#: ranks, on the reference's weights: each rank projects its block of the
+#: B / C columns, which the ranks all-gather (reduced: 8 heads, N = 16, so
+#: 32 B / C columns a group); each case's mesh and cut
+#: the mamba cases' ``in_proj`` scale: at the init's 0.02 the SSD's B·C
+#: term is too small to move the loss within 1e-5, so B and C, z, x and dt
+#: are drawn 8 times larger
+MAMBA_IN_PROJ_SCALE = 8.0
+MAMBA_CASES = {
+    # 4 heads and 16 B / C columns a rank, 4 chunks of the sequence
+    "mamba2-2x2": ((2, 2), {"ssm_chunk": 8}),
+    # 2 heads and 8 B / C columns a rank
+    "mamba2-1x4": ((1, 4), {"ssm_chunk": 8}),
+    # 2 groups: a rank's 2 heads read one, cut from the gathered columns
+    "mamba2-1x4-g2": ((1, 4), {"ssm_chunk": 8, "ssm_n_groups": 2}),
+}
+
+
 def rows_config(case, get_config=None):
-    """A rows case's reduced whisper, from ``get_config`` (the port's by
-    default; the tests pass the reference's for its twin)."""
+    """A case's reduced config on the reference's weights (whisper for
+    ``ROWS_CASES``, mamba2 for ``MAMBA_CASES``), from ``get_config`` (the
+    port's by default; the tests pass the reference's for its twin)."""
     import dataclasses
 
     if get_config is None:
         from repro_torch.configs import get_config
 
+    arch, cases = (("mamba2-370m", MAMBA_CASES) if case in MAMBA_CASES
+                   else ("whisper-tiny", ROWS_CASES))
     return dataclasses.replace(
-        get_config("whisper-tiny").reduced(),
+        get_config(arch).reduced(),
         **{"loss_chunk": 16, "q_chunk": 16, "microbatches": 1,
            "dtype": "float32", "cast_params_once": False,
-           **ROWS_CASES[case][1]})
+           **cases[case][1]})
 
 
 def reference_weights(case):
-    """The JAX package's init of a rows case (seed 0) carried across by
-    ``params_from_reference``: {port name: array}.  Called in the test's
-    process, which imports the reference; the ranks load the file."""
+    """The JAX package's init of a case (seed 0) carried across by
+    ``params_from_reference``: (the reference's tree, {port name:
+    array}); a mamba case's ``in_proj`` scaled by ``MAMBA_IN_PROJ_SCALE``
+    in both.  Called in the test's process, which imports the reference;
+    the ranks load the file."""
     import jax
     import numpy as np
 
@@ -144,6 +168,11 @@ def reference_weights(case):
 
     tree = jax.tree.map(np.asarray, RM.init_params(
         rows_config(case, ref_config), jax.random.PRNGKey(0)))
+    if case in MAMBA_CASES:
+        tree = jax.tree_util.tree_map_with_path(
+            lambda path, x: (x * MAMBA_IN_PROJ_SCALE
+                             if "in_proj" in jax.tree_util.keystr(path)
+                             else x), tree)
     model = params_from_reference(rows_config(case), tree)
     return tree, {n: p.detach().numpy() for n, p in model.named_parameters()}
 
@@ -529,7 +558,7 @@ def tp_rank_main(rank, out_dir):
                 count.close()
                 with open(os.path.join(out_dir, "tp_gathers.json"), "w") as f:
                     json.dump({"most": count.most, "units": count.units}, f)
-        for case, (mesh_shape, _) in ROWS_CASES.items():
+        for case, (mesh_shape, _) in {**ROWS_CASES, **MAMBA_CASES}.items():
             cfg = rows_config(case)
             _train_on(mesh_shape, rank, out_dir, cfg, tp_inputs(cfg),
                       f"rows_{case}", rows_model(case, out_dir))
